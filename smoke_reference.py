@@ -1,0 +1,191 @@
+"""Plain numpy reference for ``chip_smoke.py``'s checks at full shard size.
+
+It shares no code with ``repro_torch`` (and imports neither it nor the
+JAX package): it is a one-query-at-a-time transcription of the
+reference's host twins, so ``chip_smoke.py`` can hold the port's router,
+hop loop and graph builder to it on the full 1M-object index, where the
+JAX reference itself cannot run.
+
+  * ``dfs_entries`` — Algorithm 1 (RangeFilter) as the stack DFS of
+    ``repro.core.query_ref.range_filter`` with the entry-found budget and
+    the leaf-scan deviation.
+  * ``beam_search`` — Algorithm 3 on the beam pool with the wide frontier
+    (``query_ref._query_beam`` + ``_recons_nbr_fused``), plus the
+    engine's hop cap.
+  * ``graph_rows`` — the bulk builder's rule for one member row of one
+    tree node, in float64: the exact top-K in-node candidates (ties to
+    the lower node position) and the HNSW RNG prune.
+
+``tests/test_torch_reference.py`` pins all three to the JAX package on
+the CPU.
+
+    from smoke_reference import dfs_entries, beam_search, graph_rows
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["dfs_entries", "beam_search", "sq_dists_f64", "graph_rows",
+           "graph_shape"]
+
+
+def _matches(attrs: np.ndarray, lo: np.ndarray, hi: np.ndarray):
+    return np.all((attrs >= lo) & (attrs <= hi), axis=-1)
+
+
+def dfs_entries(tree, attrs, lo, hi, c_e: int, scan_budget: int) -> list:
+    """<= c_e entry ids in DFS order for the box [lo, hi]."""
+    m = attrs.shape[1]
+    full = (1 << m) - 1
+    root = int(np.nonzero(np.asarray(tree.parent) < 0)[0][0])
+    D0 = 0
+    for i in range(m):
+        if tree.lo[root, i] >= lo[i] and tree.hi[root, i] <= hi[i]:
+            D0 |= 1 << i
+
+    def scan_entry(p: int):
+        s = int(tree.start[p])
+        objs = tree.order[s:s + min(int(tree.count[p]), scan_budget)]
+        hit = np.nonzero(_matches(attrs[objs], lo, hi))[0]
+        return int(objs[hit[0]]) if len(hit) else None
+
+    entries: list = []
+    stack = [(root, D0)]
+    while stack and len(entries) < c_e:
+        p, D = stack.pop()
+        D |= int(tree.bl[p])
+        if D == full or int(tree.left[p]) < 0:
+            e = scan_entry(p)
+            if e is not None:
+                entries.append(e)
+            continue
+        dsp = int(tree.dim[p])
+        for pc in (int(tree.left[p]), int(tree.right[p])):
+            if (D >> dsp) & 1:
+                stack.append((pc, D))
+                continue
+            lc, rc = float(tree.lo[pc, dsp]), float(tree.hi[pc, dsp])
+            if lc > hi[dsp] or rc < lo[dsp]:
+                continue
+            if lc >= lo[dsp] and rc <= hi[dsp]:
+                stack.append((pc, D | (1 << dsp)))
+            else:
+                stack.append((pc, D))
+    return entries
+
+
+def beam_search(vecs, attrs, nbrs, entries, q, lo, hi, *, k: int, ef: int,
+                c_n: int, E: int, max_hops: int):
+    """One query's graph search. ``nbrs`` is object-major (n, H, M).
+    Returns (ids (k,) -1 padded, dists (k,) f32, hops)."""
+    n = vecs.shape[0]
+    HM = nbrs.shape[1] * nbrs.shape[2]
+    L = E * HM
+    size = ef + E * c_n
+    ids = np.full(size, -1, np.int64)
+    dists = np.full(size, np.inf, np.float32)
+    expanded = np.ones(size, bool)
+    visited = np.zeros(n, bool)
+
+    def resort():
+        srt = np.argsort(dists, kind="stable")
+        ids[:], dists[:], expanded[:] = ids[srt], dists[srt], expanded[srt]
+
+    if len(entries):
+        e = np.asarray(entries, np.int64)
+        dv = vecs[e] - q
+        d0 = np.einsum("ed,ed->e", dv, dv).astype(np.float32)
+        ids[:len(e)], dists[:len(e)] = e, d0
+        expanded[:len(e)] = ~np.isfinite(d0)
+        resort()
+        visited[e] = True
+
+    base = np.repeat(np.arange(E, dtype=np.int64) * c_n, HM)
+    hops = 0
+    while hops < max_hops:
+        frontier = ~expanded[:ef] & np.isfinite(dists[:ef])
+        slots = np.argsort(~frontier, kind="stable")[:E]
+        uvalid = frontier[slots]
+        if not uvalid.any():
+            break
+        expanded[slots[uvalid]] = True
+        hops += 1
+        nid = np.full(L, -1, np.int64)
+        for j in np.nonzero(uvalid)[0]:
+            nid[j * HM:(j + 1) * HM] = nbrs[ids[slots[j]]].reshape(HM)
+        valid = nid >= 0
+        nid_safe = np.where(valid, nid, 0)
+        # first occurrence along the fused stream
+        vpos = np.nonzero(valid)[0]
+        is_first = np.zeros(L, bool)
+        is_first[vpos[np.unique(nid[vpos], return_index=True)[1]]] = True
+        fresh = is_first & ~visited[nid_safe]
+        append = fresh & valid & _matches(attrs[nid_safe], lo, hi)
+        seg = append.reshape(E, HM)
+        napp_excl = (np.cumsum(seg, axis=1) - seg).reshape(L)
+        scanned = napp_excl < c_n
+        visited[nid_safe[fresh & scanned]] = True
+        keep = append & scanned
+        buf = np.full(E * c_n, -1, np.int64)
+        buf[base[keep] + napp_excl[keep]] = nid[keep]
+        bd = np.full(E * c_n, np.inf, np.float32)
+        got = buf >= 0
+        dv = vecs[buf[got]] - q
+        bd[got] = np.einsum("vd,vd->v", dv, dv)
+        ok = np.isfinite(bd)
+        ids[ef:] = np.where(ok, buf, -1)
+        dists[ef:] = np.where(ok, bd, np.inf)
+        expanded[ef:] = ~ok
+        resort()
+        ids[ef:], dists[ef:], expanded[ef:] = -1, np.inf, True
+    return ids[:k].copy(), dists[:k].copy(), hops
+
+
+def sq_dists_f64(vecs, rows, chunk: int = 1 << 16) -> np.ndarray:
+    """(R, n) float64 squared distances from the vectors ``rows`` (R, d)
+    to every row of ``vecs`` (n, d)."""
+    r = np.asarray(rows, np.float64)
+    rn = (r * r).sum(1)
+    out = np.empty((r.shape[0], vecs.shape[0]), np.float64)
+    for s in range(0, vecs.shape[0], chunk):
+        c = vecs[s:s + chunk].astype(np.float64)
+        out[:, s:s + chunk] = ((c * c).sum(1)[None, :] + rn[:, None]
+                               - 2.0 * (r @ c.T))
+    return out
+
+
+def graph_shape(count: int, M: int, ef_b: int):
+    """(K, M_eff) of the builder's size class for a node of ``count``."""
+    C = max(8, 1 << max(count - 1, 0).bit_length())
+    K = min(ef_b + 1, C)
+    return K, min(M, K - 1)
+
+
+def graph_rows(vecs, members, pos, d_rows, *, M: int, ef_b: int
+               ) -> np.ndarray:
+    """Adjacency rows of the node whose members are ``members`` (its
+    ``order`` slice), for the members at node positions ``pos``, given
+    their float64 squared distances ``d_rows`` (len(pos), len(members)).
+    Returns (len(pos), M) global ids in RNG scan order, -1 padded."""
+    K, M_eff = graph_shape(len(members), M, ef_b)
+    K = min(K, len(members))
+    out = np.full((len(pos), M), -1, np.int64)
+    for r, (p, d) in enumerate(zip(pos, d_rows)):
+        part = np.argpartition(d, K - 1)[:K] if K < len(d) \
+            else np.arange(len(d))
+        cand = part[np.lexsort((part, d[part]))]            # (dist, pos)
+        cv = vecs[members[cand]].astype(np.float64)
+        kept: list = []
+        for j, c in enumerate(cand):
+            if len(kept) >= M_eff:
+                break
+            if c == p:
+                continue
+            if kept:
+                dr = ((cv[kept] - cv[j]) ** 2).sum(1)
+                if (dr < d[c]).any():
+                    continue
+            kept.append(j)
+        out[r, :len(kept)] = members[cand[kept]]
+    return out

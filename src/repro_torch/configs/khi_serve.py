@@ -1,0 +1,67 @@
+"""khi-serve: the paper's own serving configuration, as in
+``repro.configs.khi_serve`` — a 1M-object shard (d=768, m=4 attrs, M=32)
+served with batched RFANNS queries through the auto planner. The port
+serves one shard on one card; sharding is ROADMAP item 13."""
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class KHIServeConfig:
+    name: str = "khi-serve"
+    n_per_shard: int = 1_000_000
+    d: int = 768
+    m: int = 4
+    M: int = 32
+    height: int = 24
+    nodes_per_shard: int = 1 << 20
+    k: int = 10
+    ef: int = 128
+    c_e: int = 10
+    c_n: int = 32
+    expand_width: int = 4
+    router: str = "level"
+    # the reference's declared dry-run bound; serving raises it to the
+    # index's required_frontier_cap
+    frontier_cap: int = 8192
+    # on the port this name selects the hand-written CUDA kernel
+    backend: str = "pallas_gather_l2_filter"
+    strategy: str = "auto"
+    scan_threshold: int = 100_000        # 10% of the 1M-object shard
+    quant: str = "none"
+    rerank_mult: int = 4
+    node_scan_threshold: int = 0
+    box_budget: int = 8
+    buckets: Tuple[int, ...] = (1, 8, 32, 128, 256)
+    cache_size: int = 65536
+
+    def search_params(self):
+        """SearchParams for this serving cell."""
+        from ..core.engine import SearchParams
+        return SearchParams(k=self.k, ef=self.ef, c_e=self.c_e, c_n=self.c_n,
+                            backend=self.backend,
+                            expand_width=self.expand_width,
+                            router=self.router,
+                            frontier_cap=self.frontier_cap,
+                            strategy=self.strategy,
+                            scan_threshold=self.scan_threshold,
+                            quant=self.quant,
+                            rerank_mult=self.rerank_mult,
+                            node_scan_threshold=self.node_scan_threshold,
+                            box_budget=self.box_budget)
+
+    def serve_config(self):
+        from ..serve.khi_service import ServeConfig
+        return ServeConfig(buckets=self.buckets, cache_size=self.cache_size)
+
+
+def config() -> KHIServeConfig:
+    return KHIServeConfig()
+
+
+def smoke_config() -> KHIServeConfig:
+    return KHIServeConfig(name="khi-serve-smoke", n_per_shard=2000, d=32,
+                          m=3, M=8, height=12, nodes_per_shard=4096, ef=32,
+                          backend="jnp", scan_threshold=200,
+                          buckets=(1, 8, 32), cache_size=1024)

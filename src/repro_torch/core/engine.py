@@ -1,0 +1,625 @@
+"""Batched KHI query engine and selectivity-adaptive planner, ported from
+``repro.core.engine``.
+
+The reference writes the search for one query (``_query_one``) and vmaps
+it; each lane runs its own ``while_loop``. Here one batched hop loop runs
+all lanes together: a lane whose frontier is exhausted, or that reached
+``SearchParams.hops()``, stops counting hops and its state stops changing
+(its selected slots are invalid, so nothing is expanded, marked or
+merged), and the loop ends when no lane is alive. Everything else keeps
+the reference's fixed-shape formulation and its tie rules:
+
+  * Phase A — ``router.route_level_sync`` (compacted frontier);
+  * Phase B — the wide frontier: the top-``expand_width`` unexpanded pool
+    slots per hop, one fused ``E*H*M`` candidate stream per lane, a
+    scatter-max first-occurrence dedup (``seen``), per-expansion ``c_n``
+    budgets by a segmented exclusive cumsum, one scoring call over the
+    ``E*c_n`` survivors, and the stable pool merge.
+
+Scoring goes through the ``Scorer`` registry. ``backend=
+"pallas_gather_l2_filter"`` names the predicate-fused scorer: on the port
+it launches the hand-written CUDA kernel (``kernels/csrc/
+gather_l2_filter.cu``) for CUDA tensors and its plain version on the CPU.
+``backend="jnp"`` is the unfused plain-PyTorch scorer. The strategies
+``graph``, ``scan`` and ``auto`` are ported; ``hybrid``, the quantized
+replicas, sharded indexes and predicate expressions raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import hashlib
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from . import beam
+from .router import (HostCardEstimator, ROUTERS, required_frontier_cap,
+                     route_level_sync)
+from .util import pow2_at_least, resolve_device
+from ..kernels import ops as _ops
+from ..kernels import ref as _ref
+
+__all__ = ["DeviceIndex", "SearchParams", "BACKENDS", "ROUTERS",
+           "STRATEGIES", "SCAN_BACKENDS", "DEFAULT_SCAN_FRAC", "QUANTS",
+           "Scorer", "Plan", "Planner", "device_put_index", "resolve_scorer",
+           "search_batch", "make_search_fn", "required_scan_budget",
+           "required_stack_cap", "required_frontier_cap",
+           "derive_search_params", "validate_search_params"]
+
+BACKENDS = ("jnp", "pallas_l2", "pallas_gather_l2", "pallas_gather_l2_filter")
+STRATEGIES = ("graph", "scan", "auto", "hybrid")
+QUANTS = ("none", "bf16", "int8")
+SCAN_BACKENDS = ("jnp", "pallas_gather_l2_filter")
+DEFAULT_SCAN_FRAC = 0.1
+
+_INF = float("inf")
+
+
+def _todo(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md Queue 1 "
+        f"item {item})")
+
+
+@dataclasses.dataclass
+class DeviceIndex:
+    """KHI flattened onto tensors of one device."""
+
+    vecs: torch.Tensor    # (n, d) float32
+    attrs: torch.Tensor   # (n, m) float32
+    nbrs: torch.Tensor    # (n, H, M) int32 (object-major: one gather/row)
+    left: torch.Tensor    # (P,) int64
+    right: torch.Tensor   # (P,) int64
+    dim: torch.Tensor     # (P,) int64
+    bl: torch.Tensor      # (P,) int64 bitmask
+    lo: torch.Tensor      # (P, m) float32
+    hi: torch.Tensor      # (P, m) float32
+    start: torch.Tensor   # (P,) int64
+    count: torch.Tensor   # (P,) int64
+    order: torch.Tensor   # (n,) int64
+    root: int
+
+    @property
+    def n(self) -> int:
+        return self.vecs.shape[0]
+
+    @property
+    def height(self) -> int:
+        return self.nbrs.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.vecs.device
+
+
+def device_put_index(index, *, device=None, quant: str = "none"
+                     ) -> DeviceIndex:
+    """Flatten a host index onto ``device`` (default ``cuda``). ``index``
+    is anything with the ``KHIIndex`` fields: ``vecs``, ``attrs``,
+    ``nbrs`` (H, n, M) and ``tree`` (numpy arrays or tensors), so an
+    index built by the JAX package works as it is."""
+    if quant != "none":
+        raise _todo(f"quant={quant!r}", "9")
+    dev = resolve_device(device)
+    t = index.tree
+
+    def up(a, dtype):
+        return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a)
+                               else a).to(device=dev, dtype=dtype)
+
+    nbrs = up(index.nbrs, torch.int32).permute(1, 0, 2).contiguous()
+    root = int(np.nonzero(np.asarray(t.parent) < 0)[0][0])
+    return DeviceIndex(
+        vecs=up(index.vecs, torch.float32).contiguous(),
+        attrs=up(index.attrs, torch.float32).contiguous(),
+        nbrs=nbrs,
+        left=up(t.left, torch.int64), right=up(t.right, torch.int64),
+        dim=up(t.dim, torch.int64),
+        bl=up(np.asarray(t.bl).astype(np.int64), torch.int64),
+        lo=up(t.lo, torch.float32), hi=up(t.hi, torch.float32),
+        start=up(t.start, torch.int64), count=up(t.count, torch.int64),
+        order=up(t.order, torch.int64), root=root)
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchParams:
+    """Static search configuration; the same fields, defaults and checks
+    as ``repro.core.engine.SearchParams``, so one set of params means the
+    same search in both packages."""
+
+    k: int = 10
+    ef: int = 64
+    c_e: int = 10
+    c_n: int = 32
+    stack_cap: int = 64
+    max_steps: int = 4096
+    scan_budget: int = 64
+    max_hops: int = 0        # 0 => ef * 4
+    backend: str = "jnp"
+    expand_width: int = 1
+    router: str = "level"
+    strategy: str = "graph"
+    scan_threshold: int = 0
+    frontier_cap: int = 0
+    quant: str = "none"
+    rerank_mult: int = 4
+    node_scan_threshold: int = 0
+    box_budget: int = 8
+
+    def __post_init__(self):
+        if self.expand_width < 1:
+            raise ValueError(f"expand_width must be >= 1, "
+                             f"got {self.expand_width}")
+        if self.expand_width > self.ef:
+            raise ValueError(f"expand_width must be <= ef "
+                             f"({self.ef}), got {self.expand_width}")
+        if self.c_e > self.ef:
+            raise ValueError(f"c_e must be <= ef ({self.ef}), got "
+                             f"{self.c_e}: the entry seed writes the first "
+                             f"c_e pool slots and the beam holds only ef")
+        if self.router not in ROUTERS:
+            raise ValueError(f"unknown router {self.router!r}; expected "
+                             f"one of {ROUTERS}")
+        if self.strategy not in STRATEGIES:
+            raise ValueError(f"unknown strategy {self.strategy!r}; expected "
+                             f"one of {STRATEGIES}")
+        if self.scan_threshold < 0:
+            raise ValueError(f"scan_threshold must be >= 0, "
+                             f"got {self.scan_threshold}")
+        if self.frontier_cap < 0:
+            raise ValueError(f"frontier_cap must be >= 0, "
+                             f"got {self.frontier_cap}")
+        if self.quant not in QUANTS:
+            raise ValueError(f"unknown quant {self.quant!r}; expected one "
+                             f"of {QUANTS}")
+        if self.rerank_mult < 1:
+            raise ValueError(f"rerank_mult must be >= 1, "
+                             f"got {self.rerank_mult}")
+        if self.node_scan_threshold < 0:
+            raise ValueError(f"node_scan_threshold must be >= 0, "
+                             f"got {self.node_scan_threshold}")
+        if self.box_budget < 1:
+            raise ValueError(f"box_budget must be >= 1, "
+                             f"got {self.box_budget}")
+
+    def hops(self) -> int:
+        return self.max_hops or self.ef * 4
+
+
+# --------------------------------------------------------------------------
+# Parameter validation against a concrete index
+# --------------------------------------------------------------------------
+
+def required_stack_cap(di: DeviceIndex) -> int:
+    """DFS depth bound: one pending sibling per level plus the current node."""
+    return int(di.nbrs.shape[-2]) + 1
+
+
+def required_scan_budget(di: DeviceIndex) -> int:
+    """Smallest entry-scan window that never misses an entry: the max
+    count over scannable nodes that are not provably contained (leaves
+    and nodes with blacklisted dims)."""
+    left = di.left.cpu().numpy()
+    bl = di.bl.cpu().numpy()
+    count = di.count.cpu().numpy()
+    scannable = (left < 0) | (bl != 0)
+    return int(count[scannable].max()) if scannable.any() else 1
+
+
+def derive_search_params(p: SearchParams, di: DeviceIndex) -> SearchParams:
+    """Copy of ``p`` with scan_budget/stack_cap/frontier_cap raised (never
+    lowered) to the sufficient values for ``di``."""
+    return dataclasses.replace(
+        p,
+        scan_budget=max(p.scan_budget, required_scan_budget(di)),
+        stack_cap=max(p.stack_cap, required_stack_cap(di)),
+        frontier_cap=(max(p.frontier_cap, required_frontier_cap(di))
+                      if p.router == "level" else p.frontier_cap),
+    )
+
+
+def _check_strategy_combo(p: SearchParams) -> None:
+    """Reject strategy combinations that cannot execute (the reference's
+    rules, word for word in substance)."""
+    if p.strategy in ("scan", "auto", "hybrid") \
+            and p.backend not in SCAN_BACKENDS:
+        raise ValueError(
+            f"strategy={p.strategy!r} is incompatible with backend "
+            f"{p.backend!r}: the brute-scan path masks the pass with the "
+            f"range predicate, which needs the fused filter kernel "
+            f"('pallas_gather_l2_filter') or the plain mask path ('jnp'). "
+            f"Switch backend, or force strategy='graph'.")
+    if p.strategy in ("auto", "hybrid") and p.router != "level":
+        raise ValueError(
+            f"strategy={p.strategy!r} requires router='level' (got "
+            f"{p.router!r}): the DFS router early-stops after c_e entries, "
+            f"so its count sum is not an in-range cardinality bound.")
+    if p.quant != "none" and p.backend not in SCAN_BACKENDS:
+        raise ValueError(
+            f"quant={p.quant!r} is incompatible with backend "
+            f"{p.backend!r}: the quantized score path needs "
+            f"'pallas_gather_l2_filter' or 'jnp'.")
+
+
+def validate_search_params(p: SearchParams, di: DeviceIndex, *,
+                           on_undersized: str = "raise",
+                           expr=None) -> SearchParams:
+    """Check ``p``'s index-dependent buffer bounds against ``di`` and the
+    strategy/backend/router rules; ``on_undersized`` is raise | adjust |
+    ignore, as in the reference."""
+    _check_strategy_combo(p)
+    if expr is not None:
+        raise _todo("predicate expressions", "12")
+    if on_undersized == "ignore":
+        return p
+    if on_undersized not in ("raise", "adjust"):
+        raise ValueError(f"on_undersized must be raise|adjust|ignore, "
+                         f"got {on_undersized!r}")
+    need_scan = required_scan_budget(di)
+    need_stack = required_stack_cap(di)
+    need_front = required_frontier_cap(di) if p.router == "level" else 0
+    if (p.scan_budget >= need_scan and p.stack_cap >= need_stack
+            and p.frontier_cap >= need_front):
+        return p
+    if on_undersized == "adjust":
+        return dataclasses.replace(
+            p, scan_budget=max(p.scan_budget, need_scan),
+            stack_cap=max(p.stack_cap, need_stack),
+            frontier_cap=max(p.frontier_cap, need_front))
+    raise ValueError(
+        f"SearchParams undersized for this index: need scan_budget >= "
+        f"{need_scan} (got {p.scan_budget}), stack_cap >= {need_stack} "
+        f"(got {p.stack_cap}) and frontier_cap >= {need_front} (got "
+        f"{p.frontier_cap}). Use derive_search_params() or pass "
+        f"on_undersized='adjust'.")
+
+
+# --------------------------------------------------------------------------
+# Scorer registry
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Scorer:
+    """``score(di, q (B, d), qlo, qhi (B, m), ids (B, C)) -> (B, C) f32``:
+    exact squared L2 on valid lanes, +inf on -1 lanes (fused scorers also
+    on lanes outside the box). ``in_range`` is the stream-side predicate
+    the hop budget counts."""
+
+    name: str
+    fused_filter: bool
+    score: Callable
+
+    def in_range(self, di: DeviceIndex, qlo: torch.Tensor,
+                 qhi: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        a = di.attrs[ids]                                   # (B, C, m)
+        return ((a >= qlo[:, None, :]) & (a <= qhi[:, None, :])).all(-1)
+
+
+def _plain_score(di, q, qlo, qhi, ids):
+    safe = ids.clamp_min(0)
+    diff = di.vecs[safe] - q[:, None, :]
+    d = (diff * diff).sum(-1)
+    return torch.where(ids >= 0, d, torch.full_like(d, _INF))
+
+
+def _filter_score(di, q, qlo, qhi, ids):
+    # the kernel consumes -1 lanes itself (emits +inf)
+    return _ops.gather_l2_filter(ids, di.vecs, di.attrs, q, qlo, qhi)
+
+
+def resolve_scorer(backend: Optional[str] = None) -> Scorer:
+    backend = backend or "jnp"
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown scoring backend {backend!r}; "
+                         f"expected one of {BACKENDS}")
+    if backend == "jnp":
+        return Scorer(name="jnp", fused_filter=False, score=_plain_score)
+    if backend == "pallas_gather_l2_filter":
+        return Scorer(name=backend, fused_filter=True, score=_filter_score)
+    raise _todo(f"backend={backend!r}", "8")
+
+
+# --------------------------------------------------------------------------
+# Phase B: the batched wide-frontier hop loop
+# --------------------------------------------------------------------------
+
+def _query_batch(di: DeviceIndex, q: torch.Tensor, qlo: torch.Tensor,
+                 qhi: torch.Tensor, p: SearchParams, scorer: Scorer):
+    """(B, d) x (B, m) x (B, m) -> (ids (B, k) int64, dists (B, k) f32,
+    hops (B,) int64); the reference's ``_query_one`` for every lane."""
+    B = q.shape[0]
+    n = di.n
+    H, M = di.nbrs.shape[1], di.nbrs.shape[2]
+    HM = H * M
+    E = p.expand_width
+    L = E * HM
+    cap = E * p.c_n
+    dev = q.device
+
+    entries, _ = route_level_sync(di, qlo, qhi, p)
+    e_valid = entries >= 0
+    e_dist = scorer.score(di, q, qlo, qhi, entries)
+    visited = beam.visited_init(B, n, dev)
+    beam.visited_mark(visited, entries, e_valid)
+    pool = beam.pool_seed(p.ef + cap, entries, e_dist, e_valid)
+    # seen[b, i]: hop-tagged stream position of id i's latest occurrence
+    seen = torch.full((B, n + 1), -1, dtype=torch.int32, device=dev)
+    hops = torch.zeros(B, dtype=torch.int64, device=dev)
+    rev = torch.arange(L - 1, -1, -1, device=dev, dtype=torch.int64)
+    base = (torch.arange(E, device=dev) * p.c_n).repeat_interleave(HM)
+    nbrs = di.nbrs.view(n, HM)
+    drop = torch.full((B, L), n, dtype=torch.int64, device=dev)
+    max_hops = p.hops()
+
+    for _ in range(max_hops):
+        alive = beam.pool_frontier_alive(pool, p.ef) & (hops < max_hops)
+        if not bool(alive.any()):
+            break
+        u_slots, us, uvalid = beam.pool_top_unexpanded(pool, p.ef, E)
+        uvalid = uvalid & alive[:, None]
+        pool = beam.pool_mark_expanded_many(pool, u_slots, uvalid)
+
+        # ReconsNbr over the fused E*H*M stream of each lane
+        u_safe = torch.where(uvalid, us, torch.zeros_like(us))
+        rows = nbrs[u_safe].to(torch.int64)                  # (B, E, HM)
+        nid = rows.view(B, L)
+        valid = ((rows >= 0) & uvalid[:, :, None]).view(B, L)
+        nid_safe = torch.where(valid, nid, torch.zeros_like(nid))
+
+        # first-occurrence dedup: scatter-max of a tag that decreases
+        # along the stream and grows by L per hop
+        tag = (hops[:, None] * L + rev[None, :]).to(torch.int32)
+        seen.scatter_reduce_(1, torch.where(valid, nid, drop), tag, "amax")
+        is_first = valid & (seen.gather(1, nid_safe) == tag)
+
+        fresh = is_first & ~visited.gather(1, nid_safe)
+        in_range = valid & scorer.in_range(di, qlo, qhi, nid_safe)
+        append = fresh & in_range
+        seg = append.view(B, E, HM).to(torch.int64)
+        napp_excl = (torch.cumsum(seg, 2) - seg).view(B, L)
+        scanned = napp_excl < p.c_n
+        beam.visited_mark(visited, nid, fresh & scanned)
+        keep = append & scanned
+        slots = torch.where(keep, base[None, :] + napp_excl,
+                            torch.full_like(napp_excl, cap))
+        buf = torch.full((B, cap + 1), -1, dtype=torch.int64, device=dev)
+        buf.scatter_(1, slots, nid)
+        buf = buf[:, :cap].contiguous()
+
+        bvalid = buf >= 0
+        bd = scorer.score(di, q, qlo, qhi, buf)
+        pool = beam.pool_merge_tail(pool, p.ef, buf, bd, bvalid)
+        hops = hops + alive.to(torch.int64)
+    return pool.ids[:, :p.k], pool.dists[:, :p.k], hops
+
+
+def make_search_fn(p: SearchParams, *, di: Optional[DeviceIndex] = None,
+                   on_undersized: str = "raise"):
+    """Graph search over tensors: fn(di, q (B, d), qlo, qhi (B, m)) ->
+    (ids (B, k) int64, dists (B, k) f32, hops (B,) int64). Pass ``di`` to
+    validate the index-dependent bounds up front."""
+    if p.strategy != "graph":
+        raise ValueError(
+            f"make_search_fn builds the graph program only; strategy="
+            f"{p.strategy!r} dispatches per query on the host — build a "
+            f"Planner (or call search_batch, which does).")
+    if p.quant != "none":
+        raise _todo(f"quant={p.quant!r}", "9")
+    if p.router != "level":
+        raise _todo("router='dfs'", "3")
+    if di is not None:
+        p = validate_search_params(p, di, on_undersized=on_undersized)
+    scorer = resolve_scorer(p.backend)
+
+    def search(di: DeviceIndex, q, qlo, qhi):
+        return _query_batch(di, q, qlo, qhi, p, scorer)
+
+    return search
+
+
+def _as_device_index(index, device) -> DeviceIndex:
+    if isinstance(index, DeviceIndex):
+        return index
+    if hasattr(index, "offsets") and hasattr(index, "di"):
+        raise _todo("sharded indexes", "13")
+    return device_put_index(index, device=device)
+
+
+def search_batch(index_or_di, queries: np.ndarray, preds,
+                 params: SearchParams, *, device=None,
+                 on_undersized: str = "adjust"):
+    """Host API: a host index or a DeviceIndex plus a list of
+    ``Predicate``s -> numpy (ids int32, dists, hops int32)."""
+    di = _as_device_index(index_or_di, device)
+    qlo = np.stack([pr.lo for pr in preds]).astype(np.float32)
+    qhi = np.stack([pr.hi for pr in preds]).astype(np.float32)
+    planner = Planner(di, params, on_undersized=on_undersized)
+    ids, dists, hops, _ = planner.search(queries, qlo, qhi)
+    return ids, dists, hops
+
+
+# --------------------------------------------------------------------------
+# Selectivity-adaptive planner
+# --------------------------------------------------------------------------
+
+def _scan_exact(vecs, attrs_nan, q, qlo, qhi, k: int, *, use_kernel: bool):
+    """One index's exact predicate-fused brute scan: the CUDA kernel
+    (plain version on the CPU) or, on backend 'jnp', the plain version."""
+    if use_kernel:
+        return _ops.scan_topk(vecs, attrs_nan, q, qlo, qhi, k=k)
+    return _ref.scan_topk_ref(vecs, attrs_nan, q, qlo, qhi, k)
+
+
+@dataclasses.dataclass
+class Plan:
+    """Host-side record of one batch's dispatch: the routing bound per
+    query (-1 when the strategy was forced), the per-query scan decision
+    and the resolved absolute threshold."""
+
+    card: np.ndarray
+    use_scan: np.ndarray
+    threshold: int
+
+
+class Planner:
+    """Per-query strategy dispatch over one index: ``graph``, ``scan`` or
+    ``auto`` (scan iff ``0 < card <= threshold``; zero-card lanes, such as
+    the serving layer's empty-box pad lanes, go to the graph program,
+    which exits at once). Mixed batches split into two sub-batches, each
+    padded to a power of two with empty-box lanes; results scatter back
+    by lane. The routing bound comes from ``HostCardEstimator`` through a
+    plan cache keyed on the box bytes plus ``plan_salt``."""
+
+    def __init__(self, index, params: SearchParams, *, device=None,
+                 on_undersized: str = "adjust",
+                 plan_cache: Optional["collections.OrderedDict"] = None,
+                 plan_salt: bytes = b""):
+        di = _as_device_index(index, device)
+        self.params = p = validate_search_params(params, di,
+                                                 on_undersized=on_undersized)
+        if p.strategy == "hybrid":
+            raise _todo("strategy='hybrid'", "10")
+        if p.quant != "none":
+            raise _todo(f"quant={p.quant!r}", "9")
+        if p.router != "level":
+            raise _todo("router='dfs'", "3")
+        self.index = di
+        self.device = di.device
+        self.n_total = int(di.count[di.root])
+        self.scan_threshold = int(p.scan_threshold) or max(
+            1, int(DEFAULT_SCAN_FRAC * self.n_total))
+        # padded rows (none unless the caller padded the index) get NaN
+        # attrs, which fail every box, so a scan never returns them
+        valid = torch.arange(di.attrs.shape[0], device=self.device) \
+            < self.n_total
+        self._scan_attrs = torch.where(valid[:, None], di.attrs,
+                                       torch.full_like(di.attrs, np.nan))
+        self._scorer = resolve_scorer(p.backend)
+        self._use_kernel = p.backend == "pallas_gather_l2_filter"
+        self._estimators = (self._build_estimators()
+                            if p.strategy == "auto" else None)
+        self._plan_cache: "collections.OrderedDict[bytes, int]" = (
+            collections.OrderedDict() if plan_cache is None else plan_cache)
+        self._plan_salt = plan_salt
+        self.plan_cache_size = 65536
+
+    def _build_estimators(self):
+        di = self.index
+        host = {f: getattr(di, f).cpu().numpy()
+                for f in ("left", "right", "dim", "bl", "lo", "hi", "count")}
+        return [HostCardEstimator(host["left"], host["right"], host["dim"],
+                                  host["bl"], host["lo"], host["hi"],
+                                  host["count"], di.root,
+                                  device=self.device)]
+
+    def _cards(self, qlo: np.ndarray, qhi: np.ndarray) -> np.ndarray:
+        """Per-query routing bound through the plan cache."""
+        B = qlo.shape[0]
+        out = np.zeros(B, np.int64)
+        keys, miss = [], []
+        for i in range(B):
+            h = hashlib.blake2b(digest_size=16)
+            h.update(self._plan_salt)
+            h.update(qlo[i].tobytes())
+            h.update(qhi[i].tobytes())
+            key = h.digest()
+            keys.append(key)
+            hit = self._plan_cache.get(key)
+            if hit is None:
+                miss.append(i)
+            else:
+                self._plan_cache.move_to_end(key)
+                out[i] = hit
+        if miss:
+            mi = np.asarray(miss)
+            card = sum(est.cards(qlo[mi], qhi[mi])
+                       for est in self._estimators)
+            for j, i in enumerate(miss):
+                out[i] = card[j]
+                self._plan_cache[keys[i]] = int(card[j])
+            while len(self._plan_cache) > self.plan_cache_size:
+                self._plan_cache.popitem(last=False)
+        return out
+
+    def plan(self, qlo: np.ndarray, qhi: np.ndarray) -> Plan:
+        qlo = np.ascontiguousarray(qlo, np.float32)
+        qhi = np.ascontiguousarray(qhi, np.float32)
+        B = qlo.shape[0]
+        p = self.params
+        if p.strategy in ("graph", "scan"):
+            return Plan(card=np.full(B, -1, np.int64),
+                        use_scan=np.full(B, p.strategy == "scan"),
+                        threshold=self.scan_threshold)
+        card = self._cards(qlo, qhi)
+        return Plan(card=card,
+                    use_scan=(card > 0) & (card <= self.scan_threshold),
+                    threshold=self.scan_threshold)
+
+    @staticmethod
+    def _pad_pow2(qs, lo, hi):
+        """Pad a sub-batch to the next power of two with empty-box lanes
+        (lo=+inf > hi=-inf: no entries and no in-range rows)."""
+        b = qs.shape[0]
+        pad = pow2_at_least(b) - b
+        if pad:
+            qs = np.concatenate([qs, np.zeros((pad,) + qs.shape[1:],
+                                              np.float32)])
+            lo = np.concatenate([lo, np.full((pad,) + lo.shape[1:],
+                                             np.inf, np.float32)])
+            hi = np.concatenate([hi, np.full((pad,) + hi.shape[1:],
+                                             -np.inf, np.float32)])
+        return qs, lo, hi
+
+    def _tensors(self, *arrays):
+        return [torch.as_tensor(a, dtype=torch.float32).to(self.device)
+                for a in arrays]
+
+    def _run_graph(self, qs, lo, hi):
+        q, ql, qh = self._tensors(qs, lo, hi)
+        ids, dists, hops = _query_batch(self.index, q, ql, qh, self.params,
+                                        self._scorer)
+        return (ids.to(torch.int32).cpu().numpy(), dists.cpu().numpy(),
+                hops.to(torch.int32).cpu().numpy())
+
+    def _run_scan(self, qs, lo, hi):
+        q, ql, qh = self._tensors(qs, lo, hi)
+        ids, dists = _scan_exact(self.index.vecs, self._scan_attrs, q, ql,
+                                 qh, self.params.k,
+                                 use_kernel=self._use_kernel)
+        return (ids.to(torch.int32).cpu().numpy(), dists.cpu().numpy(),
+                np.zeros(qs.shape[0], np.int32))
+
+    def search(self, queries, qlo, qhi):
+        """(B, d) x (B, m) x (B, m) -> (ids (B, k) int32, dists (B, k)
+        f32, hops (B,) int32, Plan); scan lanes carry hops = 0."""
+        queries = np.ascontiguousarray(queries, np.float32)
+        qlo = np.ascontiguousarray(qlo, np.float32)
+        qhi = np.ascontiguousarray(qhi, np.float32)
+        plan = self.plan(qlo, qhi)
+        B, k = queries.shape[0], self.params.k
+        scan_idx = np.nonzero(plan.use_scan)[0]
+        graph_idx = np.nonzero(~plan.use_scan)[0]
+        if not len(graph_idx):
+            ids, dists, hops = self._run_scan(queries, qlo, qhi)
+            return ids, dists, hops, plan
+        if not len(scan_idx):
+            ids, dists, hops = self._run_graph(queries, qlo, qhi)
+            return ids, dists, hops, plan
+        out_ids = np.full((B, k), -1, np.int32)
+        out_d = np.full((B, k), np.inf, np.float32)
+        out_h = np.zeros((B,), np.int32)
+        for idx, run in ((graph_idx, self._run_graph),
+                         (scan_idx, self._run_scan)):
+            qs, lo, hi = self._pad_pow2(queries[idx], qlo[idx], qhi[idx])
+            ids, dists, hops = run(qs, lo, hi)
+            out_ids[idx] = ids[: len(idx)]
+            out_d[idx] = dists[: len(idx)]
+            out_h[idx] = hops[: len(idx)]
+        return out_ids, out_d, out_h, plan
+
+    def search_expr(self, queries, expr):
+        raise _todo("Planner.search_expr", "12")

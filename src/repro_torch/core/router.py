@@ -1,0 +1,290 @@
+"""Tree routing (Algorithm 1) — Phase A of the query pipeline — and the
+planner's cardinality estimator, ported from ``repro.core.router``.
+
+``route_level_sync`` returns the same ``(entries, card)`` as the
+reference's level-synchronous sweep: up to ``c_e`` entry ids per lane,
+-1 padded, in DFS order (ascending key ``n - (start + count)`` over the
+scanned antichain), and the in-range cardinality bound (the sum of
+``count`` over scanned nodes).
+
+The reference holds a dense ``(F,)`` frontier per lane and gathers an
+``(F, scan_budget)`` entry window per lane per level. At a real shard
+(the khi-serve corpus at n = 1M: F = 431,876 nodes on the widest level,
+scan_budget = 54,165) that is far beyond any card's memory. The port computes the same values from a
+**compacted** frontier: a flat, lane-major list of ``(lane, node, D)``
+triples holding only live nodes. Children keep the reference's order
+(left then right, in parent order) and its per-lane overflow clamp:
+a child whose per-lane exclusive position is ``>= frontier_cap`` is
+dropped, exactly as the dense scatter with ``mode="drop"`` drops it.
+Entry scans run only for scanned nodes, in growing window chunks that
+stop per node at its first in-range object, its ``count`` or
+``scan_budget``, whichever comes first — the dense window's
+``argmax`` of the first hit. Keys of hits are unique (scanned ranges
+are disjoint), so the reference's per-level stable merge of the
+``c_e`` smallest keys equals one final per-lane selection.
+
+``HostCardEstimator`` keeps the reference's closed-form node-parallel
+computation, with torch tensors on a chosen device and lanes processed
+in chunks, so no ``(B, P)`` plane is built whole at a 1M-object shard.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+__all__ = ["ROUTERS", "route_level_sync", "HostCardEstimator",
+           "deleted_per_node", "required_frontier_cap"]
+
+ROUTERS = ("level", "dfs")
+
+
+def _require_frontier(F: int) -> None:
+    if F <= 0:
+        raise ValueError(
+            "SearchParams.frontier_cap is unset (0 = derive from the "
+            "index): resolve it with derive_search_params / "
+            "validate_search_params, or build the search via search_batch "
+            "or a Planner, which do. An arbitrary fixed width would "
+            "silently drop router branches.")
+
+
+def _root_D0(di, qlo: torch.Tensor, qhi: torch.Tensor) -> torch.Tensor:
+    """(B,) int64: D seeded with the dims the root rectangle covers."""
+    root = int(di.root)
+    m = qlo.shape[1]
+    cov = (di.lo[root][None] >= qlo) & (di.hi[root][None] <= qhi)
+    bits = 1 << torch.arange(m, device=qlo.device, dtype=torch.int64)
+    return (cov.to(torch.int64) * bits).sum(1)
+
+
+def _frontier_step(di, qlo, qhi, full: int, F: int, lane, node, fD):
+    """One level of the sweep over a flat lane-major frontier. Returns
+    (do_scan, next lane, next node, next D) with the next frontier in
+    the reference's slot order, clamped per lane at ``F``."""
+    D = fD | di.bl[node]
+    is_full = D == full
+    is_leaf = di.left[node] < 0
+    do_scan = is_full | is_leaf
+    expand = ~do_scan
+    dsp = di.dim[node].clamp_min(0)
+    covered = ((D >> dsp) & 1) == 1
+    qlod = qlo[lane, dsp]
+    qhid = qhi[lane, dsp]
+    bit = torch.ones_like(D) << dsp
+
+    def child(pc):
+        csafe = pc.clamp_min(0)
+        lc = di.lo[csafe, dsp]
+        rc = di.hi[csafe, dsp]
+        disjoint = (lc > qhid) | (rc < qlod)
+        contained = (lc >= qlod) & (rc <= qhid)
+        newD = torch.where(covered | ~contained, D, D | bit)
+        return expand & (covered | ~disjoint), newD
+
+    cl, cr = di.left[node], di.right[node]
+    vl, Dl = child(cl)
+    vr, Dr = child(cr)
+    c_node = torch.stack([cl, cr], 1).reshape(-1)
+    c_D = torch.stack([Dl, Dr], 1).reshape(-1)
+    c_valid = torch.stack([vl, vr], 1).reshape(-1)
+    c_lane = lane.repeat_interleave(2)[c_valid]
+    c_node, c_D = c_node[c_valid], c_D[c_valid]
+    # per-lane exclusive position (the list is lane-major): overflow clamp
+    B = qlo.shape[0]
+    counts = torch.bincount(c_lane, minlength=B)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(c_lane.numel(), device=lane.device) - starts[c_lane]
+    keep = pos < F
+    return do_scan, c_lane[keep], c_node[keep], c_D[keep]
+
+
+def _first_hits(di, qlo, qhi, lane, node, SB: int) -> torch.Tensor:
+    """Entry scan for scanned nodes: the first object of
+    ``order[start : start + min(count, SB)]`` whose attrs pass the lane's
+    box, or -1. Windows grow 8, 16, 32, ... and each node leaves the
+    loop at its first hit."""
+    n = di.order.shape[0]
+    out = torch.full_like(node, -1)
+    start = di.start[node]
+    cnt = torch.minimum(di.count[node], torch.full_like(node, SB))
+    pending = torch.arange(node.numel(), device=node.device)
+    j0, w = 0, 8
+    while pending.numel() and j0 < SB:
+        w = max(1, min(w, SB - j0, (1 << 24) // max(1, pending.numel())))
+        jj = torch.arange(j0, j0 + w, device=node.device)
+        st, ct, ln = start[pending], cnt[pending], lane[pending]
+        in_node = jj[None, :] < ct[:, None]
+        obj = di.order[(st[:, None] + jj[None, :]).clamp_max(n - 1)]
+        a = di.attrs[obj]
+        ok = in_node & ((a >= qlo[ln][:, None, :])
+                        & (a <= qhi[ln][:, None, :])).all(-1)
+        hit = ok.any(1)
+        first = ok.to(torch.int8).argmax(1)
+        out[pending[hit]] = obj[hit, first[hit]]
+        pending = pending[~hit & (ct > j0 + w)]
+        j0 += w
+        w *= 2
+    return out
+
+
+def route_level_sync(di, qlo: torch.Tensor, qhi: torch.Tensor, p):
+    """(B, m) boxes -> (entries (B, c_e) int64, -1 padded, DFS order;
+    card (B,) int64 in-range cardinality bound)."""
+    F = p.frontier_cap
+    _require_frontier(F)
+    B, m = qlo.shape
+    full = (1 << m) - 1
+    H = di.nbrs.shape[1]
+    n = di.order.shape[0]
+    dev = qlo.device
+    lane = torch.arange(B, device=dev)
+    node = torch.full((B,), int(di.root), dtype=torch.int64, device=dev)
+    fD = _root_D0(di, qlo, qhi)
+    card = torch.zeros(B, dtype=torch.int64, device=dev)
+    hit_lane, hit_key, hit_ent = [], [], []
+    for _ in range(H):
+        if not lane.numel():
+            break
+        do_scan, n_lane, n_node, n_D = _frontier_step(
+            di, qlo, qhi, full, F, lane, node, fD)
+        s_lane, s_node = lane[do_scan], node[do_scan]
+        card.index_add_(0, s_lane, di.count[s_node])
+        e = _first_hits(di, qlo, qhi, s_lane, s_node, p.scan_budget)
+        got = e >= 0
+        hit_lane.append(s_lane[got])
+        hit_ent.append(e[got])
+        hit_key.append(n - (di.start[s_node[got]] + di.count[s_node[got]]))
+        lane, node, fD = n_lane, n_node, n_D
+    entries = torch.full((B, p.c_e), -1, dtype=torch.int64, device=dev)
+    if hit_lane:
+        hl = torch.cat(hit_lane)
+        hk = torch.cat(hit_key)
+        he = torch.cat(hit_ent)
+        srt = torch.argsort(hl * (1 << 32) + hk)
+        hl, he = hl[srt], he[srt]
+        counts = torch.bincount(hl, minlength=B)
+        starts = torch.cumsum(counts, 0) - counts
+        rank = torch.arange(hl.numel(), device=dev) - starts[hl]
+        sel = rank < p.c_e
+        entries[hl[sel], rank[sel]] = he[sel]
+    return entries, card
+
+
+class HostCardEstimator:
+    """Node-parallel routing cardinality bound (the reference's closed
+    form: ``D(p) = bl[p] | {i: proj_i(R(p)) ⊆ box_i}``, a stop mask, an
+    edge mask and one level-ordered reachability pass), evaluated with
+    torch on ``device`` in chunks of at most ``chunk_elems`` (lane, node)
+    pairs. ``cards((B, m) qlo, (B, m) qhi) -> (B,) int64`` numpy."""
+
+    def __init__(self, left, right, dim, bl, lo, hi, count, root: int, *,
+                 device="cpu", chunk_elems: int = 1 << 24):
+        left = np.asarray(left)
+        right = np.asarray(right)
+        dim = np.asarray(dim)
+        P, m = np.asarray(lo).shape
+        self.m = int(m)
+        self.full = (1 << m) - 1
+        self.root = int(root)
+        self.chunk_elems = int(chunk_elems)
+        parent = np.full(P, -1, np.int64)
+        for child in (left, right):
+            src = np.nonzero(child >= 0)[0]
+            parent[child[src]] = src
+        frontier = np.asarray([self.root])
+        levels = [frontier]
+        while True:
+            children = np.concatenate([left[frontier], right[frontier]])
+            frontier = children[children >= 0]
+            if not frontier.size:
+                break
+            levels.append(frontier)
+        ps = np.where(parent >= 0, dim[np.maximum(parent, 0)], 0).astype(
+            np.int64)
+        lo = np.asarray(lo, np.float32)
+        hi = np.asarray(hi, np.float32)
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+        self.device = torch.device(device)
+        self.bl = t(np.asarray(bl).astype(np.int64))
+        self.lo, self.hi = t(lo), t(hi)
+        self.count = t(np.asarray(count).astype(np.int64))
+        self.is_leaf = t(left < 0)
+        self.pa = t(np.maximum(parent, 0))
+        # (level nodes, their parents) below the root, top-down
+        self.levels = [(t(lv.astype(np.int64)), t(parent[lv]))
+                       for lv in levels[1:]]
+        self.ps = t(ps)
+        self.plo = t(lo[np.arange(P), ps])
+        self.phi = t(hi[np.arange(P), ps])
+
+    def antichain(self, qlo, qhi) -> torch.Tensor:
+        """(B, m) boxes -> (B, P) bool scanned antichain for ONE chunk of
+        lanes (callers bound B; ``cards`` does)."""
+        qlo = torch.as_tensor(qlo, dtype=torch.float32, device=self.device)
+        qhi = torch.as_tensor(qhi, dtype=torch.float32, device=self.device)
+        B = qlo.shape[0]
+        P = self.bl.shape[0]
+        D = self.bl.expand(B, P).clone()
+        for i in range(self.m):
+            D |= ((self.lo[:, i] >= qlo[:, i, None])
+                  & (self.hi[:, i] <= qhi[:, i, None])).to(torch.int64) << i
+        stop = (D == self.full) | self.is_leaf
+        disjoint = ((self.plo > qhi[:, self.ps])
+                    | (self.phi < qlo[:, self.ps]))
+        edge_ok = (((D[:, self.pa] >> self.ps) & 1) > 0) | ~disjoint
+        del D, disjoint
+        reached = torch.zeros((B, P), dtype=torch.bool, device=self.device)
+        reached[:, self.root] = True
+        for nl, pl in self.levels:
+            reached[:, nl] = reached[:, pl] & ~stop[:, pl] & edge_ok[:, nl]
+        return stop & reached
+
+    def cards(self, qlo: np.ndarray, qhi: np.ndarray,
+              chunk: Optional[int] = None) -> np.ndarray:
+        B = qlo.shape[0]
+        P = self.bl.shape[0]
+        step = chunk or max(1, self.chunk_elems // max(1, P))
+        out = []
+        for s in range(0, B, step):
+            anti = self.antichain(qlo[s:s + step], qhi[s:s + step])
+            out.append((anti.to(torch.int64) * self.count).sum(1))
+        if not out:
+            return np.zeros(0, np.int64)
+        return torch.cat(out).cpu().numpy()
+
+
+def deleted_per_node(order: np.ndarray, start: np.ndarray,
+                     count: np.ndarray, deleted_rows: np.ndarray
+                     ) -> np.ndarray:
+    """Per-node tombstone counts: how many of ``deleted_rows`` fall inside
+    each node's range ``order[start : start+count]`` (a numpy copy of the
+    reference; ``order`` must be the real, unpadded slice)."""
+    n = order.shape[0]
+    deleted_rows = np.asarray(deleted_rows, np.int64)
+    if not deleted_rows.size:
+        return np.zeros(start.shape[0], np.int64)
+    inv = np.empty(n, np.int64)
+    inv[np.asarray(order, np.int64)] = np.arange(n)
+    mark = np.zeros(n + 1, np.int64)
+    mark[inv[deleted_rows] + 1] = 1
+    cum = np.cumsum(mark)
+    s = start.astype(np.int64)
+    e = np.minimum(s + count.astype(np.int64), n)
+    return cum[e] - cum[np.minimum(s, n)]
+
+
+def required_frontier_cap(di) -> int:
+    """Smallest frontier width that can never drop a branch: the max node
+    count over tree levels."""
+    left = di.left.cpu().numpy()
+    right = di.right.cpu().numpy()
+    frontier = np.asarray([int(di.root)], dtype=np.int64)
+    cap = 1
+    while frontier.size:
+        cap = max(cap, int(frontier.size))
+        children = np.concatenate([left[frontier], right[frontier]])
+        frontier = children[children >= 0]
+    return cap

@@ -1,0 +1,276 @@
+// Exact predicate-masked brute scan with a top-k, for Hopper (sm_90a).
+//
+// Replaces: src/repro/kernels/scan_topk.py:scan_topk_kernel (the Pallas TPU
+// kernel behind the planner's strategy="scan" lanes).
+//
+// Computes, per query b: the k rows with the smallest sum_j (q[b,j] -
+// corpus[r,j])^2 among rows r whose attrs pass all(qlo[b] <= a <= qhi[b])
+// (NaN fails), ascending by (distance, row id) -- distance ties go to the
+// lowest id, exactly lax.top_k -- and (-1, +inf) past the in-range count.
+//
+// Bound on the H100: it depends on the boxes. Reading the corpus and
+// attrs once is ~3.1 GB at N=1M, d=768: ~0.92 ms at 3.35 TB/s. Only
+// (query, row) pairs whose row passes the box need a distance, 3 flops
+// per dimension (sub + fma): with every pair passing that is 5.9e11 flop
+// at B=256, ~8.8 ms at 67 TFLOP/s fp32, but with the planner's scan
+// lanes (boxes under 10% of N) it is under 0.9 ms, so the bound is the
+// bytes. chip_smoke.py computes it from its own boxes. This design reads
+// the corpus once per 64-query tile, and computes every pair of a row
+// tile in which any pair passes.
+//
+// Design: on the TPU the grid walks N in order and carries the running
+// top-k from step to step. H100 blocks run in no order, so this is two
+// passes:
+//   pass 1 (scan_partial_kernel): a block owns a tile of QT=64 queries and
+//     a chunk of rows. It walks the chunk in 64-row tiles: the tile's attrs
+//     are tested against the 64 boxes first (a tile with no passing pair
+//     skips its distance work), then distances come from a shared-memory
+//     tiled SIMT loop over 32-wide d slabs with a 4x4 register tile per
+//     thread, and one thread per query folds the masked tile into that
+//     query's running top-k (insertion after equal distances, so ascending
+//     row order keeps the lowest id first). Each chunk writes its partial
+//     top-k.
+//   pass 2 (scan_merge_kernel): one block per query merges the chunk
+//     partials by (distance, id) in k rounds of a block-wide arg-min.
+// The wrapper picks the chunk count so pass 1 fills the card; it allocates
+// the partial buffers and the outputs.
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+#include <limits.h>
+
+namespace {
+
+constexpr int QT = 64, TR = 64, DS = 32, MMAX = 8, KMAX = 64;
+
+__global__ void __launch_bounds__(256)
+scan_partial_kernel(const float* __restrict__ corpus,
+                    const float* __restrict__ attrs,
+                    const float* __restrict__ q,
+                    const float* __restrict__ qlo,
+                    const float* __restrict__ qhi,
+                    float* __restrict__ part_d, int* __restrict__ part_i,
+                    int B, int N, int d, int m, int k, int chunk_rows,
+                    int nchunks) {
+  __shared__ float Qs[DS][QT + 1];
+  __shared__ float Rs[DS][TR + 1];
+  __shared__ float Dt[QT][TR + 1];
+  __shared__ float Ra[TR][MMAX];
+  __shared__ float QL[QT][MMAX];
+  __shared__ float QH[QT][MMAX];
+  extern __shared__ float topd[];          // QT*k dists, then QT*k ids
+  int* topi = reinterpret_cast<int*>(topd + QT * k);
+
+  const int chunk = blockIdx.x;
+  const int q0 = blockIdx.y * QT;
+  const int r_begin = chunk * chunk_rows;
+  const int r_end = min(N, r_begin + chunk_rows);
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+
+  for (int e = tid; e < QT * m; e += 256) {
+    const int qi = e / m, a = e % m;
+    const int gq = q0 + qi;
+    // queries past B get the empty box: no row ever passes
+    QL[qi][a] = gq < B ? qlo[(size_t)gq * m + a] : CUDART_INF_F;
+    QH[qi][a] = gq < B ? qhi[(size_t)gq * m + a] : -CUDART_INF_F;
+  }
+  for (int e = tid; e < QT * k; e += 256) {
+    topd[e] = CUDART_INF_F;
+    topi[e] = -1;
+  }
+  __syncthreads();
+
+  for (int r0 = r_begin; r0 < r_end; r0 += TR) {
+    for (int e = tid; e < TR * m; e += 256) {
+      const int r = e / m, a = e % m;
+      const int gr = r0 + r;
+      Ra[r][a] = gr < r_end ? attrs[(size_t)gr * m + a] : CUDART_NAN_F;
+    }
+    __syncthreads();
+
+    unsigned pass = 0u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qi = ty + 16 * i, rj = tx + 16 * j;
+        bool ok = true;
+        for (int a = 0; a < m; ++a) {
+          const float v = Ra[rj][a];
+          ok = ok && (v >= QL[qi][a]) && (v <= QH[qi][a]);
+        }
+        pass |= (ok ? 1u : 0u) << (i * 4 + j);
+      }
+    const int any = __syncthreads_or(pass != 0u);
+
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    if (any) {
+      for (int k0 = 0; k0 < d; k0 += DS) {
+#pragma unroll
+        for (int s = 0; s < (QT * DS) / 256; ++s) {
+          const int e = tid + s * 256;
+          const int r = e / DS, col = e % DS;
+          const int gk = k0 + col;
+          const int gq = q0 + r, gr = r0 + r;
+          Qs[col][r] = (gq < B && gk < d) ? q[(size_t)gq * d + gk] : 0.f;
+          Rs[col][r] =
+              (gr < r_end && gk < d) ? corpus[(size_t)gr * d + gk] : 0.f;
+        }
+        __syncthreads();
+#pragma unroll 8
+        for (int kk = 0; kk < DS; ++kk) {
+          float a[4], b[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = Qs[kk][ty + 16 * i];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) b[j] = Rs[kk][tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float t = a[i] - b[j];
+              acc[i][j] = fmaf(t, t, acc[i][j]);
+            }
+        }
+        __syncthreads();
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        Dt[ty + 16 * i][tx + 16 * j] =
+            ((pass >> (i * 4 + j)) & 1u) ? acc[i][j] : CUDART_INF_F;
+    __syncthreads();
+
+    if (tid < QT && q0 + tid < B) {
+      float* td = topd + tid * k;
+      int* ti = topi + tid * k;
+      float worst = td[k - 1];
+      const int nr = min(TR, r_end - r0);
+      for (int r = 0; r < nr; ++r) {
+        const float dv = Dt[tid][r];
+        if (dv < worst) {
+          int p = k - 1;
+          while (p > 0 && td[p - 1] > dv) {
+            td[p] = td[p - 1];
+            ti[p] = ti[p - 1];
+            --p;
+          }
+          td[p] = dv;
+          ti[p] = r0 + r;
+          worst = td[k - 1];
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int e = tid; e < QT * k; e += 256) {
+    const int gq = q0 + e / k;
+    if (gq < B) {
+      const size_t o = ((size_t)gq * nchunks + chunk) * k + (e % k);
+      part_d[o] = topd[e];
+      part_i[o] = topi[e];
+    }
+  }
+}
+
+__device__ __forceinline__ bool lex_less(float ad, int ai, float bd, int bi) {
+  return ad < bd || (ad == bd && ai < bi);
+}
+
+__global__ void __launch_bounds__(256)
+scan_merge_kernel(const float* __restrict__ part_d,
+                  const int* __restrict__ part_i, int* __restrict__ out_i,
+                  float* __restrict__ out_d, int nchunks, int k) {
+  __shared__ float sd[32];
+  __shared__ int si[32];
+  const int b = blockIdx.x;
+  const int total = nchunks * k;
+  const float* pd = part_d + (size_t)b * total;
+  const int* pi = part_i + (size_t)b * total;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+
+  float prev_d = -CUDART_INF_F;
+  int prev_i = -1;
+  bool done = false;
+  for (int r = 0; r < k; ++r) {
+    float bd = CUDART_INF_F;
+    int bi = INT_MAX;
+    if (!done) {
+      for (int e = tid; e < total; e += blockDim.x) {
+        const float dv = pd[e];
+        if (!(dv < CUDART_INF_F)) continue;
+        const int iv = pi[e];
+        if (lex_less(prev_d, prev_i, dv, iv) && lex_less(dv, iv, bd, bi)) {
+          bd = dv;
+          bi = iv;
+        }
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        const float od = __shfl_xor_sync(0xffffffffu, bd, o);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+        if (lex_less(od, oi, bd, bi)) { bd = od; bi = oi; }
+      }
+      if (lane == 0) { sd[warp] = bd; si[warp] = bi; }
+      __syncthreads();
+      if (warp == 0) {
+        bd = lane < nwarps ? sd[lane] : CUDART_INF_F;
+        bi = lane < nwarps ? si[lane] : INT_MAX;
+        for (int o = 16; o > 0; o >>= 1) {
+          const float od = __shfl_xor_sync(0xffffffffu, bd, o);
+          const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+          if (lex_less(od, oi, bd, bi)) { bd = od; bi = oi; }
+        }
+        if (lane == 0) { sd[0] = bd; si[0] = bi; }
+      }
+      __syncthreads();
+      bd = sd[0];
+      bi = si[0];
+      __syncthreads();
+      if (!(bd < CUDART_INF_F)) done = true;
+    }
+    if (tid == 0) {
+      out_d[(size_t)b * k + r] = done ? CUDART_INF_F : bd;
+      out_i[(size_t)b * k + r] = done ? -1 : bi;
+    }
+    prev_d = bd;
+    prev_i = bi;
+  }
+}
+
+}  // namespace
+
+extern "C" int scan_topk_f32(const void* corpus, const void* attrs,
+                             const void* q, const void* qlo, const void* qhi,
+                             void* part_d, void* part_i, void* out_i,
+                             void* out_d, int B, int N, int d, int m, int k,
+                             int chunk_rows, int nchunks, void* stream) {
+  if (B == 0) return 0;
+  if (k < 1 || k > KMAX || m < 1 || m > MMAX || N < 1)
+    return (int)cudaErrorInvalidValue;
+  const int smem = QT * k * (int)(sizeof(float) + sizeof(int));
+  cudaError_t e = cudaFuncSetAttribute(
+      scan_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = (cudaStream_t)stream;
+  dim3 grid1(nchunks, (B + QT - 1) / QT);
+  scan_partial_kernel<<<grid1, 256, smem, s>>>(
+      (const float*)corpus, (const float*)attrs, (const float*)q,
+      (const float*)qlo, (const float*)qhi, (float*)part_d, (int*)part_i, B,
+      N, d, m, k, chunk_rows, nchunks);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  scan_merge_kernel<<<B, 256, 0, s>>>((const float*)part_d,
+                                      (const int*)part_i, (int*)out_i,
+                                      (float*)out_d, nchunks, k);
+  return (int)cudaGetLastError();
+}

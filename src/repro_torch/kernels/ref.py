@@ -1,0 +1,152 @@
+"""Plain PyTorch versions of the port's hand-written kernels.
+
+Each function computes exactly what its CUDA kernel in ``kernels/csrc``
+computes, with the arithmetic of ``repro.kernels.ref`` (the JAX package's
+oracles): the CPU runs these, the tests hold them against the JAX kernels,
+and ``chip_smoke.py`` holds each CUDA kernel against them on the card.
+``ops.py`` calls them only for tensors that lie on the CPU.
+
+``CALLS`` counts calls per device type, so a run can show that the CUDA
+main path never fell through to a plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["CALLS", "reset_calls", "lex_smallest", "l2dist_qn_ref",
+           "gather_l2_filter_ref", "scan_topk_ref"]
+
+CALLS = {name: {"cpu": 0, "cuda": 0}
+         for name in ("gather_l2_filter", "scan_topk", "l2dist_qn")}
+
+_INF = float("inf")
+
+
+def reset_calls() -> None:
+    for c in CALLS.values():
+        c["cpu"] = c["cuda"] = 0
+
+
+def _count(name: str, t: torch.Tensor) -> None:
+    kind = t.device.type
+    if kind in CALLS[name]:
+        CALLS[name][kind] += 1
+
+
+def _order_key(vals: torch.Tensor) -> torch.Tensor:
+    """int64 key whose signed order is the float32 order of ``vals`` with
+    the column index as the tie-break: (monotone float bits << 32) | col.
+    Keys are unique per row, so any top-k over them is deterministic."""
+    bits = vals.to(torch.float32).contiguous().view(torch.int32)
+    bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    col = torch.arange(vals.shape[-1], device=vals.device, dtype=torch.int64)
+    return (bits << 32) + col
+
+
+def _lex_smallest_keyed(vals: torch.Tensor, k: int):
+    key = _order_key(vals)
+    top = torch.topk(key, k, dim=-1, largest=False, sorted=True).values
+    idx = top & 0xFFFFFFFF
+    return vals.gather(-1, idx), idx
+
+
+def lex_smallest(vals: torch.Tensor, k: int):
+    """The k smallest entries of the last axis, ascending, ties to the
+    lowest index: the ``lax.top_k(-vals, k)`` contract. Returns (values,
+    indices int64).
+
+    Wide rows take a plain float top-k first: where exactly k entries are
+    <= the k-th value, that set is the answer and only its k members are
+    ordered by (value, index); rows with a tie at the k-th value (or
+    fewer than k finite entries) are redone with the exact int64 key."""
+    shape = vals.shape
+    C = shape[-1]
+    if C <= (1 << 14):
+        return _lex_smallest_keyed(vals, k)
+    flat = vals.reshape(-1, C)
+    v, i = torch.topk(flat, k, dim=-1, largest=False, sorted=False)
+    kth = v.max(-1, keepdim=True).values
+    tied = (flat <= kth).sum(-1) != k
+    key = (_order_key(v) >> 32 << 32) + i
+    o = torch.argsort(key, dim=-1)
+    v, i = v.gather(-1, o), i.gather(-1, o)
+    if bool(tied.any()):
+        rows = torch.nonzero(tied).squeeze(1)
+        v[rows], i[rows] = _lex_smallest_keyed(flat[rows], k)
+    return v.reshape(shape[:-1] + (k,)), i.reshape(shape[:-1] + (k,))
+
+
+def l2dist_qn_ref(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """All-pairs squared L2 by the expansion ‖q‖²+‖c‖²−2q·c:
+    q (B, d), c (N, d) -> (B, N), or batched (G, B, d), (G, N, d) ->
+    (G, B, N), f32."""
+    _count("l2dist_qn", q)
+    # full fp32 products: TF32 would keep ~3 decimal digits, and the
+    # kernel this version checks accumulates in fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q = q.to(torch.float32)
+    c = c.to(torch.float32)
+    qs = (q * q).sum(-1, keepdim=True)
+    cs = (c * c).sum(-1).unsqueeze(-2)
+    return qs + cs - 2.0 * (q @ c.transpose(-1, -2))
+
+
+def gather_l2_filter_ref(idx: torch.Tensor, corpus: torch.Tensor,
+                         attrs: torch.Tensor, q: torch.Tensor,
+                         qlo: torch.Tensor, qhi: torch.Tensor) -> torch.Tensor:
+    """idx (B, C) (-1 = pad) into corpus (N, d) / attrs (N, m), q (B, d),
+    qlo/qhi (B, m) -> (B, C) f32: ``sum((q - corpus[idx])^2)``, or +inf
+    when the lane is a pad, lies outside [0, N), or its attribute row
+    fails ``all(qlo <= a <= qhi)`` (NaN fails)."""
+    _count("gather_l2_filter", corpus)
+    N = corpus.shape[0]
+    valid = (idx >= 0) & (idx < N)
+    safe = torch.where(valid, idx, torch.zeros_like(idx)).long()
+    rows = corpus[safe].to(torch.float32)                 # (B, C, d)
+    diff = rows - q.to(torch.float32)[:, None, :]
+    dist = (diff * diff).sum(-1)
+    a = attrs[safe].to(torch.float32)                     # (B, C, m)
+    ok = ((a >= qlo[:, None, :]) & (a <= qhi[:, None, :])).all(-1)
+    return torch.where(ok & valid, dist, torch.full_like(dist, _INF))
+
+
+def scan_topk_ref(corpus: torch.Tensor, attrs: torch.Tensor, q: torch.Tensor,
+                  qlo: torch.Tensor, qhi: torch.Tensor, k: int, *,
+                  budget: int = 1 << 27):
+    """Exact predicate-masked top-k over every row: corpus (N, d),
+    attrs (N, m), q (B, d), qlo/qhi (B, m) -> (ids (B, k) int32,
+    dists (B, k) f32), ascending, distance ties to the lowest row id,
+    (-1, +inf) past the in-range count; NaN attrs never match.
+
+    Rows stream in chunks of at most ``budget`` (query, row, dim)
+    elements, folding each chunk into a running top-k: the running list
+    precedes the chunk, so position order is row-id order and the
+    lowest-index tie-break of ``lex_smallest`` is the lowest-id one."""
+    _count("scan_topk", corpus)
+    N, d = corpus.shape
+    B = q.shape[0]
+    if not 1 <= k <= N:
+        raise ValueError(f"k must be in [1, N={N}], got {k}")
+    q = q.to(torch.float32)
+    dev = corpus.device
+    best_d = torch.empty((B, 0), dtype=torch.float32, device=dev)
+    best_i = torch.empty((B, 0), dtype=torch.int64, device=dev)
+    step = max(1, budget // max(1, B * d))
+    for s in range(0, N, step):
+        c = corpus[s:s + step].to(torch.float32)
+        diff = c[None, :, :] - q[:, None, :]
+        dist = (diff * diff).sum(-1)                      # (B, ch)
+        a = attrs[s:s + step].to(torch.float32)
+        ok = ((a[None] >= qlo[:, None, :]) & (a[None] <= qhi[:, None, :])
+              ).all(-1)
+        dist = torch.where(ok, dist, torch.full_like(dist, _INF))
+        rows = torch.arange(s, s + c.shape[0], device=dev,
+                            dtype=torch.int64).expand(B, -1)
+        cand_d = torch.cat([best_d, dist], 1)
+        cand_i = torch.cat([best_i, rows], 1)
+        best_d, pos = lex_smallest(cand_d, min(k, cand_d.shape[1]))
+        best_i = cand_i.gather(1, pos)
+    ids = torch.where(torch.isfinite(best_d), best_i,
+                      torch.full_like(best_i, -1))
+    return ids.to(torch.int32), best_d

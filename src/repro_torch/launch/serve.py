@@ -1,0 +1,95 @@
+"""Serving launcher of the port: ``python -m repro_torch.launch.serve
+--mode khi`` builds a KHI index on the device (``builder="device"``),
+stands up a ``KHIService`` and drives it with a stream of mixed-size
+request bursts, as ``repro.launch.serve --mode khi`` does.
+
+``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain
+PyTorch versions of the kernels on the CPU. ``--backend
+pallas_gather_l2_filter`` is the predicate-fused scorer, which on the port
+is the hand-written CUDA kernel.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+
+def serve_khi(args):
+    from repro_torch.core import KHIConfig, KHIIndex, SearchParams
+    from repro_torch.core.engine import device_put_index
+    from repro_torch.core.util import resolve_device
+    from repro_torch.data import DatasetSpec, make_dataset, make_queries
+    from repro_torch.serve import KHIService, Request, ServeConfig
+
+    dev = resolve_device(args.device)
+    spec = DatasetSpec("serve", n=args.n, d=args.d, m=3, seed=0,
+                       attr_kinds=("year", "lognormal", "uniform"),
+                       attr_corr=0.6)
+    vecs, attrs = make_dataset(spec)
+    cfg = KHIConfig(M=16, builder="device")
+    print(f"[serve] building KHI over n={args.n} d={args.d} on {dev}")
+    index = KHIIndex.build(vecs, attrs, cfg, device=dev)
+    params = SearchParams(k=10, ef=args.ef, c_e=10, c_n=16,
+                          backend=args.backend,
+                          expand_width=args.expand_width,
+                          strategy=args.strategy,
+                          scan_threshold=args.scan_threshold)
+    buckets = tuple(sorted({1, 8, args.batch}))
+    svc = KHIService(device_put_index(index, device=dev), params,
+                     config=ServeConfig(buckets=buckets))
+
+    Q, preds = make_queries(vecs, attrs, n_queries=args.batch * args.iters,
+                            sigma=1 / 16, seed=1)
+    lo = np.stack([p.lo for p in preds]).astype(np.float32)
+    hi = np.stack([p.hi for p in preds]).astype(np.float32)
+    # warm up with perturbed copies (same shapes, different cache keys)
+    svc.search(Q[: args.batch] + np.float32(1e-3),
+               lo[: args.batch], hi[: args.batch])
+    reqs = (Request(Q[i], lo[i], hi[i]) for i in range(len(Q)))
+    t0 = time.perf_counter()
+    results = list(svc.serve_stream(reqs))
+    dt = time.perf_counter() - t0
+    snap = svc.snapshot()
+    print(f"[serve] {len(results)} requests in {dt:.2f}s "
+          f"({len(results)/dt:.0f} QPS end-to-end; "
+          f"device {snap['device_qps'] and round(snap['device_qps'])} QPS)")
+    print(f"[serve] backend={args.backend} E={args.expand_width} "
+          f"strategy={args.strategy} batches={snap['batches']} "
+          f"scan_lanes={snap['scan_lanes']} pad_lanes={snap['pad_lanes']} "
+          f"cache_hits={snap['cache_hits']} "
+          f"buckets={snap['traced_buckets']}")
+    return snap
+
+
+def main(argv=None):
+    from repro_torch.core.engine import BACKENDS, STRATEGIES
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", choices=["khi"], default="khi")
+    ap.add_argument("--n", type=int, default=5000)
+    ap.add_argument("--d", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--ef", type=int, default=64)
+    ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--backend", default="pallas_gather_l2_filter",
+                    choices=list(BACKENDS),
+                    help="scoring backend; pallas_gather_l2_filter is the "
+                         "CUDA kernel (its plain version on the CPU)")
+    ap.add_argument("--expand-width", type=int, default=1,
+                    help="frontier width E: pool entries expanded per hop")
+    ap.add_argument("--strategy", default="auto", choices=list(STRATEGIES))
+    ap.add_argument("--scan-threshold", type=int, default=0,
+                    help="auto-dispatch threshold in in-range objects "
+                         "(0 = 10%% of the corpus)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' for the plain "
+                         "versions)")
+    args = ap.parse_args(argv)
+    return serve_khi(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,310 @@
+"""Batched RFANNS serving layer, ported from ``repro.serve.khi_service``.
+
+``KHIService`` turns the engine into a service: shape-bucket micro-batching
+(pad lanes carry the empty box lo=+inf, hi=-inf, so the planner's bound
+is 0 and they take the graph program, which exits at once), an LRU
+result cache keyed on (query, box, params, epoch) bytes, epoch
+hot-swap, and ``search`` / ``submit`` + ``flush`` / ``serve_stream``
+entry points. Every micro-batch runs through an ``engine.Planner``
+(``strategy="graph"`` makes every lane a graph lane).
+
+Mesh serving, streaming writes, degradation tiers above 0 and predicate
+expressions are not ported yet and raise ``NotImplementedError`` naming
+their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import hashlib
+import time
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..core.engine import (DeviceIndex, Planner, SearchParams, _todo,
+                           device_put_index, validate_search_params)
+from ..core.util import resolve_device
+
+__all__ = ["ServeConfig", "Request", "Result", "KHIService"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Service-level knobs (index/search knobs live in SearchParams)."""
+
+    buckets: Tuple[int, ...] = (1, 8, 32, 128)
+    cache_size: int = 4096
+
+    def __post_init__(self):
+        if not self.buckets or list(self.buckets) != sorted(set(self.buckets)) \
+                or self.buckets[0] <= 0:
+            raise ValueError("buckets must be a sorted tuple of distinct "
+                             f"positive sizes, got {self.buckets!r}")
+        if self.cache_size < 0:
+            raise ValueError(f"cache_size must be >= 0 (0 disables), got "
+                             f"{self.cache_size}")
+
+    @property
+    def max_batch(self) -> int:
+        return self.buckets[-1]
+
+
+@dataclasses.dataclass
+class Request:
+    """One RFANNS query: a vector and a per-attribute [lo, hi] box."""
+
+    query: np.ndarray
+    lo: Optional[np.ndarray] = None
+    hi: Optional[np.ndarray] = None
+    expr: Optional[object] = None
+
+    def __post_init__(self):
+        if self.expr is not None:
+            raise _todo("Request(expr=...)", "12")
+        if self.lo is None or self.hi is None:
+            raise ValueError("Request needs a filter: pass both lo= and hi=")
+
+
+@dataclasses.dataclass
+class Result:
+    ids: np.ndarray    # (k,) int32 object ids, -1 padded
+    dists: np.ndarray  # (k,) float32 squared L2, inf padded
+    cached: bool = False
+
+
+class KHIService:
+    """Micro-batching, caching front-end over one KHI index (a host
+    ``KHIIndex`` or a ``DeviceIndex``) on ``device`` (default ``cuda``)."""
+
+    def __init__(self, index, params: Optional[SearchParams] = None, *,
+                 config: Optional[ServeConfig] = None, mesh=None,
+                 device=None, on_undersized: str = "adjust",
+                 tiers: Sequence[SearchParams] = ()):
+        if on_undersized not in ("raise", "adjust", "ignore"):
+            raise ValueError(f"on_undersized must be raise|adjust|ignore, "
+                             f"got {on_undersized!r}")
+        if mesh is not None:
+            raise _todo("mesh serving", "13")
+        if tiers:
+            raise _todo("degradation tiers", "14")
+        self._user_params = params or SearchParams()
+        self._on_undersized = on_undersized
+        self._device = device
+        self.config = config or ServeConfig()
+        self.epoch = 0
+        self._cache: "collections.OrderedDict[bytes, Tuple[np.ndarray, np.ndarray]]" = (
+            collections.OrderedDict())
+        self._pending: List[Tuple[int, Request]] = []
+        self._next_ticket = 0
+        self.stats = {
+            "requests": 0, "cache_hits": 0, "batches": 0, "pad_lanes": 0,
+            "device_queries": 0, "traced_buckets": set(),
+            "device_seconds": 0.0, "epoch_swaps": 0, "scan_lanes": 0,
+            "inserts": 0, "deletes": 0, "compactions": 0,
+            "ingest_seconds": 0.0, "compact_seconds": 0.0,
+            "tier_lanes": collections.Counter(),
+            "predicate_lanes": collections.Counter(),
+        }
+        self._install_index(index)
+
+    def _install_index(self, index) -> None:
+        if not isinstance(index, DeviceIndex):
+            if hasattr(index, "offsets") and hasattr(index, "di"):
+                raise _todo("sharded indexes", "13")
+            index = device_put_index(index, device=resolve_device(
+                self._device))
+        self.params = validate_search_params(
+            self._user_params, index, on_undersized=self._on_undersized)
+        self.index = index
+        self._plan_cache: "collections.OrderedDict[bytes, int]" = (
+            collections.OrderedDict())
+        self._search = self._build_search_fn()
+
+    def swap_index(self, index, *, params: Optional[SearchParams] = None,
+                   drain: bool = True) -> dict:
+        """Epoch hot-swap: flush queued requests against the old index
+        (unless ``drain=False``), install the new one, bump the epoch and
+        clear the result cache. Returns the drained {ticket: Result}."""
+        drained = self.flush() if drain else {}
+        if params is not None:
+            self._user_params = params
+        self._install_index(index)
+        self.epoch += 1
+        self._cache.clear()
+        self.stats["epoch_swaps"] += 1
+        return drained
+
+    @property
+    def d(self) -> int:
+        return self.index.vecs.shape[-1]
+
+    @property
+    def m(self) -> int:
+        return self.index.attrs.shape[-1]
+
+    def _build_search_fn(self):
+        planner = Planner(self.index, self.params,
+                          on_undersized=self._on_undersized,
+                          plan_cache=self._plan_cache,
+                          plan_salt=self.epoch.to_bytes(8, "little"))
+        self._planner = planner
+
+        def run(q, lo, hi):
+            ids, dists, _hops, plan = planner.search(q, lo, hi)
+            self.stats["scan_lanes"] += int(plan.use_scan.sum())
+            return ids, dists
+        return run
+
+    def _bucket(self, b: int) -> int:
+        for size in self.config.buckets:
+            if b <= size:
+                return size
+        return self.config.max_batch
+
+    def _key(self, q: np.ndarray, lo: np.ndarray, hi: np.ndarray) -> bytes:
+        h = hashlib.blake2b(digest_size=16)
+        h.update(q.tobytes())
+        h.update(lo.tobytes())
+        h.update(hi.tobytes())
+        h.update(repr(self.params).encode())
+        h.update(self.epoch.to_bytes(8, "little"))
+        return h.digest()
+
+    def _cache_get(self, key: bytes):
+        if not self.config.cache_size:
+            return None
+        hit = self._cache.get(key)
+        if hit is not None:
+            self._cache.move_to_end(key)
+        return hit
+
+    def _cache_put(self, key: bytes, ids: np.ndarray, dists: np.ndarray):
+        if not self.config.cache_size:
+            return
+        self._cache[key] = (ids, dists)
+        self._cache.move_to_end(key)
+        while len(self._cache) > self.config.cache_size:
+            self._cache.popitem(last=False)
+
+    def _run_device(self, qs: np.ndarray, los: np.ndarray,
+                    his: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Pad one micro-batch to its bucket, search, unpad."""
+        b = qs.shape[0]
+        bucket = self._bucket(b)
+        pad = bucket - b
+        if pad:
+            qs = np.concatenate([qs, np.zeros((pad, self.d), np.float32)])
+            los = np.concatenate(
+                [los, np.full((pad, self.m), np.inf, np.float32)])
+            his = np.concatenate(
+                [his, np.full((pad, self.m), -np.inf, np.float32)])
+        t0 = time.perf_counter()
+        # results come back as numpy, so the device work has finished
+        ids, dists = self._search(qs, los, his)
+        self.stats["device_seconds"] += time.perf_counter() - t0
+        self.stats["batches"] += 1
+        self.stats["pad_lanes"] += pad
+        self.stats["device_queries"] += bucket
+        self.stats["traced_buckets"].add(bucket)
+        self.stats["tier_lanes"][0] += b
+        return ids[:b], dists[:b]
+
+    def _answer(self, queries: np.ndarray, lo: np.ndarray, hi: np.ndarray
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Cache-aware core: -> (ids (B, k), dists (B, k), hit (B,) bool).
+        Batches larger than the top bucket are chunked."""
+        queries = np.ascontiguousarray(queries, np.float32)
+        lo = np.ascontiguousarray(lo, np.float32)
+        hi = np.ascontiguousarray(hi, np.float32)
+        B = queries.shape[0]
+        self.stats["requests"] += B
+        k = self.params.k
+        out_ids = np.full((B, k), -1, np.int32)
+        out_d = np.full((B, k), np.inf, np.float32)
+        hit_mask = np.zeros((B,), bool)
+        caching = self.config.cache_size > 0
+        keys = [self._key(queries[i], lo[i], hi[i]) if caching else None
+                for i in range(B)]
+        miss: List[int] = []
+        for i, key in enumerate(keys):
+            hit = self._cache_get(key) if caching else None
+            if hit is not None:
+                out_ids[i], out_d[i] = hit
+                hit_mask[i] = True
+                self.stats["cache_hits"] += 1
+            else:
+                miss.append(i)
+        for c0 in range(0, len(miss), self.config.max_batch):
+            chunk = miss[c0:c0 + self.config.max_batch]
+            ids, dists = self._run_device(queries[chunk], lo[chunk],
+                                          hi[chunk])
+            for j, i in enumerate(chunk):
+                out_ids[i], out_d[i] = ids[j], dists[j]
+                if caching:
+                    self._cache_put(keys[i], ids[j], dists[j])
+        return out_ids, out_d, hit_mask
+
+    def search(self, queries: np.ndarray, lo: np.ndarray, hi: np.ndarray,
+               *, tier: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+        """Batch front door: (B, d) x (B, m) x (B, m) -> ids/dists (B, k)."""
+        if tier != 0:
+            raise _todo("degradation tiers", "14")
+        ids, dists, _ = self._answer(queries, lo, hi)
+        return ids, dists
+
+    def search_expr(self, queries, expr, *, tier: int = 0):
+        raise _todo("KHIService.search_expr", "12")
+
+    def submit(self, req: Request) -> int:
+        """Enqueue one request; returns a ticket for flush()'s result dict."""
+        ticket = self._next_ticket
+        self._next_ticket += 1
+        self._pending.append((ticket, req))
+        return ticket
+
+    def _run_batch(self, batch: Sequence[Request]) -> List[Result]:
+        qs = np.stack([r.query for r in batch]).astype(np.float32)
+        los = np.stack([r.lo for r in batch]).astype(np.float32)
+        his = np.stack([r.hi for r in batch]).astype(np.float32)
+        ids, dists, hit = self._answer(qs, los, his)
+        return [Result(ids=ids[i], dists=dists[i], cached=bool(hit[i]))
+                for i in range(len(batch))]
+
+    def flush(self) -> dict:
+        """Run all pending requests (micro-batched); {ticket: Result}."""
+        if not self._pending:
+            return {}
+        pending, self._pending = self._pending, []
+        results = self._run_batch([r for _, r in pending])
+        return {ticket: results[j] for j, (ticket, _) in enumerate(pending)}
+
+    def serve_stream(self, requests: Iterable[Request]) -> Iterator[Result]:
+        """Consume an iterator of requests, yield Results in order,
+        micro-batching up to ``config.max_batch`` at a time."""
+        batch: List[Request] = []
+        for req in requests:
+            batch.append(req)
+            if len(batch) >= self.config.max_batch:
+                yield from self._run_batch(batch)
+                batch = []
+        if batch:
+            yield from self._run_batch(batch)
+
+    def enable_streaming(self, **_kw):
+        raise _todo("streaming writes", "11")
+
+    def snapshot(self) -> dict:
+        """JSON-able stats snapshot (the reference's keys)."""
+        s = dict(self.stats)
+        s["traced_buckets"] = sorted(s["traced_buckets"])
+        s["tier_lanes"] = {str(t): int(n)
+                           for t, n in sorted(s["tier_lanes"].items())}
+        s["predicate_lanes"] = {str(strat): int(n) for strat, n
+                                in sorted(s["predicate_lanes"].items())}
+        s["cache_entries"] = len(self._cache)
+        s["epoch"] = self.epoch
+        dq, ds = s["device_queries"], s["device_seconds"]
+        s["device_qps"] = (dq / ds) if ds > 0 else None
+        return s

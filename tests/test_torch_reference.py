@@ -1,0 +1,91 @@
+"""``smoke_reference.py`` (the plain numpy reference ``chip_smoke.py``
+holds the port to at full shard size) against the JAX package on the
+CPU: the DFS router, the wide-frontier beam search with its hop cap, and
+the bulk builder's graph rows."""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+
+from repro.core import engine as jeng
+from repro.core import query_ref as jref
+from repro.core.build_device import build_graphs_device as j_build
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+import smoke_reference as sref  # noqa: E402
+
+
+def _nhm(index):
+    return np.ascontiguousarray(np.asarray(index.nbrs).transpose(1, 0, 2))
+
+
+@pytest.mark.parametrize("scan_budget", [8, 10 ** 9])
+def test_dfs_entries_match_reference(tiny_index, tiny_queries, scan_budget):
+    _, preds = tiny_queries
+    vecs, attrs = tiny_index.vecs, tiny_index.attrs
+    for pr in preds:
+        want = jref.range_filter(tiny_index, pr, 10, scan_budget=scan_budget)
+        got = sref.dfs_entries(tiny_index.tree, attrs, pr.lo, pr.hi, 10,
+                               scan_budget)
+        assert got == want
+    assert vecs.shape[0] == tiny_index.n
+
+
+@pytest.mark.parametrize("E", [1, 4])
+def test_beam_search_matches_reference(tiny_index, tiny_queries, E):
+    Q, preds = tiny_queries
+    nbrs = _nhm(tiny_index)
+    for q, pr in zip(Q, preds):
+        want, st = jref.query(tiny_index, q, pr, 10, ef=32, c_e=10, c_n=16,
+                              pool="beam", expand_width=E, router="dfs",
+                              return_stats=True)
+        entries = jref.range_filter(tiny_index, pr, 10)
+        ids, dists, hops = sref.beam_search(
+            tiny_index.vecs, tiny_index.attrs, nbrs, entries, q, pr.lo,
+            pr.hi, k=10, ef=32, c_n=16, E=E, max_hops=10 ** 6)
+        np.testing.assert_array_equal(ids[ids >= 0], want)
+        assert hops == st["hops"]
+        assert (np.diff(dists[ids >= 0]) >= 0).all()
+
+
+def test_beam_search_hop_cap_matches_engine(tiny_index, tiny_queries):
+    Q, preds = tiny_queries
+    p = jeng.SearchParams(k=10, ef=32, c_n=16, expand_width=4, max_hops=3,
+                          backend="jnp")
+    w_ids, w_d, w_hops = jeng.search_batch(tiny_index, Q, preds, p)
+    nbrs = _nhm(tiny_index)
+    for i, (q, pr) in enumerate(zip(Q, preds)):
+        entries = jref.range_filter_level(tiny_index, pr, 10)
+        ids, dists, hops = sref.beam_search(
+            tiny_index.vecs, tiny_index.attrs, nbrs, entries, q, pr.lo,
+            pr.hi, k=10, ef=32, c_n=16, E=4, max_hops=3)
+        np.testing.assert_array_equal(ids, w_ids[i])
+        np.testing.assert_allclose(dists, w_d[i], rtol=1e-5, atol=1e-5)
+        assert hops == w_hops[i]
+
+
+def test_graph_rows_match_device_builder(tiny_index):
+    t, vecs = tiny_index.tree, tiny_index.vecs
+    M = 16
+    want = j_build(t, vecs, M=M, dist="jnp", large_node=256, row_block=128)
+    count = np.asarray(t.count)
+    nodes = np.nonzero(count > 1)[0]
+    # the root (row-blocked path), a mid-size node and the smallest classes
+    picks = {int(nodes[np.argmax(count[nodes])])}
+    for target in (300, 100, 40, 5, 2):
+        picks.add(int(nodes[np.argmin(np.abs(count[nodes] - target))]))
+    for p in sorted(picks):
+        s, c = int(t.start[p]), int(t.count[p])
+        members = np.asarray(t.order[s:s + c], np.int64)
+        d_rows = sref.sq_dists_f64(vecs, vecs[members], chunk=500)[:, members]
+        got = sref.graph_rows(vecs, members, np.arange(c), d_rows, M=M,
+                              ef_b=2 * M)
+        np.testing.assert_array_equal(got, want[int(t.level[p]), members])
+
+
+def test_graph_shape_classes():
+    assert sref.graph_shape(2, 32, 64) == (8, 7)
+    assert sref.graph_shape(40, 32, 64) == (64, 32)
+    assert sref.graph_shape(1_000_000, 32, 64) == (65, 32)

@@ -1,0 +1,121 @@
+"""The port's KHIService against the reference's on mixed-size batches:
+the same answers, bucket pad lanes, cache hits, epoch swaps and
+snapshot keys."""
+
+import numpy as np
+import pytest
+
+from repro.core import engine as jeng
+from repro.serve import KHIService as JService, ServeConfig as JServeConfig
+from repro.data import make_queries
+
+from repro_torch.configs import khi_serve
+from repro_torch.core import engine as teng
+from repro_torch.serve import KHIService, Request, ServeConfig
+
+BUCKETS = (1, 8, 32)
+
+
+@pytest.fixture(scope="module")
+def reqs(tiny_data):
+    vecs, attrs = tiny_data
+    q1, p1 = make_queries(vecs, attrs, n_queries=20, sigma=1 / 2, seed=31)
+    q2, p2 = make_queries(vecs, attrs, n_queries=20, sigma=1 / 64, seed=32)
+    Q = np.concatenate([q1, q2])
+    lo = np.stack([p.lo for p in p1 + p2]).astype(np.float32)
+    hi = np.stack([p.hi for p in p1 + p2]).astype(np.float32)
+    perm = np.random.default_rng(0).permutation(len(Q))
+    return Q[perm], lo[perm], hi[perm]
+
+
+def _services(tiny_index, strategy="auto", cache_size=64):
+    kw = dict(k=10, ef=32, c_n=16, expand_width=4, strategy=strategy,
+              scan_threshold=120)
+    js = JService(tiny_index, jeng.SearchParams(backend="jnp", **kw),
+                  config=JServeConfig(buckets=BUCKETS,
+                                      cache_size=cache_size))
+    ts = KHIService(tiny_index,
+                    teng.SearchParams(backend="pallas_gather_l2_filter",
+                                      **kw),
+                    config=ServeConfig(buckets=BUCKETS,
+                                       cache_size=cache_size),
+                    device="cpu")
+    return js, ts
+
+
+@pytest.mark.parametrize("strategy", ["auto", "graph"])
+def test_mixed_batches_match_reference(tiny_index, reqs, strategy):
+    Q, lo, hi = reqs
+    js, ts = _services(tiny_index, strategy)
+    s = 0
+    for b in (5, 1, 13, 40, 3):                     # 40 > top bucket
+        b = min(b, len(Q) - s)
+        wi, wd = js.search(Q[s:s + b], lo[s:s + b], hi[s:s + b])
+        gi, gd = ts.search(Q[s:s + b], lo[s:s + b], hi[s:s + b])
+        np.testing.assert_array_equal(gi, wi)
+        fin = np.isfinite(wd)
+        np.testing.assert_allclose(gd[fin], wd[fin], rtol=1e-5, atol=1e-5)
+        s += b
+    # repeat some requests: cache hits on both sides
+    ts.search(Q[:6], lo[:6], hi[:6])
+    js.search(Q[:6], lo[:6], hi[:6])
+    jsnap, tsnap = js.snapshot(), ts.snapshot()
+    assert set(tsnap) == set(jsnap)
+    for key in ("requests", "cache_hits", "batches", "pad_lanes",
+                "device_queries", "traced_buckets", "scan_lanes",
+                "cache_entries", "epoch", "tier_lanes"):
+        assert tsnap[key] == jsnap[key], key
+    assert tsnap["cache_hits"] == 6 and tsnap["pad_lanes"] > 0
+    if strategy == "auto":
+        assert 0 < tsnap["scan_lanes"] < tsnap["requests"]
+
+
+def test_submit_flush_stream_and_swap(tiny_index, reqs):
+    Q, lo, hi = reqs
+    js, ts = _services(tiny_index)
+    tickets = [ts.submit(Request(Q[i], lo[i], hi[i])) for i in range(9)]
+    out = ts.flush()
+    assert sorted(out) == tickets
+    want_i, _ = js.search(Q[:9], lo[:9], hi[:9])
+    for j, t in enumerate(tickets):
+        np.testing.assert_array_equal(out[t].ids, want_i[j])
+    stream = list(ts.serve_stream(Request(Q[i], lo[i], hi[i])
+                                  for i in range(len(Q))))
+    assert len(stream) == len(Q)
+    assert all(r.cached for r in stream[:9])
+    ts.submit(Request(Q[0], lo[0], hi[0]))
+    drained = ts.swap_index(tiny_index)
+    assert len(drained) == 1 and ts.epoch == 1
+    assert ts.snapshot()["cache_entries"] == 0
+    again = ts.search(Q[:9], lo[:9], hi[:9])[0]
+    np.testing.assert_array_equal(again, want_i)
+    # 9 stream hits + the drained request's hit; none after the swap
+    assert ts.snapshot()["cache_hits"] == 9 + 1
+
+
+def test_pad_lanes_are_empty_boxes(tiny_index, reqs):
+    Q, lo, hi = reqs
+    _, ts = _services(tiny_index, cache_size=0)
+    ts.search(Q[:3], lo[:3], hi[:3])
+    snap = ts.snapshot()
+    assert snap["pad_lanes"] == 5 and snap["traced_buckets"] == [8]
+    m = lo.shape[1]
+    plan = ts._planner.plan(np.full((1, m), np.inf, np.float32),
+                            np.full((1, m), -np.inf, np.float32))
+    assert plan.card[0] == 0 and not plan.use_scan[0]
+
+
+def test_khi_serve_config_and_rejections(tiny_index):
+    cfg = khi_serve.config()
+    p = cfg.search_params()
+    assert (p.k, p.ef, p.c_e, p.c_n, p.expand_width, p.strategy,
+            p.backend) == (10, 128, 10, 32, 4, "auto",
+                           "pallas_gather_l2_filter")
+    assert cfg.serve_config().buckets == (1, 8, 32, 128, 256)
+    assert khi_serve.smoke_config().search_params().backend == "jnp"
+    with pytest.raises(ValueError):
+        ServeConfig(buckets=(8, 1))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        KHIService(tiny_index, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Request(np.zeros(3), expr=object())
