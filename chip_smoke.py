@@ -1,7 +1,10 @@
 """Chip smoke for the PyTorch/CUDA port: builds the hand-written kernels,
-holds each against its plain PyTorch version on the card, then builds a
-KHI index at the khi-serve shard's widths on the card and serves mixed-
-selectivity bursts through the auto planner, checking the answers.
+holds each against its plain PyTorch version on the card (the gather and
+scan kernels in their f32, bf16 and int8 forms), then builds a KHI index
+at the khi-serve shard's widths on the card and serves mixed-selectivity
+bursts through the auto planner, checking the answers; then serves the
+same bursts again on the quantized score path, quant="int8" and then
+quant="bf16", from a replica attached to the same index.
 
     python3 chip_smoke.py                 # full run, one GPU
     python3 chip_smoke.py --n 200000      # a smaller corpus (widths kept)
@@ -10,7 +13,11 @@ selectivity bursts through the auto planner, checking the answers.
 The graph lanes are held to ``smoke_reference.py``, a plain numpy router,
 beam search and graph-row rule that shares no code with the port. Their
 recall@10 is printed against the 0.85 bar at the cell's ef and at 4x and
-16x that ef; the check requires the bar at 16x.
+16x that ef; the check requires the bar at 16x. The int8 pass is held to
+the same file's numpy quantization, int8 beam search + f32 rerank and
+int8 scan over-fetch + f32 rerank. Launch counts are reset before each
+served path (the f32 build + serve, the int8 pass, the bf16 pass) and
+read after it.
 
 Prints one line per phase, a {"kernels": [...]} line, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}. Exits
@@ -69,9 +76,20 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
 
 # ---------------------------------------------------------------- phase 2
 
-def kernel_checks(n: int, d: int, m: int, k: int, dev) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
-    from repro_torch.kernels import ops, ref
+GATHER_TPU = "src/repro/kernels/gather_l2_filter.py"
+SCAN_TPU = "src/repro/kernels/scan_topk.py"
+GATHER_CU = "src/repro_torch/kernels/csrc/gather_l2_filter.cu"
+SCAN_CU = "src/repro_torch/kernels/csrc/scan_topk.cu"
+
+
+def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev) -> dict:
+    """Each kernel against its plain version at the main path's shapes:
+    the f32 forms of the gather and scan, their bf16 forms (bf16 corpus
+    replica) and int8 forms (q8: int8 replica + per-row scale), and
+    l2dist. Tolerance for every gather and scan form: rtol 1e-5, atol 1e-3
+    on distances (the kernel and the plain version sum in other orders);
+    scan ids equal wherever the two distances are not within that noise."""
+    from repro_torch.kernels import ops, quant, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 yardsticks
     torch.backends.cudnn.allow_tf32 = False
@@ -79,6 +97,8 @@ def kernel_checks(n: int, d: int, m: int, k: int, dev) -> dict:
     corpus = torch.randn((n, d), generator=g, device=dev)
     attrs = torch.rand((n, m), generator=g, device=dev)
     attrs[7::97, 1] = float("nan")                  # tombstone-style rows
+    qv, qs = quant.quant_replica(corpus, "int8")
+    cb, _ = quant.quant_replica(corpus, "bf16")
     rows = {}
 
     # -- gather_l2_filter at B=256, C=E*c_n=128. On the main path the hop
@@ -93,90 +113,112 @@ def kernel_checks(n: int, d: int, m: int, k: int, dev) -> dict:
     idx[:, ::29] = -1                                # pad lanes
     idx[:, 5::37] = n + 3                            # ids past the corpus
     idx[3, :] = -1                                   # an all-pad lane
-    ops.reset_launches()
-    got = ops.gather_l2_filter(idx, corpus, attrs, q, qlo, qhi)
-    want = ref.gather_l2_filter_ref(idx, corpus, attrs, q, qlo, qhi)
-    torch.cuda.synchronize()
-    check(torch.equal(torch.isinf(got), torch.isinf(want)),
-          "gather_l2_filter: +inf lanes differ from the plain version")
-    fin = torch.isfinite(want)
-    err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
-    check(torch.allclose(got[fin], want[fin], rtol=1e-5, atol=1e-3),
-          f"gather_l2_filter disagrees: max abs err {err}")
     valid = (idx >= 0) & (idx < n)
-    n_pass = int(fin.sum())
-    nbytes = (idx.numel() * 8 + got.numel() * 4 + q.numel() * 4
-              + 2 * qlo.numel() * 4 + int(valid.sum()) * m * 4
-              + n_pass * d * 4)
-    bms, by = bound_ms(nbytes, n_pass * d * 3)
-    rows["gather_l2_filter"] = dict(
-        name="gather_l2_filter", route="cuda", launches=0,
-        source="src/repro_torch/kernels/csrc/gather_l2_filter.cu",
-        replaces="src/repro/kernels/gather_l2_filter.py:48",
-        max_abs_err=err,
-        ms=time_ms(lambda: ops.gather_l2_filter(idx, corpus, attrs, q, qlo,
-                                                qhi), reps=50),
-        plain_ms=time_ms(lambda: ref.gather_l2_filter_ref(
-            idx, corpus, attrs, q, qlo, qhi), reps=20),
-        bound_ms=bms, bound_by=by, library_ms=None)
-    print(f"[kernels] gather_l2_filter B={B} C={C} d={d}: "
-          f"{rows['gather_l2_filter']['ms']:.4f} ms (plain "
-          f"{rows['gather_l2_filter']['plain_ms']:.4f}, bound {bms:.4f} "
-          f"by {by}, {n_pass} of {B * C} lanes pass), max abs err "
-          f"{err:.3g}", flush=True)
+    ops.reset_launches()
+    gathers = (
+        ("gather_l2_filter", ":48", 4 * d, 3,
+         lambda: ops.gather_l2_filter(idx, corpus, attrs, q, qlo, qhi),
+         lambda: ref.gather_l2_filter_ref(idx, corpus, attrs, q, qlo, qhi)),
+        ("gather_l2_filter_bf16", ":48", 2 * d, 3,
+         lambda: ops.gather_l2_filter(idx, cb, attrs, q, qlo, qhi),
+         lambda: ref.gather_l2_filter_ref(idx, cb, attrs, q, qlo, qhi)),
+        ("gather_l2_filter_q8", ":133", d + 4, 4,
+         lambda: ops.gather_l2_filter_q8(idx, qv, qs, attrs, q, qlo, qhi),
+         lambda: ref.gather_l2_filter_q8_ref(idx, qv, qs, attrs, q, qlo,
+                                             qhi)),
+    )
+    for name, line, row_bytes, ops_per, kern, plain in gathers:
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(torch.isinf(got), torch.isinf(want)),
+              f"{name}: +inf lanes differ from the plain version")
+        fin = torch.isfinite(want)
+        err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+        check(torch.allclose(got[fin], want[fin], rtol=1e-5, atol=1e-3),
+              f"{name} disagrees: max abs err {err}")
+        n_pass = int(fin.sum())
+        nbytes = (idx.numel() * 8 + got.numel() * 4 + q.numel() * 4
+                  + 2 * qlo.numel() * 4 + int(valid.sum()) * m * 4
+                  + n_pass * row_bytes)
+        bms, by = bound_ms(nbytes, n_pass * d * ops_per)
+        r = rows[name] = dict(
+            name=name, route="cuda", launches=0, source=GATHER_CU,
+            replaces=GATHER_TPU + line, max_abs_err=err,
+            ms=time_ms(kern, reps=50), plain_ms=time_ms(plain, reps=20),
+            bound_ms=bms, bound_by=by, library_ms=None)
+        print(f"[kernels] {name} B={B} C={C} d={d}: {r['ms']:.4f} ms "
+              f"(plain {r['plain_ms']:.4f}, bound {bms:.4f} by {by}, "
+              f"{n_pass} of {B * C} lanes pass, {nbytes / 1e6:.1f} MB), "
+              f"max abs err {err:.3g}", flush=True)
+    del idx, valid
 
-    # -- scan_topk at B=256, N=n, k
+    # -- scan_topk at B=256, N=n: k for the f32 form, the over-fetch kq
+    # of a quantized scan (k * rerank_mult) for the replica forms
     qlo_s = torch.rand((B, m), generator=g, device=dev) * 0.6
     qhi_s = qlo_s + torch.rand((B, m), generator=g, device=dev) * 0.4 + 0.3
     qhi_s[0] = -1.0                                  # an empty box
-    ids, dd = ops.scan_topk(corpus, attrs, q, qlo_s, qhi_s, k=k)
-    rids, rdd = ref.scan_topk_ref(corpus, attrs, q, qlo_s, qhi_s, k)
-    torch.cuda.synchronize()
-    check(bool((ids[0] == -1).all()) and bool(torch.isinf(dd[0]).all()),
-          "scan_topk: an empty box must give (-1, +inf) lanes")
-    same = ids == rids
-    fin = torch.isfinite(rdd)
-    err = float((dd[fin] - rdd[fin]).abs().max()) if fin.any() else 0.0
-    check(torch.equal(torch.isinf(dd), torch.isinf(rdd)),
-          "scan_topk: empty lanes differ from the plain version")
-    check(torch.allclose(dd[fin], rdd[fin], rtol=1e-5, atol=1e-3),
-          f"scan_topk dists disagree: max abs err {err}")
-    # ids may only differ where two distances are within reduce-order noise
-    close = (dd - rdd).abs() <= 1e-5 * rdd.abs().clamp_min(1.0)
-    check(bool((same | close).all()),
-          f"scan_topk ids disagree on {int((~same).sum())} lanes")
-    ok = ((attrs[None] >= qlo_s[:, None]) & (attrs[None] <= qhi_s[:, None])
-          ).all(-1)
-    n_pairs = int(ok.sum())
-    del ok
-    nbytes = (corpus.numel() + attrs.numel() + q.numel()
-              + 2 * qlo_s.numel()) * 4 + B * k * 8
-    bms, by = bound_ms(nbytes, n_pairs * d * 3)
+    okm = ((attrs[None] >= qlo_s[:, None]) & (attrs[None] <= qhi_s[:, None])
+           ).all(-1)
+    n_pairs = int(okm.sum())
+    del okm
 
-    def lib_scan():
-        dist = torch.cdist(q, corpus)
-        okm = ((attrs[None] >= qlo_s[:, None])
-               & (attrs[None] <= qhi_s[:, None])).all(-1)
-        return torch.topk(torch.where(okm, dist, float("inf")), k,
-                          largest=False)
+    def lib_scan(rows_f32, kk):
+        def run():
+            dist = torch.cdist(q, rows_f32())
+            ok = ((attrs[None] >= qlo_s[:, None])
+                  & (attrs[None] <= qhi_s[:, None])).all(-1)
+            return torch.topk(torch.where(ok, dist, float("inf")), kk,
+                              largest=False)
+        return run
 
-    rows["scan_topk"] = dict(
-        name="scan_topk", route="cuda", launches=0,
-        source="src/repro_torch/kernels/csrc/scan_topk.cu",
-        replaces="src/repro/kernels/scan_topk.py:60",
-        max_abs_err=err,
-        ms=time_ms(lambda: ops.scan_topk(corpus, attrs, q, qlo_s, qhi_s,
-                                         k=k), reps=5),
-        plain_ms=time_ms(lambda: ref.scan_topk_ref(corpus, attrs, q, qlo_s,
-                                                   qhi_s, k), reps=1,
-                         warmup=0),
-        bound_ms=bms, bound_by=by, library_ms=time_ms(lib_scan, reps=3))
-    print(f"[kernels] scan_topk B={B} N={n} d={d} k={k}: "
-          f"{rows['scan_topk']['ms']:.3f} ms (plain "
-          f"{rows['scan_topk']['plain_ms']:.3f}, cdist+topk "
-          f"{rows['scan_topk']['library_ms']:.3f}, bound {bms:.3f} by {by},"
-          f" {n_pairs} passing pairs), max abs err {err:.3g}", flush=True)
-    del corpus, attrs
+    scans = (
+        ("scan_topk", ":60", k, 4 * d, 3,
+         lambda: ops.scan_topk(corpus, attrs, q, qlo_s, qhi_s, k=k),
+         lambda: ref.scan_topk_ref(corpus, attrs, q, qlo_s, qhi_s, k),
+         lib_scan(lambda: corpus, k)),
+        ("scan_topk_bf16", ":60", kq, 2 * d, 3,
+         lambda: ops.scan_topk(cb, attrs, q, qlo_s, qhi_s, k=kq),
+         lambda: ref.scan_topk_ref(cb, attrs, q, qlo_s, qhi_s, kq),
+         lib_scan(lambda: cb.float(), kq)),
+        ("scan_topk_q8", ":172", kq, d + 4, 3,
+         lambda: ops.scan_topk_q8(qv, qs, attrs, q, qlo_s, qhi_s, k=kq),
+         lambda: ref.scan_topk_q8_ref(qv, qs, attrs, q, qlo_s, qhi_s, kq),
+         lib_scan(lambda: quant.dequant_rows(qv, qs), kq)),
+    )
+    for name, line, kk, row_bytes, ops_per, kern, plain, lib in scans:
+        ids, dd = kern()
+        rids, rdd = plain()
+        torch.cuda.synchronize()
+        check(bool((ids[0] == -1).all()) and bool(torch.isinf(dd[0]).all()),
+              f"{name}: an empty box must give (-1, +inf) lanes")
+        same = ids == rids
+        fin = torch.isfinite(rdd)
+        err = float((dd[fin] - rdd[fin]).abs().max()) if fin.any() else 0.0
+        check(torch.equal(torch.isinf(dd), torch.isinf(rdd)),
+              f"{name}: empty lanes differ from the plain version")
+        check(torch.allclose(dd[fin], rdd[fin], rtol=1e-5, atol=1e-3),
+              f"{name} dists disagree: max abs err {err}")
+        # ids may only differ where two distances are within reduce noise
+        close = (dd - rdd).abs() <= 1e-5 * rdd.abs().clamp_min(1.0)
+        check(bool((same | close).all()),
+              f"{name} ids disagree on {int((~same).sum())} slots")
+        nbytes = (n * row_bytes + attrs.numel() * 4 + q.numel() * 4
+                  + 2 * qlo_s.numel() * 4 + B * kk * 8)
+        # the int8 form also scales each row element once
+        bms, by = bound_ms(nbytes, n_pairs * d * ops_per
+                           + (n * d if name.endswith("q8") else 0))
+        r = rows[name] = dict(
+            name=name, route="cuda", launches=0, source=SCAN_CU,
+            replaces=SCAN_TPU + line, max_abs_err=err,
+            ms=time_ms(kern, reps=5),
+            plain_ms=time_ms(plain, reps=1, warmup=0),
+            bound_ms=bms, bound_by=by, library_ms=time_ms(lib, reps=3))
+        print(f"[kernels] {name} B={B} N={n} d={d} k={kk}: {r['ms']:.3f} ms "
+              f"(plain {r['plain_ms']:.3f}, dequantize+cdist+mask+topk "
+              f"{r['library_ms']:.3f}, bound {bms:.3f} by {by}, {n_pairs} "
+              f"passing pairs), ids equal on {int(same.sum())} of "
+              f"{same.numel()} slots, max abs err {err:.3g}", flush=True)
+    del corpus, attrs, qv, qs, cb
 
     # -- l2dist_qn at (2048, d) x (65536, d)
     qa = torch.randn((2048, d), generator=g, device=dev)
@@ -280,7 +322,7 @@ def main_path(n: int, n_full: int, dev, rows: dict) -> None:
     Q, lo, hi = Q[perm], lo[perm], hi[perm]
     sizes = bursts(len(Q))
 
-    def serve(qs):
+    def serve_bursts(svc, qs):
         out, s = [], 0
         for b in sizes:
             tickets = [svc.submit(Request(qs[i], lo[i], hi[i]))
@@ -291,11 +333,11 @@ def main_path(n: int, n_full: int, dev, rows: dict) -> None:
         return out
 
     t0 = time.perf_counter()
-    serve(Q + np.float32(1e-3))                     # warm-up, other keys
+    serve_bursts(svc, Q + np.float32(1e-3))        # warm-up, other keys
     warm_s = time.perf_counter() - t0
     before = svc.snapshot()
     t0 = time.perf_counter()
-    results = serve(Q)
+    results = serve_bursts(svc, Q)
     dt = time.perf_counter() - t0
     after = svc.snapshot()
     launches = dict(ops.LAUNCHES)
@@ -337,28 +379,20 @@ def main_path(n: int, n_full: int, dev, rows: dict) -> None:
         t_ids.append(a.cpu().numpy())
         t_d.append(b.cpu().numpy())
     t_ids, t_d = np.concatenate(t_ids), np.concatenate(t_d)
-    check(bool(np.isfinite(dists[ids >= 0]).all()),
-          "non-finite distance on a served id")
+    check_served(ids, dists, vecs, attrs, Q, lo, hi, "f32")
     si = np.nonzero(use_scan)[0]
     same = (ids[si] == t_ids[si]) | np.isclose(dists[si], t_d[si],
                                                rtol=1e-5, atol=1e-4)
     check(bool(same.all()) and bool(((ids[si] < 0) == (t_ids[si] < 0)).all()),
           f"scan lanes are not exact on {int((~same).sum())} slots")
-    # served lanes: in the box, distinct, ascending, exact distances
-    for i in range(len(Q)):
-        got = ids[i][ids[i] >= 0]
-        check(len(set(got.tolist())) == len(got), f"lane {i}: duplicate ids")
-        a = attrs[got]
-        check(bool(((a >= lo[i]) & (a <= hi[i])).all()),
-              f"lane {i}: an id outside the box was served")
-        dd = dists[i][: len(got)]
-        check(bool((np.diff(dd) >= 0).all()), f"lane {i}: not ascending")
-        exact = ((vecs[got].astype(np.float64) - Q[i]) ** 2).sum(1)
-        check(bool(np.allclose(dd, exact, rtol=1e-4)),
-              f"lane {i}: served distances are not the exact ones")
 
-    graph_checks(index, di, svc, Q, lo, hi, ids, use_scan, t_ids, t_d,
-                 cfg, dev)
+    ref_ent = graph_checks(index, di, svc, Q, lo, hi, ids, use_scan, t_ids,
+                           t_d, cfg, dev)
+    trace_programs("f32", di, svc.params, Q, lo, hi, use_scan)
+    del svc
+    for quant in ("int8", "bf16"):
+        quant_pass(quant, index, di, params, cfg, Q, lo, hi, serve_bursts,
+                   use_scan, t_ids, ref_ent, dev, rows)
 
 
 RECALL_BAR = 0.85   # the bar examples/quickstart.py sets for the reference
@@ -445,6 +479,7 @@ def graph_checks(index, di, svc, Q, lo, hi, ids, use_scan, t_ids, t_d, cfg,
     check(rec_ef[16 * p.ef] >= RECALL_BAR,
           f"recall@{cfg.k} at ef={16 * p.ef} is {rec_ef[16 * p.ef]:.4f} < "
           f"{RECALL_BAR}")
+    del sweep
 
     # how far the true 10 nearest stand out from the rest of the box
     qg = torch.as_tensor(Q[gi]).to(dev)
@@ -462,6 +497,191 @@ def graph_checks(index, di, svc, Q, lo, hi, ids, use_scan, t_ids, t_d, cfg,
     print(f"[check] graph lanes: true {cfg.k}th-nearest squared distance / "
           f"mean squared distance over the box = "
           f"{float(np.mean(np.concatenate(ratio))):.4f}", flush=True)
+    return ref_ent
+
+
+def check_served(ids, dists, vecs, attrs, Q, lo, hi, what: str) -> None:
+    """Served lanes: in the box, distinct, ascending, exact distances."""
+    check(bool(np.isfinite(dists[ids >= 0]).all()),
+          f"{what}: non-finite distance on a served id")
+    for i in range(len(Q)):
+        got = ids[i][ids[i] >= 0]
+        check(len(set(got.tolist())) == len(got),
+              f"{what} lane {i}: duplicate ids")
+        a = attrs[got]
+        check(bool(((a >= lo[i]) & (a <= hi[i])).all()),
+              f"{what} lane {i}: an id outside the box was served")
+        dd = dists[i][: len(got)]
+        check(bool((np.diff(dd) >= 0).all()),
+              f"{what} lane {i}: not ascending")
+        exact = ((vecs[got].astype(np.float64) - Q[i]) ** 2).sum(1)
+        check(bool(np.allclose(dd, exact, rtol=1e-4)),
+              f"{what} lane {i}: served distances are not the exact ones")
+
+
+def trace_programs(tag, di, p, Q, lo, hi, use_scan) -> None:
+    """Where a served batch's time goes: the graph program over the graph
+    lanes and the scan program over the scan lanes, each run once to warm
+    and once under torch.profiler. Prints the wall time, the summed
+    device time of every kernel (self time, so nothing counts twice), the
+    device's idle share over the wall time and the top kernels. The
+    profiler itself slows the host, so the idle share is an upper bound
+    of the untraced run's."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.engine import Planner
+
+    for strat, lanes in (("graph", np.nonzero(~use_scan)[0]),
+                         ("scan", np.nonzero(use_scan)[0])):
+        pl = Planner(di, dataclasses.replace(p, strategy=strat))
+        pl.search(Q[lanes], lo[lanes], hi[lanes])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pl.search(Q[lanes], lo[lanes], hi[lanes])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        evs = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages() if e.self_device_time_total > 0]
+        dev_ms = sum(t for _, t, _ in evs)
+        if dev_ms == 0:
+            print(f"[trace] {tag} {strat} program: the profiler saw no "
+                  f"device time, so the split is not measured", flush=True)
+            continue
+        top = sorted(evs, key=lambda e: -e[1])[:5]
+        print(f"[trace] {tag} {strat} program, {len(lanes)} lanes: wall "
+              f"{wall * 1e3:.1f} ms, kernels {dev_ms:.1f} ms on the card "
+              f"(idle {100 * max(0.0, 1 - dev_ms / (wall * 1e3)):.1f}%); "
+              f"top: " + "; ".join(f"{k[:60]} {t:.2f} ms x{c}"
+                                   for k, t, c in top), flush=True)
+
+
+QUANT_KERNELS = {"int8": ("gather_l2_filter_q8", "scan_topk_q8"),
+                 "bf16": ("gather_l2_filter_bf16", "scan_topk_bf16")}
+
+
+def quant_pass(quant, index, di, params, cfg, Q, lo, hi, serve_bursts,
+               use_scan, t_ids, ref_ent, dev, rows) -> None:
+    """The quantized serving path on the index already built: attach the
+    replica on the card, serve the same warm-up pass and requests in the
+    same bursts through KHIService, check the launches and the answers
+    (graph-lane recall against the f32 brute force, scan lanes against
+    the f32 truth), and for int8 hold the replica, the graph lanes and
+    the scan lanes to smoke_reference.py's numpy int8 path."""
+    import smoke_reference as sref
+    from repro_torch.core.engine import Planner, with_quant_replica
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve import KHIService, ServeConfig
+
+    ops.reset_launches()
+    ref.reset_calls()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dq = with_quant_replica(di, quant)
+    torch.cuda.synchronize()
+    attach_s = time.perf_counter() - t0
+    pq = dataclasses.replace(params, quant=quant)
+    svc = KHIService(dq, pq, config=ServeConfig(buckets=cfg.buckets,
+                                                cache_size=cfg.cache_size))
+    check(svc.index.qvecs is dq.qvecs, f"{quant}: the service re-derived "
+          f"the replica it was handed")
+    t0 = time.perf_counter()
+    serve_bursts(svc, Q + np.float32(1e-3))        # warm-up, other keys
+    warm_s = time.perf_counter() - t0
+    before = svc.snapshot()
+    t0 = time.perf_counter()
+    results = serve_bursts(svc, Q)
+    dt = time.perf_counter() - t0
+    after = svc.snapshot()
+    launches = dict(ops.LAUNCHES)
+    plain_cuda = {k: v["cuda"] for k, v in ref.CALLS.items()}
+    delta = {k: after[k] - before[k] for k in
+             ("batches", "pad_lanes", "device_queries", "device_seconds",
+              "scan_lanes")}
+    graph_lanes = delta["device_queries"] - delta["scan_lanes"]
+    rb = dq.qvecs.numel() * dq.qvecs.element_size() + (
+        0 if dq.qscale is None else dq.qscale.numel() * 4)
+    print(f"[{quant}] replica ({rb / 2**30:.3f} GiB) attached on the card "
+          f"in {attach_s:.3f}s; {len(results)} requests in {dt:.3f}s "
+          f"({len(results) / dt:.1f} QPS end-to-end; device "
+          f"{delta['device_queries'] / delta['device_seconds']:.1f} lane/s "
+          f"over {delta['device_seconds']:.3f}s); warm-up {warm_s:.1f}s",
+          flush=True)
+    print(f"[{quant}] batches={delta['batches']} graph_lanes={graph_lanes} "
+          f"(incl. {delta['pad_lanes']} pad lanes) "
+          f"scan_lanes={delta['scan_lanes']}; launches on the path "
+          f"{launches}; plain-version CUDA calls {plain_cuda}", flush=True)
+    gname, sname = QUANT_KERNELS[quant]
+    for name in (gname, sname, "gather_l2_filter"):
+        check(launches[name] > 0, f"{quant}: {name} was never launched")
+    for name in (gname, sname):
+        rows[name]["launches"] = launches[name]
+    check(all(v == 0 for v in plain_cuda.values()),
+          f"{quant}: the path fell through to a plain version: {plain_cuda}")
+    check(delta["scan_lanes"] == int(use_scan.sum()),
+          f"{quant}: the planner split the lanes differently")
+
+    ids = np.stack([r.ids for r in results])
+    dists = np.stack([r.dists for r in results])
+    check_served(ids, dists, index.vecs, index.attrs, Q, lo, hi, quant)
+    gi = np.nonzero(~use_scan)[0]
+    si = np.nonzero(use_scan)[0]
+    rec = recall(ids[gi], t_ids[gi])
+    scan_same = int((ids[si] == t_ids[si]).all(1).sum())
+    print(f"[{quant}] graph lanes ({len(gi)}): recall@{cfg.k} {rec:.4f}; "
+          f"scan lanes with the f32 truth's ids: {scan_same} of {len(si)}",
+          flush=True)
+    trace_programs(quant, dq, svc.params, Q, lo, hi, use_scan)
+    if quant != "int8":
+        return
+
+    # ---- the int8 path against smoke_reference.py (numpy only)
+    t0 = time.perf_counter()
+    qv_card, qs_card = dq.qvecs.cpu().numpy(), dq.qscale.cpu().numpy()
+    diff = 0
+    for s in range(0, len(index.vecs), 1 << 17):
+        a, b = sref.quantize_rows_i8(index.vecs[s:s + (1 << 17)])
+        diff += int((a != qv_card[s:s + (1 << 17)]).sum())
+        diff += int((b != qs_card[s:s + (1 << 17)]).sum())
+    deq = sref.dequant_rows(qv_card, qs_card)
+    print(f"[int8] replica: {diff} elements differ from numpy's "
+          f"quantization ({time.perf_counter() - t0:.1f}s on the host)",
+          flush=True)
+    check(diff == 0, "the int8 replica differs from numpy's quantization")
+
+    p = svc.params
+    pl = Planner(dq, dataclasses.replace(p, strategy="graph"))
+    g_ids, _, g_hops, _ = pl.search(Q[gi], lo[gi], hi[gi])
+    check(bool((ids[gi] == g_ids).all()),
+          "int8: served graph lanes differ from the graph program's")
+    rr = max(p.k, min(p.ef, p.k * p.rerank_mult))
+    nbrs = di.nbrs.cpu().numpy()
+    t0 = time.perf_counter()
+    same_ids = same_hops = 0
+    for j, i in enumerate(gi):
+        cand, _, hops = sref.beam_search(
+            deq, index.attrs, nbrs, ref_ent[j], Q[i], lo[i], hi[i], k=rr,
+            ef=p.ef, c_n=p.c_n, E=p.expand_width, max_hops=p.hops())
+        r_ids, _ = sref.rerank(index.vecs, cand, Q[i], p.k)
+        same_ids += bool((r_ids == g_ids[j]).all())
+        same_hops += int(hops == g_hops[j])
+    del nbrs
+    print(f"[int8] graph lanes: ids equal to the numpy int8 beam search + "
+          f"f32 rerank (rr={rr}) on {same_ids} of {len(gi)} lanes, hops on "
+          f"{same_hops} ({time.perf_counter() - t0:.1f}s on the host)",
+          flush=True)
+    check(same_ids >= 0.95 * len(gi) and same_hops >= 0.95 * len(gi),
+          "int8: the graph lanes disagree with the numpy reference")
+    kq = min(max(p.k, p.k * p.rerank_mult), len(index.vecs))
+    t0 = time.perf_counter()
+    same_scan = sum(bool((sref.scan_rerank(
+        deq, index.vecs, index.attrs, Q[i], lo[i], hi[i], k=p.k, kq=kq)[0]
+        == ids[i]).all()) for i in si)
+    print(f"[int8] scan lanes: ids equal to the numpy int8 over-fetch "
+          f"(kq={kq}) + f32 rerank on {same_scan} of {len(si)} lanes "
+          f"({time.perf_counter() - t0:.1f}s on the host)", flush=True)
+    check(same_scan >= 0.95 * len(si),
+          "int8: the scan lanes disagree with the numpy reference")
 
 
 def builder_check(index, di, M: int, seed: int = 0) -> None:
@@ -536,8 +756,10 @@ def main() -> None:
           f"({json.dumps({k: round(v, 1) for k, v in built.items()})})",
           flush=True)
 
-    d, m, k = 768, 4, 10
-    rows = kernel_checks(args.n, d, m, k, dev)
+    from repro_torch.configs.khi_serve import config
+    cfg = config()
+    rows = kernel_checks(args.n, cfg.d, cfg.m, cfg.k,
+                         cfg.k * cfg.rerank_mult, dev)
     torch.cuda.empty_cache()
     if args.phases == "all":
         main_path(args.n, 1_000_000, dev, rows)

@@ -15,8 +15,14 @@ JAX reference itself cannot run.
   * ``graph_rows`` — the bulk builder's rule for one member row of one
     tree node, in float64: the exact top-K in-node candidates (ties to
     the lower node position) and the HNSW RNG prune.
+  * the int8 score path (DESIGN.md §12): ``quantize_rows_i8`` (the
+    replica), ``dequant_rows``, ``rerank`` (the exact f32 (dist, id)
+    top-k over candidates, which the graph lanes apply to the top ``rr``
+    of a ``beam_search`` over the dequantized corpus) and
+    ``scan_rerank`` (the scan lanes' over-fetch of ``kq`` on the
+    dequantized corpus, then the same rerank).
 
-``tests/test_torch_reference.py`` pins all three to the JAX package on
+``tests/test_torch_reference.py`` pins all of them to the JAX package on
 the CPU.
 
     from smoke_reference import dfs_entries, beam_search, graph_rows
@@ -27,7 +33,8 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["dfs_entries", "beam_search", "sq_dists_f64", "graph_rows",
-           "graph_shape"]
+           "graph_shape", "quantize_rows_i8", "dequant_rows", "rerank",
+           "scan_rerank"]
 
 
 def _matches(attrs: np.ndarray, lo: np.ndarray, hi: np.ndarray):
@@ -78,7 +85,9 @@ def dfs_entries(tree, attrs, lo, hi, c_e: int, scan_budget: int) -> list:
 def beam_search(vecs, attrs, nbrs, entries, q, lo, hi, *, k: int, ef: int,
                 c_n: int, E: int, max_hops: int):
     """One query's graph search. ``nbrs`` is object-major (n, H, M).
-    Returns (ids (k,) -1 padded, dists (k,) f32, hops)."""
+    Returns the first ``k`` pool slots (ids (k,) -1 padded, dists (k,)
+    f32) and the hop count; ``k`` may be up to ``ef`` (a rerank's
+    ``rr``)."""
     n = vecs.shape[0]
     HM = nbrs.shape[1] * nbrs.shape[2]
     L = E * HM
@@ -189,3 +198,47 @@ def graph_rows(vecs, members, pos, d_rows, *, M: int, ef_b: int
             kept.append(j)
         out[r, :len(kept)] = members[cand[kept]]
     return out
+
+
+def quantize_rows_i8(v):
+    """(n, d) float -> (int8 (n, d), scale (n, 1) f32): scale = max|row| /
+    127 (1 for an all-zero row), round half to even, clip to +-127."""
+    v = np.asarray(v, np.float32)
+    amax = np.abs(v).max(axis=-1, keepdims=True)
+    scale = np.where(amax > 0, amax / np.float32(127.0),
+                     np.float32(1.0)).astype(np.float32)
+    q = np.clip(np.rint(v / scale), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def dequant_rows(qrows, scale):
+    """f32 rows back from int8 rows and their scales."""
+    return qrows.astype(np.float32) * scale.astype(np.float32)
+
+
+def rerank(vecs, cand, q, k: int):
+    """Exact f32 squared distances of the candidate ids ``cand`` (-1 =
+    none) to ``q``; the k smallest by (distance, id), -1 / +inf past the
+    real candidates."""
+    cand = np.asarray(cand, np.int64)
+    d = np.full(len(cand), np.inf, np.float32)
+    ok = cand >= 0
+    dv = vecs[cand[ok]] - q
+    d[ok] = np.einsum("vd,vd->v", dv, dv)
+    key = np.where(ok, cand, np.iinfo(np.int32).max)
+    sel = np.lexsort((key, d))[:k]
+    ids, dd = cand[sel], d[sel]
+    return np.where(np.isinf(dd), -1, ids), dd
+
+
+def scan_rerank(deq, vecs, attrs, q, lo, hi, *, k: int, kq: int):
+    """One scan lane of the quantized path: the kq in-box rows nearest to
+    ``q`` on the dequantized corpus ``deq`` by (distance, id), then
+    ``rerank`` on the f32 corpus. NaN attrs never match."""
+    rows = np.nonzero(_matches(attrs, lo, hi))[0]
+    dv = deq[rows] - q
+    d = np.einsum("vd,vd->v", dv, dv)
+    top = rows[np.lexsort((rows, d))[:kq]]
+    cand = np.full(kq, -1, np.int64)
+    cand[:len(top)] = top
+    return rerank(vecs, cand, q, k)

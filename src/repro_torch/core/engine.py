@@ -21,8 +21,11 @@ Scoring goes through the ``Scorer`` registry. ``backend=
 it launches the hand-written CUDA kernel (``kernels/csrc/
 gather_l2_filter.cu``) for CUDA tensors and its plain version on the CPU.
 ``backend="jnp"`` is the unfused plain-PyTorch scorer. The strategies
-``graph``, ``scan`` and ``auto`` are ported; ``hybrid``, the quantized
-replicas, sharded indexes and predicate expressions raise
+``graph``, ``scan`` and ``auto`` are ported, with ``quant`` in
+{none, bf16, int8}: a quantized search walks or scans a compressed
+corpus replica (``DeviceIndex.qvecs`` / ``qscale``, DESIGN.md §12) and
+reranks its over-fetched candidates exactly in f32 before answering.
+``hybrid``, sharded indexes and predicate expressions raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -42,17 +45,18 @@ from .router import (HostCardEstimator, ROUTERS, required_frontier_cap,
 from .util import pow2_at_least, resolve_device
 from ..kernels import ops as _ops
 from ..kernels import ref as _ref
+from ..kernels.quant import QUANTS, quant_replica
 
 __all__ = ["DeviceIndex", "SearchParams", "BACKENDS", "ROUTERS",
            "STRATEGIES", "SCAN_BACKENDS", "DEFAULT_SCAN_FRAC", "QUANTS",
            "Scorer", "Plan", "Planner", "device_put_index", "resolve_scorer",
-           "search_batch", "make_search_fn", "required_scan_budget",
-           "required_stack_cap", "required_frontier_cap",
-           "derive_search_params", "validate_search_params"]
+           "resolve_scorer_pair", "with_quant_replica", "search_batch",
+           "make_search_fn", "required_scan_budget", "required_stack_cap",
+           "required_frontier_cap", "derive_search_params",
+           "validate_search_params"]
 
 BACKENDS = ("jnp", "pallas_l2", "pallas_gather_l2", "pallas_gather_l2_filter")
 STRATEGIES = ("graph", "scan", "auto", "hybrid")
-QUANTS = ("none", "bf16", "int8")
 SCAN_BACKENDS = ("jnp", "pallas_gather_l2_filter")
 DEFAULT_SCAN_FRAC = 0.1
 
@@ -82,6 +86,11 @@ class DeviceIndex:
     count: torch.Tensor   # (P,) int64
     order: torch.Tensor   # (n,) int64
     root: int
+    # the compressed score replica, None unless a quantized search asked
+    # for it: qvecs (n, d) bf16 or int8, qscale the int8 per-row (n, 1)
+    # f32 scale plane (None for bf16)
+    qvecs: Optional[torch.Tensor] = None
+    qscale: Optional[torch.Tensor] = None
 
     @property
     def n(self) -> int:
@@ -101,9 +110,9 @@ def device_put_index(index, *, device=None, quant: str = "none"
     """Flatten a host index onto ``device`` (default ``cuda``). ``index``
     is anything with the ``KHIIndex`` fields: ``vecs``, ``attrs``,
     ``nbrs`` (H, n, M) and ``tree`` (numpy arrays or tensors), so an
-    index built by the JAX package works as it is."""
-    if quant != "none":
-        raise _todo(f"quant={quant!r}", "9")
+    index built by the JAX package works as it is. ``quant`` ("bf16" /
+    "int8") also attaches the compressed replica (``with_quant_replica``).
+    """
     dev = resolve_device(device)
     t = index.tree
 
@@ -113,7 +122,7 @@ def device_put_index(index, *, device=None, quant: str = "none"
 
     nbrs = up(index.nbrs, torch.int32).permute(1, 0, 2).contiguous()
     root = int(np.nonzero(np.asarray(t.parent) < 0)[0][0])
-    return DeviceIndex(
+    di = DeviceIndex(
         vecs=up(index.vecs, torch.float32).contiguous(),
         attrs=up(index.attrs, torch.float32).contiguous(),
         nbrs=nbrs,
@@ -123,6 +132,31 @@ def device_put_index(index, *, device=None, quant: str = "none"
         lo=up(t.lo, torch.float32), hi=up(t.hi, torch.float32),
         start=up(t.start, torch.int64), count=up(t.count, torch.int64),
         order=up(t.order, torch.int64), root=root)
+    return with_quant_replica(di, quant)
+
+
+def with_quant_replica(di: DeviceIndex, quant: str) -> DeviceIndex:
+    """Copy of ``di`` carrying the compressed corpus replica for ``quant``
+    (made on ``di``'s device in one pass over ``vecs``); ``quant="none"``
+    drops any replica. The other tensors are shared, not copied."""
+    if quant == "none":
+        return dataclasses.replace(di, qvecs=None, qscale=None)
+    if quant not in QUANTS:
+        raise ValueError(f"unknown quant {quant!r}; expected one of {QUANTS}")
+    qvecs, qscale = quant_replica(di.vecs, quant)
+    return dataclasses.replace(di, qvecs=qvecs, qscale=qscale)
+
+
+_REPLICA_DTYPE = {"bf16": torch.bfloat16, "int8": torch.int8}
+
+
+def _with_replica_for(di: DeviceIndex, quant: str) -> DeviceIndex:
+    """``di`` itself when it already carries ``quant``'s replica (or no
+    replica is wanted), else a copy with that replica derived."""
+    if quant == "none" or (di.qvecs is not None
+                           and di.qvecs.dtype == _REPLICA_DTYPE[quant]):
+        return di
+    return with_quant_replica(di, quant)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,11 +345,49 @@ def _filter_score(di, q, qlo, qhi, ids):
     return _ops.gather_l2_filter(ids, di.vecs, di.attrs, q, qlo, qhi)
 
 
-def resolve_scorer(backend: Optional[str] = None) -> Scorer:
+def _quant_scorer(backend: str, quant: str) -> Scorer:
+    """Scorer over the compressed replica: distances from ``di.qvecs``
+    (dequantized in the kernel or its plain version), the predicate from
+    the exact f32 ``di.attrs``. Each branch copies the reference's: only
+    the kernel backend's bf16 form rounds the query to bf16."""
+    if backend == "pallas_gather_l2_filter":
+        if quant == "bf16":
+            def score(di, q, qlo, qhi, ids):
+                qb = q.to(torch.bfloat16).to(torch.float32)
+                return _ops.gather_l2_filter(ids, di.qvecs, di.attrs, qb,
+                                             qlo, qhi)
+        else:
+            def score(di, q, qlo, qhi, ids):
+                return _ops.gather_l2_filter_q8(ids, di.qvecs, di.qscale,
+                                                di.attrs, q, qlo, qhi)
+    elif quant == "bf16":                           # plain forms
+        def score(di, q, qlo, qhi, ids):
+            return _ref.gather_l2_filter_ref(ids, di.qvecs, di.attrs, q,
+                                             qlo, qhi)
+    else:
+        def score(di, q, qlo, qhi, ids):
+            return _ref.gather_l2_filter_q8_ref(ids, di.qvecs, di.qscale,
+                                                di.attrs, q, qlo, qhi)
+    return Scorer(name=f"{backend}+{quant}", fused_filter=True, score=score)
+
+
+def resolve_scorer(backend: Optional[str] = None, *,
+                   quant: str = "none") -> Scorer:
+    """``SearchParams.backend`` as a ``Scorer``. With ``quant`` != "none"
+    the scorer streams the compressed replica and its distances are
+    approximate: pair it with the exact scorer (``resolve_scorer_pair``).
+    """
     backend = backend or "jnp"
     if backend not in BACKENDS:
         raise ValueError(f"unknown scoring backend {backend!r}; "
                          f"expected one of {BACKENDS}")
+    if quant not in QUANTS:
+        raise ValueError(f"unknown quant {quant!r}; expected one of {QUANTS}")
+    if quant != "none":
+        if backend not in SCAN_BACKENDS:
+            raise ValueError(f"quant={quant!r} requires a backend in "
+                             f"{SCAN_BACKENDS}, got {backend!r}")
+        return _quant_scorer(backend, quant)
     if backend == "jnp":
         return Scorer(name="jnp", fused_filter=False, score=_plain_score)
     if backend == "pallas_gather_l2_filter":
@@ -323,14 +395,42 @@ def resolve_scorer(backend: Optional[str] = None) -> Scorer:
     raise _todo(f"backend={backend!r}", "8")
 
 
+def resolve_scorer_pair(p: SearchParams):
+    """(loop scorer, exact rerank scorer or None) for ``p``: with a quant
+    the loop scores on the replica and the second scorer rescores the
+    over-fetched candidates in f32."""
+    if p.quant == "none":
+        return resolve_scorer(p.backend), None
+    return resolve_scorer(p.backend, quant=p.quant), resolve_scorer(p.backend)
+
+
+_ID_LAST = np.iinfo(np.int32).max
+
+
+def _lex_topk(ids: torch.Tensor, dists: torch.Tensor, k: int):
+    """Top-k of (dists, ids) under the (dist, id) order: ascending
+    distance, ties to the lowest id, -1 lanes last; ids become -1
+    wherever the kept distance is +inf. (..., C) with C >= k."""
+    key_id = torch.where(ids >= 0, ids, torch.full_like(ids, _ID_LAST))
+    o = torch.argsort(key_id, dim=-1, stable=True)
+    o = o.gather(-1, torch.argsort(dists.gather(-1, o), dim=-1, stable=True))
+    o = o[..., :k]
+    d = dists.gather(-1, o)
+    i = ids.gather(-1, o)
+    return torch.where(torch.isinf(d), torch.full_like(i, -1), i), d
+
+
 # --------------------------------------------------------------------------
 # Phase B: the batched wide-frontier hop loop
 # --------------------------------------------------------------------------
 
 def _query_batch(di: DeviceIndex, q: torch.Tensor, qlo: torch.Tensor,
-                 qhi: torch.Tensor, p: SearchParams, scorer: Scorer):
+                 qhi: torch.Tensor, p: SearchParams, scorer: Scorer,
+                 exact_scorer: Optional[Scorer] = None):
     """(B, d) x (B, m) x (B, m) -> (ids (B, k) int64, dists (B, k) f32,
-    hops (B,) int64); the reference's ``_query_one`` for every lane."""
+    hops (B,) int64); the reference's ``_query_one`` for every lane. With
+    an ``exact_scorer`` (a quantized search) the top ``rr`` pool entries
+    are rescored by it and the answer is their (dist, id) top-k."""
     B = q.shape[0]
     n = di.n
     H, M = di.nbrs.shape[1], di.nbrs.shape[2]
@@ -394,7 +494,15 @@ def _query_batch(di: DeviceIndex, q: torch.Tensor, qlo: torch.Tensor,
         bd = scorer.score(di, q, qlo, qhi, buf)
         pool = beam.pool_merge_tail(pool, p.ef, buf, bd, bvalid)
         hops = hops + alive.to(torch.int64)
-    return pool.ids[:, :p.k], pool.dists[:, :p.k], hops
+    if exact_scorer is None:
+        return pool.ids[:, :p.k], pool.dists[:, :p.k], hops
+    # the loop ranked the pool on replica distances, whose order near the
+    # k boundary may invert against f32: rescore the top rr exactly
+    rr = max(p.k, min(p.ef, p.k * p.rerank_mult))
+    cand = pool.ids[:, :rr].contiguous()
+    ids_k, dists_k = _lex_topk(cand, exact_scorer.score(di, q, qlo, qhi,
+                                                        cand), p.k)
+    return ids_k, dists_k, hops
 
 
 def make_search_fn(p: SearchParams, *, di: Optional[DeviceIndex] = None,
@@ -407,16 +515,17 @@ def make_search_fn(p: SearchParams, *, di: Optional[DeviceIndex] = None,
             f"make_search_fn builds the graph program only; strategy="
             f"{p.strategy!r} dispatches per query on the host — build a "
             f"Planner (or call search_batch, which does).")
-    if p.quant != "none":
-        raise _todo(f"quant={p.quant!r}", "9")
     if p.router != "level":
         raise _todo("router='dfs'", "3")
     if di is not None:
         p = validate_search_params(p, di, on_undersized=on_undersized)
-    scorer = resolve_scorer(p.backend)
+    scorer, exact = resolve_scorer_pair(p)
 
     def search(di: DeviceIndex, q, qlo, qhi):
-        return _query_batch(di, q, qlo, qhi, p, scorer)
+        if p.quant != "none" and di.qvecs is None:
+            raise ValueError(f"quant={p.quant!r} needs an index carrying "
+                             f"its replica: see with_quant_replica")
+        return _query_batch(di, q, qlo, qhi, p, scorer, exact)
 
     return search
 
@@ -454,6 +563,31 @@ def _scan_exact(vecs, attrs_nan, q, qlo, qhi, k: int, *, use_kernel: bool):
     return _ref.scan_topk_ref(vecs, attrs_nan, q, qlo, qhi, k)
 
 
+def _scan_shard_topk(di: DeviceIndex, attrs_nan, q, qlo, qhi,
+                     p: SearchParams, *, use_kernel: bool):
+    """One index's scan-path top-k under every quant tier. A quantized
+    scan over-fetches ``kq = k * rerank_mult`` candidates from the
+    replica, rescores them on the f32 corpus through the gather path and
+    takes the (dist, id) top-k: exact whenever the true top-k survives
+    the over-fetch."""
+    if p.quant == "none":
+        return _scan_exact(di.vecs, attrs_nan, q, qlo, qhi, p.k,
+                           use_kernel=use_kernel)
+    kq = min(max(p.k, p.k * p.rerank_mult), di.vecs.shape[0])
+    if p.quant == "bf16":
+        cids, _ = _scan_exact(di.qvecs, attrs_nan, q, qlo, qhi, kq,
+                              use_kernel=use_kernel)
+    elif use_kernel:
+        cids, _ = _ops.scan_topk_q8(di.qvecs, di.qscale, attrs_nan, q, qlo,
+                                    qhi, k=kq)
+    else:
+        cids, _ = _ref.scan_topk_q8_ref(di.qvecs, di.qscale, attrs_nan, q,
+                                        qlo, qhi, kq)
+    gather = _ops.gather_l2_filter if use_kernel else _ref.gather_l2_filter_ref
+    exact_d = gather(cids, di.vecs, attrs_nan, q, qlo, qhi)
+    return _lex_topk(cids, exact_d, p.k)
+
+
 @dataclasses.dataclass
 class Plan:
     """Host-side record of one batch's dispatch: the routing bound per
@@ -483,10 +617,11 @@ class Planner:
                                                  on_undersized=on_undersized)
         if p.strategy == "hybrid":
             raise _todo("strategy='hybrid'", "10")
-        if p.quant != "none":
-            raise _todo(f"quant={p.quant!r}", "9")
         if p.router != "level":
             raise _todo("router='dfs'", "3")
+        # a quantized search streams the replica: derive it here when the
+        # caller handed a bare f32 index
+        di = _with_replica_for(di, p.quant)
         self.index = di
         self.device = di.device
         self.n_total = int(di.count[di.root])
@@ -498,7 +633,7 @@ class Planner:
             < self.n_total
         self._scan_attrs = torch.where(valid[:, None], di.attrs,
                                        torch.full_like(di.attrs, np.nan))
-        self._scorer = resolve_scorer(p.backend)
+        self._scorer, self._exact = resolve_scorer_pair(p)
         self._use_kernel = p.backend == "pallas_gather_l2_filter"
         self._estimators = (self._build_estimators()
                             if p.strategy == "auto" else None)
@@ -581,15 +716,15 @@ class Planner:
     def _run_graph(self, qs, lo, hi):
         q, ql, qh = self._tensors(qs, lo, hi)
         ids, dists, hops = _query_batch(self.index, q, ql, qh, self.params,
-                                        self._scorer)
+                                        self._scorer, self._exact)
         return (ids.to(torch.int32).cpu().numpy(), dists.cpu().numpy(),
                 hops.to(torch.int32).cpu().numpy())
 
     def _run_scan(self, qs, lo, hi):
         q, ql, qh = self._tensors(qs, lo, hi)
-        ids, dists = _scan_exact(self.index.vecs, self._scan_attrs, q, ql,
-                                 qh, self.params.k,
-                                 use_kernel=self._use_kernel)
+        ids, dists = _scan_shard_topk(self.index, self._scan_attrs, q, ql,
+                                      qh, self.params,
+                                      use_kernel=self._use_kernel)
         return (ids.to(torch.int32).cpu().numpy(), dists.cpu().numpy(),
                 np.zeros(qs.shape[0], np.int32))
 

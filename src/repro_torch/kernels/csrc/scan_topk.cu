@@ -1,15 +1,23 @@
-// Exact predicate-masked brute scan with a top-k, for Hopper (sm_90a).
+// Exact predicate-masked brute scan with a top-k, for Hopper (sm_90a), over
+// an f32 corpus, its bf16 replica or its int8 replica.
 //
 // Replaces: src/repro/kernels/scan_topk.py:scan_topk_kernel (the Pallas TPU
-// kernel behind the planner's strategy="scan" lanes).
+// kernel behind the planner's strategy="scan" lanes, which the reference
+// also runs on the bf16 replica) and
+// src/repro/kernels/scan_topk.py:scan_topk_q8_kernel (its int8-replica
+// form, quant="int8").
 //
 // Computes, per query b: the k rows with the smallest sum_j (q[b,j] -
-// corpus[r,j])^2 among rows r whose attrs pass all(qlo[b] <= a <= qhi[b])
+// row(r)[j])^2 among rows r whose attrs pass all(qlo[b] <= a <= qhi[b])
 // (NaN fails), ascending by (distance, row id) -- distance ties go to the
 // lowest id, exactly lax.top_k -- and (-1, +inf) past the in-range count.
+// row(r) is corpus[r] (f32), float(corpus[r]) (bf16) or
+// float(qcorpus[r]) * qscale[r] (int8, the product rounded on its own as
+// the reference's dequant_rows writes it).
 //
 // Bound on the H100: it depends on the boxes. Reading the corpus and
-// attrs once is ~3.1 GB at N=1M, d=768: ~0.92 ms at 3.35 TB/s. Only
+// attrs once is ~3.1 GB at N=1M, d=768 in f32 (~0.92 ms at 3.35 TB/s),
+// ~1.55 GB in bf16 (~0.46 ms) and ~0.79 GB in int8 (~0.24 ms). Only
 // (query, row) pairs whose row passes the box need a distance, 3 flops
 // per dimension (sub + fma): with every pair passing that is 5.9e11 flop
 // at B=256, ~8.8 ms at 67 TFLOP/s fp32, but with the planner's scan
@@ -25,7 +33,9 @@
 //     a chunk of rows. It walks the chunk in 64-row tiles: the tile's attrs
 //     are tested against the 64 boxes first (a tile with no passing pair
 //     skips its distance work), then distances come from a shared-memory
-//     tiled SIMT loop over 32-wide d slabs with a 4x4 register tile per
+//     tiled SIMT loop over 32-wide d slabs (a bf16 or int8 slab is widened
+//     to f32, and an int8 one scaled, while it is staged into shared
+//     memory, so the inner loop is the f32 one) with a 4x4 register tile per
 //     thread, and one thread per query folds the masked tile into that
 //     query's running top-k (insertion after equal distances, so ascending
 //     row order keeps the lowest id first). Each chunk writes its partial
@@ -35,6 +45,7 @@
 // The wrapper picks the chunk count so pass 1 fills the card; it allocates
 // the partial buffers and the outputs.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -44,8 +55,20 @@ namespace {
 
 constexpr int QT = 64, TR = 64, DS = 32, MMAX = 8, KMAX = 64;
 
+__device__ __forceinline__ float widen(float v, const float*, int) {
+  return v;
+}
+__device__ __forceinline__ float widen(__nv_bfloat16 v, const float*, int) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float widen(int8_t v, const float* scale, int r) {
+  return __fmul_rn(static_cast<float>(v), __ldg(scale + r));
+}
+
+template <typename T>
 __global__ void __launch_bounds__(256)
-scan_partial_kernel(const float* __restrict__ corpus,
+scan_partial_kernel(const T* __restrict__ corpus,
+                    const float* __restrict__ scale,
                     const float* __restrict__ attrs,
                     const float* __restrict__ q,
                     const float* __restrict__ qlo,
@@ -119,8 +142,9 @@ scan_partial_kernel(const float* __restrict__ corpus,
           const int gk = k0 + col;
           const int gq = q0 + r, gr = r0 + r;
           Qs[col][r] = (gq < B && gk < d) ? q[(size_t)gq * d + gk] : 0.f;
-          Rs[col][r] =
-              (gr < r_end && gk < d) ? corpus[(size_t)gr * d + gk] : 0.f;
+          Rs[col][r] = (gr < r_end && gk < d)
+                           ? widen(corpus[(size_t)gr * d + gk], scale, gr)
+                           : 0.f;
         }
         __syncthreads();
 #pragma unroll 8
@@ -247,26 +271,25 @@ scan_merge_kernel(const float* __restrict__ part_d,
   }
 }
 
-}  // namespace
-
-extern "C" int scan_topk_f32(const void* corpus, const void* attrs,
-                             const void* q, const void* qlo, const void* qhi,
-                             void* part_d, void* part_i, void* out_i,
-                             void* out_d, int B, int N, int d, int m, int k,
-                             int chunk_rows, int nchunks, void* stream) {
+template <typename T>
+int launch(const void* corpus, const void* scale, const void* attrs,
+           const void* q, const void* qlo, const void* qhi, void* part_d,
+           void* part_i, void* out_i, void* out_d, int B, int N, int d,
+           int m, int k, int chunk_rows, int nchunks, void* stream) {
   if (B == 0) return 0;
   if (k < 1 || k > KMAX || m < 1 || m > MMAX || N < 1)
     return (int)cudaErrorInvalidValue;
   const int smem = QT * k * (int)(sizeof(float) + sizeof(int));
   cudaError_t e = cudaFuncSetAttribute(
-      scan_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      scan_partial_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
   dim3 grid1(nchunks, (B + QT - 1) / QT);
-  scan_partial_kernel<<<grid1, 256, smem, s>>>(
-      (const float*)corpus, (const float*)attrs, (const float*)q,
-      (const float*)qlo, (const float*)qhi, (float*)part_d, (int*)part_i, B,
-      N, d, m, k, chunk_rows, nchunks);
+  scan_partial_kernel<T><<<grid1, 256, smem, s>>>(
+      (const T*)corpus, (const float*)scale, (const float*)attrs,
+      (const float*)q, (const float*)qlo, (const float*)qhi, (float*)part_d,
+      (int*)part_i, B, N, d, m, k, chunk_rows, nchunks);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   scan_merge_kernel<<<B, 256, 0, s>>>((const float*)part_d,
@@ -274,3 +297,22 @@ extern "C" int scan_topk_f32(const void* corpus, const void* attrs,
                                       (float*)out_d, nchunks, k);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// One entry per corpus kind. `scale` is read only by the int8 (q8) entry;
+// the others take a null pointer.
+#define SCAN_ENTRY(NAME, T)                                                  \
+  extern "C" int NAME(const void* corpus, const void* scale,                 \
+                      const void* attrs, const void* q, const void* qlo,     \
+                      const void* qhi, void* part_d, void* part_i,           \
+                      void* out_i, void* out_d, int B, int N, int d, int m,  \
+                      int k, int chunk_rows, int nchunks, void* stream) {    \
+    return launch<T>(corpus, scale, attrs, q, qlo, qhi, part_d, part_i,      \
+                     out_i, out_d, B, N, d, m, k, chunk_rows, nchunks,       \
+                     stream);                                                \
+  }
+
+SCAN_ENTRY(scan_topk_f32, float)
+SCAN_ENTRY(scan_topk_bf16, __nv_bfloat16)
+SCAN_ENTRY(scan_topk_q8, int8_t)

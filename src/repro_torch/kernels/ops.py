@@ -19,14 +19,20 @@ import torch
 from . import _build
 from . import ref as _ref
 
-__all__ = ["LAUNCHES", "reset_launches", "gather_l2_filter", "scan_topk",
-           "l2dist_qn"]
+__all__ = ["LAUNCHES", "reset_launches", "gather_l2_filter",
+           "gather_l2_filter_q8", "scan_topk", "scan_topk_q8", "l2dist_qn"]
 
-LAUNCHES = {"gather_l2_filter": 0, "scan_topk": 0, "l2dist_qn": 0}
+# one count per kernel form: the bf16 forms of gather_l2_filter and
+# scan_topk are the same sources instantiated for a bf16 corpus
+LAUNCHES = {"gather_l2_filter": 0, "gather_l2_filter_bf16": 0,
+            "gather_l2_filter_q8": 0, "scan_topk": 0, "scan_topk_bf16": 0,
+            "scan_topk_q8": 0, "l2dist_qn": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+
+_KIND = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def reset_launches() -> None:
@@ -54,6 +60,24 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _corpus_kind(corpus: torch.Tensor) -> str:
+    kind = _KIND.get(corpus.dtype)
+    if kind is None:
+        raise TypeError(f"corpus must be float32 or bfloat16, got "
+                        f"{corpus.dtype}")
+    _check(corpus, "corpus", corpus.dtype, 2)
+    return kind
+
+
+def _check_qscale(qcorpus: torch.Tensor, qscale: torch.Tensor) -> None:
+    _device_of(qcorpus, qscale)
+    _check(qcorpus, "qcorpus", torch.int8, 2)
+    _check(qscale, "qscale", torch.float32, 2)
+    if qscale.shape != (qcorpus.shape[0], 1):
+        raise ValueError(f"qscale must be ({qcorpus.shape[0]}, 1), got "
+                         f"{tuple(qscale.shape)}")
+
+
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {rc}")
@@ -71,20 +95,14 @@ def _fn(lib: str, sym: str, argtypes):
     return f
 
 
-def gather_l2_filter(idx: torch.Tensor, corpus: torch.Tensor,
-                     attrs: torch.Tensor, q: torch.Tensor, qlo: torch.Tensor,
-                     qhi: torch.Tensor) -> torch.Tensor:
-    """idx (B, C) int32/int64, -1 = pad, into corpus (N, d) f32 and
-    attrs (N, m) f32; q (B, d), qlo/qhi (B, m) f32 -> (B, C) f32 squared
-    L2, +inf on pad, out-of-range-id or failed-predicate lanes."""
+def _check_gather(idx, corpus, attrs, q, qlo, qhi) -> torch.device:
     dev = _device_of(idx, corpus, attrs, q, qlo, qhi)
     if idx.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"idx must be int32 or int64, got {idx.dtype}")
     _check(idx, "idx", idx.dtype, 2)
-    for t, nm in ((corpus, "corpus"), (attrs, "attrs"), (q, "q"),
-                  (qlo, "qlo"), (qhi, "qhi")):
+    for t, nm in ((attrs, "attrs"), (q, "q"), (qlo, "qlo"), (qhi, "qhi")):
         _check(t, nm, torch.float32, 2)
-    B, C = idx.shape
+    B = idx.shape[0]
     N, d = corpus.shape
     m = attrs.shape[1]
     if attrs.shape[0] != N or q.shape != (B, d) or qlo.shape != (B, m) \
@@ -93,20 +111,57 @@ def gather_l2_filter(idx: torch.Tensor, corpus: torch.Tensor,
                          f"{tuple(idx.shape)}, corpus {tuple(corpus.shape)}, "
                          f"attrs {tuple(attrs.shape)}, q {tuple(q.shape)}, "
                          f"qlo {tuple(qlo.shape)}, qhi {tuple(qhi.shape)}")
-    if dev.type == "cpu":
-        return _ref.gather_l2_filter_ref(idx, corpus, attrs, q, qlo, qhi)
+    return dev
+
+
+def _launch_gather(kind: str, idx, corpus, scale, attrs, q, qlo, qhi):
+    B, C = idx.shape
+    N, d = corpus.shape
     if B > 65535:
         raise ValueError(f"gather_l2_filter takes at most 65535 rows, got {B}")
+    dev = idx.device
     out = torch.empty((B, C), dtype=torch.float32, device=dev)
-    sym = "gather_l2_filter_i64" if idx.dtype == torch.int64 \
-        else "gather_l2_filter_i32"
-    f = _fn("gather_l2_filter", sym, [_P] * 7 + [_I] * 5 + [_P])
-    rc = f(idx.data_ptr(), corpus.data_ptr(), attrs.data_ptr(), q.data_ptr(),
-           qlo.data_ptr(), qhi.data_ptr(), out.data_ptr(), B, C, N, d, m,
-           _stream(dev))
-    _raise_on(rc, "gather_l2_filter")
-    LAUNCHES["gather_l2_filter"] += 1
+    ib = "i64" if idx.dtype == torch.int64 else "i32"
+    f = _fn("gather_l2_filter", f"gather_l2_filter_{kind}_{ib}",
+            [_P] * 8 + [_I] * 5 + [_P])
+    rc = f(idx.data_ptr(), corpus.data_ptr(),
+           None if scale is None else scale.data_ptr(), attrs.data_ptr(),
+           q.data_ptr(), qlo.data_ptr(), qhi.data_ptr(), out.data_ptr(),
+           B, C, N, d, attrs.shape[1], _stream(dev))
+    name = "gather_l2_filter" if kind == "f32" \
+        else f"gather_l2_filter_{kind}"
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return out
+
+
+def gather_l2_filter(idx: torch.Tensor, corpus: torch.Tensor,
+                     attrs: torch.Tensor, q: torch.Tensor, qlo: torch.Tensor,
+                     qhi: torch.Tensor) -> torch.Tensor:
+    """idx (B, C) int32/int64, -1 = pad, into corpus (N, d) f32 or bf16
+    and attrs (N, m) f32; q (B, d), qlo/qhi (B, m) f32 -> (B, C) f32
+    squared L2 (accumulated in f32), +inf on pad, out-of-range-id or
+    failed-predicate lanes."""
+    kind = _corpus_kind(corpus)
+    dev = _check_gather(idx, corpus, attrs, q, qlo, qhi)
+    if dev.type == "cpu":
+        return _ref.gather_l2_filter_ref(idx, corpus, attrs, q, qlo, qhi)
+    return _launch_gather(kind, idx, corpus, None, attrs, q, qlo, qhi)
+
+
+def gather_l2_filter_q8(idx: torch.Tensor, qcorpus: torch.Tensor,
+                        qscale: torch.Tensor, attrs: torch.Tensor,
+                        q: torch.Tensor, qlo: torch.Tensor,
+                        qhi: torch.Tensor) -> torch.Tensor:
+    """``gather_l2_filter`` over an int8 replica: qcorpus (N, d) int8 and
+    its per-row scale qscale (N, 1) f32; each gathered row is dequantized
+    (``float(row) * scale``) before it is scored."""
+    _check_qscale(qcorpus, qscale)
+    dev = _check_gather(idx, qcorpus, attrs, q, qlo, qhi)
+    if dev.type == "cpu":
+        return _ref.gather_l2_filter_q8_ref(idx, qcorpus, qscale, attrs, q,
+                                            qlo, qhi)
+    return _launch_gather("q8", idx, qcorpus, qscale, attrs, q, qlo, qhi)
 
 
 def _scan_chunking(B: int, N: int, sms: int) -> Tuple[int, int]:
@@ -119,44 +174,70 @@ def _scan_chunking(B: int, N: int, sms: int) -> Tuple[int, int]:
     return rows, -(-N // rows)
 
 
-def scan_topk(corpus: torch.Tensor, attrs: torch.Tensor, q: torch.Tensor,
-              qlo: torch.Tensor, qhi: torch.Tensor, *, k: int):
-    """Exact masked top-k over every row: corpus (N, d), attrs (N, m),
-    q (B, d), qlo/qhi (B, m), all f32 -> (ids (B, k) int32, dists (B, k)
-    f32), ascending by (distance, id), (-1, +inf) past the in-range count.
-    The kernel takes k <= 64 and m <= 8."""
+def _check_scan(corpus, attrs, q, qlo, qhi, k) -> torch.device:
     dev = _device_of(corpus, attrs, q, qlo, qhi)
     N, d = corpus.shape
     if not 1 <= k <= N:
         raise ValueError(f"k must be in [1, N={N}], got {k}")
-    for t, nm in ((corpus, "corpus"), (attrs, "attrs"), (q, "q"),
-                  (qlo, "qlo"), (qhi, "qhi")):
+    for t, nm in ((attrs, "attrs"), (q, "q"), (qlo, "qlo"), (qhi, "qhi")):
         _check(t, nm, torch.float32, 2)
     B = q.shape[0]
     m = attrs.shape[1]
     if attrs.shape[0] != N or q.shape[1] != d or qlo.shape != (B, m) \
             or qhi.shape != (B, m):
         raise ValueError("scan_topk shape mismatch")
-    if dev.type == "cpu":
-        return _ref.scan_topk_ref(corpus, attrs, q, qlo, qhi, k)
+    return dev
+
+
+def _launch_scan(kind: str, corpus, scale, attrs, q, qlo, qhi, k: int):
+    N, d = corpus.shape
+    B, m = qlo.shape
     if k > 64:
         raise ValueError(f"the scan kernel takes k <= 64, got {k}")
     if m > 8:
         raise ValueError(f"the scan kernel takes m <= 8 attributes, got {m}")
+    dev = corpus.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, nchunks = _scan_chunking(B, N, sms)
     part_d = torch.empty((B, nchunks, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((B, nchunks, k), dtype=torch.int32, device=dev)
     ids = torch.empty((B, k), dtype=torch.int32, device=dev)
     dists = torch.empty((B, k), dtype=torch.float32, device=dev)
-    f = _fn("scan_topk", "scan_topk_f32", [_P] * 9 + [_I] * 7 + [_P])
-    rc = f(corpus.data_ptr(), attrs.data_ptr(), q.data_ptr(), qlo.data_ptr(),
-           qhi.data_ptr(), part_d.data_ptr(), part_i.data_ptr(),
-           ids.data_ptr(), dists.data_ptr(), B, N, d, m, k, rows, nchunks,
-           _stream(dev))
-    _raise_on(rc, "scan_topk")
-    LAUNCHES["scan_topk"] += 1
+    f = _fn("scan_topk", f"scan_topk_{kind}", [_P] * 10 + [_I] * 7 + [_P])
+    rc = f(corpus.data_ptr(), None if scale is None else scale.data_ptr(),
+           attrs.data_ptr(), q.data_ptr(), qlo.data_ptr(), qhi.data_ptr(),
+           part_d.data_ptr(), part_i.data_ptr(), ids.data_ptr(),
+           dists.data_ptr(), B, N, d, m, k, rows, nchunks, _stream(dev))
+    name = "scan_topk" if kind == "f32" else f"scan_topk_{kind}"
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return ids, dists
+
+
+def scan_topk(corpus: torch.Tensor, attrs: torch.Tensor, q: torch.Tensor,
+              qlo: torch.Tensor, qhi: torch.Tensor, *, k: int):
+    """Exact masked top-k over every row: corpus (N, d) f32 or bf16,
+    attrs (N, m), q (B, d), qlo/qhi (B, m) f32 -> (ids (B, k) int32,
+    dists (B, k) f32, accumulated in f32), ascending by (distance, id),
+    (-1, +inf) past the in-range count. The kernel takes k <= 64 and
+    m <= 8."""
+    kind = _corpus_kind(corpus)
+    dev = _check_scan(corpus, attrs, q, qlo, qhi, k)
+    if dev.type == "cpu":
+        return _ref.scan_topk_ref(corpus, attrs, q, qlo, qhi, k)
+    return _launch_scan(kind, corpus, None, attrs, q, qlo, qhi, k)
+
+
+def scan_topk_q8(qcorpus: torch.Tensor, qscale: torch.Tensor,
+                 attrs: torch.Tensor, q: torch.Tensor, qlo: torch.Tensor,
+                 qhi: torch.Tensor, *, k: int):
+    """``scan_topk`` over an int8 replica (qcorpus (N, d) int8, qscale
+    (N, 1) f32): the exact masked top-k of the dequantized distances."""
+    _check_qscale(qcorpus, qscale)
+    dev = _check_scan(qcorpus, attrs, q, qlo, qhi, k)
+    if dev.type == "cpu":
+        return _ref.scan_topk_q8_ref(qcorpus, qscale, attrs, q, qlo, qhi, k)
+    return _launch_scan("q8", qcorpus, qscale, attrs, q, qlo, qhi, k)
 
 
 def l2dist_qn(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -14,11 +14,15 @@ from __future__ import annotations
 
 import torch
 
+from .quant import dequant_rows
+
 __all__ = ["CALLS", "reset_calls", "lex_smallest", "l2dist_qn_ref",
-           "gather_l2_filter_ref", "scan_topk_ref"]
+           "gather_l2_filter_ref", "scan_topk_ref",
+           "gather_l2_filter_q8_ref", "scan_topk_q8_ref"]
 
 CALLS = {name: {"cpu": 0, "cuda": 0}
-         for name in ("gather_l2_filter", "scan_topk", "l2dist_qn")}
+         for name in ("gather_l2_filter", "scan_topk", "l2dist_qn",
+                      "gather_l2_filter_q8", "scan_topk_q8")}
 
 _INF = float("inf")
 
@@ -92,18 +96,10 @@ def l2dist_qn_ref(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return qs + cs - 2.0 * (q @ c.transpose(-1, -2))
 
 
-def gather_l2_filter_ref(idx: torch.Tensor, corpus: torch.Tensor,
-                         attrs: torch.Tensor, q: torch.Tensor,
-                         qlo: torch.Tensor, qhi: torch.Tensor) -> torch.Tensor:
-    """idx (B, C) (-1 = pad) into corpus (N, d) / attrs (N, m), q (B, d),
-    qlo/qhi (B, m) -> (B, C) f32: ``sum((q - corpus[idx])^2)``, or +inf
-    when the lane is a pad, lies outside [0, N), or its attribute row
-    fails ``all(qlo <= a <= qhi)`` (NaN fails)."""
-    _count("gather_l2_filter", corpus)
-    N = corpus.shape[0]
+def _gather_l2_filter(idx, N, rows_of, attrs, q, qlo, qhi):
     valid = (idx >= 0) & (idx < N)
     safe = torch.where(valid, idx, torch.zeros_like(idx)).long()
-    rows = corpus[safe].to(torch.float32)                 # (B, C, d)
+    rows = rows_of(safe)                                  # (B, C, d) f32
     diff = rows - q.to(torch.float32)[:, None, :]
     dist = (diff * diff).sum(-1)
     a = attrs[safe].to(torch.float32)                     # (B, C, m)
@@ -111,30 +107,45 @@ def gather_l2_filter_ref(idx: torch.Tensor, corpus: torch.Tensor,
     return torch.where(ok & valid, dist, torch.full_like(dist, _INF))
 
 
-def scan_topk_ref(corpus: torch.Tensor, attrs: torch.Tensor, q: torch.Tensor,
-                  qlo: torch.Tensor, qhi: torch.Tensor, k: int, *,
-                  budget: int = 1 << 27):
-    """Exact predicate-masked top-k over every row: corpus (N, d),
-    attrs (N, m), q (B, d), qlo/qhi (B, m) -> (ids (B, k) int32,
-    dists (B, k) f32), ascending, distance ties to the lowest row id,
-    (-1, +inf) past the in-range count; NaN attrs never match.
+def gather_l2_filter_ref(idx: torch.Tensor, corpus: torch.Tensor,
+                         attrs: torch.Tensor, q: torch.Tensor,
+                         qlo: torch.Tensor, qhi: torch.Tensor) -> torch.Tensor:
+    """idx (B, C) (-1 = pad) into corpus (N, d) f32 or bf16 / attrs
+    (N, m), q (B, d), qlo/qhi (B, m) -> (B, C) f32:
+    ``sum((q - corpus[idx])^2)`` with the row upcast to f32, or +inf when
+    the lane is a pad, lies outside [0, N), or its attribute row fails
+    ``all(qlo <= a <= qhi)`` (NaN fails)."""
+    _count("gather_l2_filter", corpus)
+    return _gather_l2_filter(idx, corpus.shape[0],
+                             lambda safe: dequant_rows(corpus[safe]),
+                             attrs, q, qlo, qhi)
 
-    Rows stream in chunks of at most ``budget`` (query, row, dim)
-    elements, folding each chunk into a running top-k: the running list
-    precedes the chunk, so position order is row-id order and the
-    lowest-index tie-break of ``lex_smallest`` is the lowest-id one."""
-    _count("scan_topk", corpus)
-    N, d = corpus.shape
-    B = q.shape[0]
+
+def gather_l2_filter_q8_ref(idx: torch.Tensor, qcorpus: torch.Tensor,
+                            qscale: torch.Tensor, attrs: torch.Tensor,
+                            q: torch.Tensor, qlo: torch.Tensor,
+                            qhi: torch.Tensor) -> torch.Tensor:
+    """``gather_l2_filter_ref`` over an int8 replica: qcorpus (N, d) int8
+    with its per-row scale (N, 1) f32; the gathered rows dequantize
+    (``dequant_rows``) before they are scored."""
+    _count("gather_l2_filter_q8", qcorpus)
+    return _gather_l2_filter(
+        idx, qcorpus.shape[0],
+        lambda safe: dequant_rows(qcorpus[safe], qscale[safe]),
+        attrs, q, qlo, qhi)
+
+
+def _scan_topk(N, rows_of, attrs, q, qlo, qhi, k, budget):
+    B, d = q.shape
     if not 1 <= k <= N:
         raise ValueError(f"k must be in [1, N={N}], got {k}")
     q = q.to(torch.float32)
-    dev = corpus.device
+    dev = attrs.device
     best_d = torch.empty((B, 0), dtype=torch.float32, device=dev)
     best_i = torch.empty((B, 0), dtype=torch.int64, device=dev)
     step = max(1, budget // max(1, B * d))
     for s in range(0, N, step):
-        c = corpus[s:s + step].to(torch.float32)
+        c = rows_of(s, min(N, s + step))                  # (ch, d) f32
         diff = c[None, :, :] - q[:, None, :]
         dist = (diff * diff).sum(-1)                      # (B, ch)
         a = attrs[s:s + step].to(torch.float32)
@@ -150,3 +161,35 @@ def scan_topk_ref(corpus: torch.Tensor, attrs: torch.Tensor, q: torch.Tensor,
     ids = torch.where(torch.isfinite(best_d), best_i,
                       torch.full_like(best_i, -1))
     return ids.to(torch.int32), best_d
+
+
+def scan_topk_ref(corpus: torch.Tensor, attrs: torch.Tensor, q: torch.Tensor,
+                  qlo: torch.Tensor, qhi: torch.Tensor, k: int, *,
+                  budget: int = 1 << 27):
+    """Exact predicate-masked top-k over every row: corpus (N, d) f32 or
+    bf16 (upcast), attrs (N, m), q (B, d), qlo/qhi (B, m) -> (ids (B, k)
+    int32, dists (B, k) f32), ascending, distance ties to the lowest row
+    id, (-1, +inf) past the in-range count; NaN attrs never match.
+
+    Rows stream in chunks of at most ``budget`` (query, row, dim)
+    elements, folding each chunk into a running top-k: the running list
+    precedes the chunk, so position order is row-id order and the
+    lowest-index tie-break of ``lex_smallest`` is the lowest-id one."""
+    _count("scan_topk", corpus)
+    return _scan_topk(corpus.shape[0],
+                      lambda s, e: dequant_rows(corpus[s:e]),
+                      attrs, q, qlo, qhi, k, budget)
+
+
+def scan_topk_q8_ref(qcorpus: torch.Tensor, qscale: torch.Tensor,
+                     attrs: torch.Tensor, q: torch.Tensor,
+                     qlo: torch.Tensor, qhi: torch.Tensor, k: int, *,
+                     budget: int = 1 << 27):
+    """``scan_topk_ref`` over an int8 replica (qcorpus (N, d) int8, qscale
+    (N, 1) f32), dequantized chunk by chunk within ``budget``. Distances
+    are over the quantized rows: the engine reranks the returned ids
+    through the f32 path."""
+    _count("scan_topk_q8", qcorpus)
+    return _scan_topk(qcorpus.shape[0],
+                      lambda s, e: dequant_rows(qcorpus[s:e], qscale[s:e]),
+                      attrs, q, qlo, qhi, k, budget)

@@ -6,7 +6,8 @@ request bursts, as ``repro.launch.serve --mode khi`` does.
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain
 PyTorch versions of the kernels on the CPU. ``--backend
 pallas_gather_l2_filter`` is the predicate-fused scorer, which on the port
-is the hand-written CUDA kernel.
+is the hand-written CUDA kernel. ``--quant int8`` (or ``bf16``) serves
+from the compressed corpus replica with an exact f32 rerank.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ def serve_khi(args):
                           backend=args.backend,
                           expand_width=args.expand_width,
                           strategy=args.strategy,
-                          scan_threshold=args.scan_threshold)
+                          scan_threshold=args.scan_threshold,
+                          quant=args.quant, rerank_mult=args.rerank_mult)
     buckets = tuple(sorted({1, 8, args.batch}))
     svc = KHIService(device_put_index(index, device=dev), params,
                      config=ServeConfig(buckets=buckets))
@@ -57,7 +59,8 @@ def serve_khi(args):
           f"({len(results)/dt:.0f} QPS end-to-end; "
           f"device {snap['device_qps'] and round(snap['device_qps'])} QPS)")
     print(f"[serve] backend={args.backend} E={args.expand_width} "
-          f"strategy={args.strategy} batches={snap['batches']} "
+          f"strategy={args.strategy} quant={args.quant} "
+          f"batches={snap['batches']} "
           f"scan_lanes={snap['scan_lanes']} pad_lanes={snap['pad_lanes']} "
           f"cache_hits={snap['cache_hits']} "
           f"buckets={snap['traced_buckets']}")
@@ -65,7 +68,7 @@ def serve_khi(args):
 
 
 def main(argv=None):
-    from repro_torch.core.engine import BACKENDS, STRATEGIES
+    from repro_torch.core.engine import BACKENDS, QUANTS, STRATEGIES
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["khi"], default="khi")
@@ -84,6 +87,13 @@ def main(argv=None):
     ap.add_argument("--scan-threshold", type=int, default=0,
                     help="auto-dispatch threshold in in-range objects "
                          "(0 = 10%% of the corpus)")
+    ap.add_argument("--quant", default="none", choices=list(QUANTS),
+                    help="quantized score path: walk and scan a bf16/int8 "
+                         "corpus replica and rerank the over-fetched top "
+                         "k*rerank_mult exactly in f32")
+    ap.add_argument("--rerank-mult", type=int, default=4,
+                    help="quantized over-fetch factor before the exact "
+                         "f32 rerank")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' for the plain "
                          "versions)")

@@ -6,7 +6,9 @@ is 0 and they take the graph program, which exits at once), an LRU
 result cache keyed on (query, box, params, epoch) bytes, epoch
 hot-swap, and ``search`` / ``submit`` + ``flush`` / ``serve_stream``
 entry points. Every micro-batch runs through an ``engine.Planner``
-(``strategy="graph"`` makes every lane a graph lane).
+(``strategy="graph"`` makes every lane a graph lane). With
+``SearchParams.quant`` set, the service attaches the compressed corpus
+replica to each epoch's index before its planner is built.
 
 Mesh serving, streaming writes, degradation tiers above 0 and predicate
 expressions are not ported yet and raise ``NotImplementedError`` naming
@@ -24,7 +26,8 @@ from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..core.engine import (DeviceIndex, Planner, SearchParams, _todo,
-                           device_put_index, validate_search_params)
+                           _with_replica_for, device_put_index,
+                           validate_search_params)
 from ..core.util import resolve_device
 
 __all__ = ["ServeConfig", "Request", "Result", "KHIService"]
@@ -117,7 +120,9 @@ class KHIService:
                 self._device))
         self.params = validate_search_params(
             self._user_params, index, on_undersized=self._on_undersized)
-        self.index = index
+        # a quantized search streams the compressed replica: attach it
+        # once per epoch (swap_index re-derives it for a bare f32 index)
+        self.index = _with_replica_for(index, self.params.quant)
         self._plan_cache: "collections.OrderedDict[bytes, int]" = (
             collections.OrderedDict())
         self._search = self._build_search_fn()

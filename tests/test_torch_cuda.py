@@ -36,3 +36,48 @@ def test_cuda_kernels_match_plain_versions():
     torch.testing.assert_close(ops.l2dist_qn(q, corpus),
                                ref.l2dist_qn_ref(q, corpus),
                                rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_cuda_replica_kernels_match_plain_versions():
+    """The bf16 forms of the gather and scan kernels and their int8 (q8)
+    forms against their plain versions, at a d that takes the 16-byte row
+    loads (96) and one that does not (36). Scan ids are equal; distances
+    within rtol 1e-5, atol 1e-4 (reduce order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    from repro_torch.kernels import quant
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    N, m, B = 5000, 4, 40
+    for d in (96, 36):
+        corpus = torch.randn((N, d), generator=g, device=dev)
+        attrs = torch.rand((N, m), generator=g, device=dev)
+        attrs[3::41, 2] = float("nan")
+        q = torch.randn((B, d), generator=g, device=dev)
+        lo = torch.rand((B, m), generator=g, device=dev) * 0.4
+        hi = lo + 0.6
+        idx = torch.randint(-1, N, (B, 64), generator=g, device=dev)
+        qv, qs = quant.quant_replica(corpus, "int8")
+        cb, _ = quant.quant_replica(corpus, "bf16")
+        # the replica made on the card is the CPU's, bit for bit
+        cq, cs = quant.quant_replica(corpus.cpu(), "int8")
+        assert torch.equal(qv.cpu(), cq) and torch.equal(qs.cpu(), cs)
+        torch.testing.assert_close(
+            ops.gather_l2_filter_q8(idx, qv, qs, attrs, q, lo, hi),
+            ref.gather_l2_filter_q8_ref(idx, qv, qs, attrs, q, lo, hi),
+            rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(
+            ops.gather_l2_filter(idx, cb, attrs, q, lo, hi),
+            ref.gather_l2_filter_ref(idx, cb, attrs, q, lo, hi),
+            rtol=1e-5, atol=1e-4)
+        for k in (10, 40):
+            ids, dd = ops.scan_topk_q8(qv, qs, attrs, q, lo, hi, k=k)
+            rids, rdd = ref.scan_topk_q8_ref(qv, qs, attrs, q, lo, hi, k)
+            assert torch.equal(ids, rids)
+            torch.testing.assert_close(dd, rdd, rtol=1e-5, atol=1e-4)
+            ids, dd = ops.scan_topk(cb, attrs, q, lo, hi, k=k)
+            rids, rdd = ref.scan_topk_ref(cb, attrs, q, lo, hi, k)
+            assert torch.equal(ids, rids)
+            torch.testing.assert_close(dd, rdd, rtol=1e-5, atol=1e-4)

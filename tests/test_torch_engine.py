@@ -120,7 +120,7 @@ def test_make_search_fn_and_unported_options(tiny_index):
     with pytest.raises(ValueError, match="graph program only"):
         teng.make_search_fn(_params(teng, strategy="auto"))
     for kw, item in ((dict(strategy="hybrid"), "item 10"),
-                     (dict(quant="bf16", backend="jnp"), "item 9")):
+                     (dict(router="dfs"), "item 3")):
         with pytest.raises(NotImplementedError, match=item):
             teng.Planner(di, _params(teng, **kw))
     with pytest.raises(NotImplementedError, match="item 8"):

@@ -164,7 +164,8 @@ def test_cpu_tensors_run_the_plain_versions_and_count():
     ops.l2dist_qn(q, corpus)
     assert ids[:, 0].tolist() == [0, 1, 2]
     assert {k: v["cpu"] for k, v in ref.CALLS.items()} == {
-        "gather_l2_filter": 1, "scan_topk": 1, "l2dist_qn": 1}
+        "gather_l2_filter": 1, "scan_topk": 1, "l2dist_qn": 1,
+        "gather_l2_filter_q8": 0, "scan_topk_q8": 0}
     assert all(v["cuda"] == 0 for v in ref.CALLS.values())
     assert all(v == 0 for v in ops.LAUNCHES.values())
 

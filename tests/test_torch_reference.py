@@ -1,7 +1,9 @@
 """``smoke_reference.py`` (the plain numpy reference ``chip_smoke.py``
 holds the port to at full shard size) against the JAX package on the
-CPU: the DFS router, the wide-frontier beam search with its hop cap, and
-the bulk builder's graph rows."""
+CPU: the DFS router, the wide-frontier beam search with its hop cap, the
+bulk builder's graph rows, and the int8 score path (replica, graph-lane
+rerank, scan-lane over-fetch and rerank). Ids and hops are equal;
+distances within rtol = atol = 1e-5 (reduce order)."""
 
 import os
 import sys
@@ -12,6 +14,7 @@ import pytest
 from repro.core import engine as jeng
 from repro.core import query_ref as jref
 from repro.core.build_device import build_graphs_device as j_build
+from repro.kernels import quant as jq
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import smoke_reference as sref  # noqa: E402
@@ -89,3 +92,56 @@ def test_graph_shape_classes():
     assert sref.graph_shape(2, 32, 64) == (8, 7)
     assert sref.graph_shape(40, 32, 64) == (64, 32)
     assert sref.graph_shape(1_000_000, 32, 64) == (65, 32)
+
+
+def test_quantize_rows_i8_matches_reference():
+    rng = np.random.default_rng(9)
+    v = (rng.standard_normal((300, 24))
+         * rng.uniform(1e-3, 30, (300, 1))).astype(np.float32)
+    v[::17] = 0.0
+    v[3, :3] = [0.5, 1.5, -2.5]
+    q, s = sref.quantize_rows_i8(v)
+    wq, ws = jq.quantize_rows_i8(v)
+    np.testing.assert_array_equal(q, np.asarray(wq))
+    np.testing.assert_array_equal(s, np.asarray(ws))
+    np.testing.assert_array_equal(sref.dequant_rows(q, s),
+                                  np.asarray(jq.dequant_rows(wq, ws)))
+
+
+def test_int8_graph_rerank_matches_engine(tiny_index, tiny_queries):
+    """beam_search over the dequantized corpus keeps the top rr pool
+    slots; rerank takes their exact (dist, id) top-k: the engine's
+    quantized graph lanes."""
+    Q, preds = tiny_queries
+    p = jeng.SearchParams(k=10, ef=32, c_n=16, expand_width=4,
+                          backend="jnp", quant="int8", rerank_mult=2)
+    w_ids, w_d, w_hops = jeng.search_batch(
+        jeng.device_put_index(tiny_index, quant="int8"), Q, preds, p)
+    rr = max(p.k, min(p.ef, p.k * p.rerank_mult))
+    deq = sref.dequant_rows(*sref.quantize_rows_i8(tiny_index.vecs))
+    nbrs = _nhm(tiny_index)
+    for i, (q, pr) in enumerate(zip(Q, preds)):
+        entries = jref.range_filter_level(tiny_index, pr, 10)
+        cand, _, hops = sref.beam_search(
+            deq, tiny_index.attrs, nbrs, entries, q, pr.lo, pr.hi, k=rr,
+            ef=32, c_n=16, E=4, max_hops=p.hops())
+        ids, dists = sref.rerank(tiny_index.vecs, cand, q, p.k)
+        np.testing.assert_array_equal(ids, w_ids[i])
+        np.testing.assert_allclose(dists, w_d[i], rtol=1e-5, atol=1e-5)
+        assert hops == w_hops[i]
+
+
+def test_int8_scan_rerank_matches_engine(tiny_index, tiny_queries):
+    Q, preds = tiny_queries
+    p = jeng.SearchParams(k=10, ef=32, backend="jnp", quant="int8",
+                          strategy="scan", rerank_mult=3)
+    w_ids, w_d, _ = jeng.search_batch(tiny_index, Q, preds, p)
+    deq = sref.dequant_rows(*sref.quantize_rows_i8(tiny_index.vecs))
+    for i, (q, pr) in enumerate(zip(Q, preds)):
+        ids, dists = sref.scan_rerank(deq, tiny_index.vecs,
+                                      tiny_index.attrs, q, pr.lo, pr.hi,
+                                      k=p.k, kq=p.k * p.rerank_mult)
+        np.testing.assert_array_equal(ids, w_ids[i])
+        fin = np.isfinite(w_d[i])
+        np.testing.assert_allclose(dists[fin], w_d[i][fin], rtol=1e-5,
+                                   atol=1e-5)
