@@ -1,10 +1,14 @@
 """Chip smoke for the PyTorch/CUDA port: builds the hand-written kernels,
 holds each against its plain PyTorch version on the card (the gather and
-scan kernels in their f32, bf16 and int8 forms), then builds a KHI index
-at the khi-serve shard's widths on the card and serves mixed-selectivity
-bursts through the auto planner, checking the answers; then serves the
-same bursts again on the quantized score path, quant="int8" and then
-quant="bf16", from a replica attached to the same index.
+scan kernels in their f32, bf16 and int8 forms, the bitmask scan, and the
+windowed scan at the windows of the served 1/64 boxes), then builds a KHI
+index at the khi-serve shard's widths on the card and serves
+mixed-selectivity bursts through the auto planner, checking the answers;
+then serves the same bursts again on the quantized score path,
+quant="int8" and then quant="bf16", from a replica attached to the same
+index; then with strategy="hybrid" (per-node windows + graph walk); then
+two filter expressions through Request(expr=...) under "auto" and
+"hybrid" (one lowers to 3 disjoint boxes, one to the bitmask scan).
 
     python3 chip_smoke.py                 # full run, one GPU
     python3 chip_smoke.py --n 200000      # a smaller corpus (widths kept)
@@ -15,9 +19,14 @@ beam search and graph-row rule that shares no code with the port. Their
 recall@10 is printed against the 0.85 bar at the cell's ef and at 4x and
 16x that ef; the check requires the bar at 16x. The int8 pass is held to
 the same file's numpy quantization, int8 beam search + f32 rerank and
-int8 scan over-fetch + f32 rerank. Launch counts are reset before each
-served path (the f32 build + serve, the int8 pass, the bf16 pass) and
-read after it.
+int8 scan over-fetch + f32 rerank. The hybrid pass's pure-window lanes are
+held to the f32 brute force and to the same file's numpy antichain and
+windowed scan over the DFS order; its mixed lanes' recall to that of the
+graph strategy's own walk on the same lanes. The predicate pass's truth is a masked brute
+force whose mask comes from the same file's numpy year evaluator. Launch
+counts are reset before each served path (the f32 build + serve, the int8
+pass, the bf16 pass, the hybrid pass, the predicate pass) and read after
+it.
 
 Prints one line per phase, a {"kernels": [...]} line, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}. Exits
@@ -74,6 +83,25 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
+def topk_agree(name, ids, dd, rids, rdd):
+    """A top-k kernel against its plain version: the same +inf lanes,
+    distances within rtol 1e-5, atol 1e-3 (the two sum in other orders),
+    and ids equal on every slot except near-ties, whose two distances lie
+    within 1e-5 relative (the sum orders may break them differently).
+    Returns (slots with equal ids, near-tie slots, max abs err)."""
+    same = ids == rids
+    fin = torch.isfinite(rdd)
+    err = float((dd[fin] - rdd[fin]).abs().max()) if fin.any() else 0.0
+    check(torch.equal(torch.isinf(dd), torch.isinf(rdd)),
+          f"{name}: empty lanes differ from the plain version")
+    check(torch.allclose(dd[fin], rdd[fin], rtol=1e-5, atol=1e-3),
+          f"{name} dists disagree: max abs err {err}")
+    close = (dd - rdd).abs() <= 1e-5 * rdd.abs().clamp_min(1.0)
+    check(bool((same | close).all()),
+          f"{name} ids disagree on {int((~same).sum())} slots")
+    return int(same.sum()), int((~same).sum()), err
+
+
 # ---------------------------------------------------------------- phase 2
 
 GATHER_TPU = "src/repro/kernels/gather_l2_filter.py"
@@ -82,13 +110,17 @@ GATHER_CU = "src/repro_torch/kernels/csrc/gather_l2_filter.cu"
 SCAN_CU = "src/repro_torch/kernels/csrc/scan_topk.cu"
 
 
-def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev) -> dict:
+def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev, *,
+                  synthetic_windows: bool) -> dict:
     """Each kernel against its plain version at the main path's shapes:
     the f32 forms of the gather and scan, their bf16 forms (bf16 corpus
-    replica) and int8 forms (q8: int8 replica + per-row scale), and
-    l2dist. Tolerance for every gather and scan form: rtol 1e-5, atol 1e-3
-    on distances (the kernel and the plain version sum in other orders);
-    scan ids equal wherever the two distances are not within that noise."""
+    replica) and int8 forms (q8: int8 replica + per-row scale), the
+    bitmask scan, and l2dist. Tolerance for every gather and scan form:
+    rtol 1e-5, atol 1e-3 on distances (the kernel and the plain version
+    sum in other orders); scan ids equal wherever the two distances are
+    not within that noise. The windowed scan is checked at the served
+    windows in the hybrid pass, or here on synthetic windows when
+    ``synthetic_windows`` (no index is built)."""
     from repro_torch.kernels import ops, quant, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 yardsticks
@@ -191,17 +223,7 @@ def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev) -> dict:
         torch.cuda.synchronize()
         check(bool((ids[0] == -1).all()) and bool(torch.isinf(dd[0]).all()),
               f"{name}: an empty box must give (-1, +inf) lanes")
-        same = ids == rids
-        fin = torch.isfinite(rdd)
-        err = float((dd[fin] - rdd[fin]).abs().max()) if fin.any() else 0.0
-        check(torch.equal(torch.isinf(dd), torch.isinf(rdd)),
-              f"{name}: empty lanes differ from the plain version")
-        check(torch.allclose(dd[fin], rdd[fin], rtol=1e-5, atol=1e-3),
-              f"{name} dists disagree: max abs err {err}")
-        # ids may only differ where two distances are within reduce noise
-        close = (dd - rdd).abs() <= 1e-5 * rdd.abs().clamp_min(1.0)
-        check(bool((same | close).all()),
-              f"{name} ids disagree on {int((~same).sum())} slots")
+        same, ties, err = topk_agree(name, ids, dd, rids, rdd)
         nbytes = (n * row_bytes + attrs.numel() * 4 + q.numel() * 4
                   + 2 * qlo_s.numel() * 4 + B * kk * 8)
         # the int8 form also scales each row element once
@@ -216,8 +238,66 @@ def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev) -> dict:
         print(f"[kernels] {name} B={B} N={n} d={d} k={kk}: {r['ms']:.3f} ms "
               f"(plain {r['plain_ms']:.3f}, dequantize+cdist+mask+topk "
               f"{r['library_ms']:.3f}, bound {bms:.3f} by {by}, {n_pairs} "
-              f"passing pairs), ids equal on {int(same.sum())} of "
-              f"{same.numel()} slots, max abs err {err:.3g}", flush=True)
+              f"passing pairs), ids equal on {same} of {ids.numel()} "
+              f"slots ({ties} near-ties), max abs err {err:.3g}",
+              flush=True)
+    # -- scan_topk_mask at B=256, N=n: one shared row mask (a filter
+    # expression's rows: > 0 passes, NaN and 0 fail), k as the served path
+    mask = torch.where(attrs[:, 0] < 0.55, 1.0, -1.0)[:, None].contiguous()
+    mask[11::101] = float("nan")
+    mask[13::103] = 0.0
+    okr = (mask[:, 0] > 0).contiguous()
+    n_rows = int(okr.sum())
+
+    def kern_mask():
+        return ops.scan_topk_mask(corpus, mask, q, k=k)
+
+    def plain_mask():
+        return ref.scan_topk_mask_ref(corpus, mask, q, k)
+
+    def lib_mask():
+        dist = torch.cdist(q, corpus)
+        return torch.topk(torch.where(okr[None], dist, float("inf")), k,
+                          largest=False)
+
+    ids, dd = kern_mask()
+    rids, rdd = plain_mask()
+    torch.cuda.synchronize()
+    same, ties, err = topk_agree("scan_topk_mask", ids, dd, rids, rdd)
+    # the mask is read for every row, a vector only for a passing row
+    nbytes = n * 4 + n_rows * d * 4 + q.numel() * 4 + B * k * 8
+    bms, by = bound_ms(nbytes, n_rows * B * d * 3)
+    r = rows["scan_topk_mask"] = dict(
+        name="scan_topk_mask", route="cuda", launches=0, source=SCAN_CU,
+        replaces=SCAN_TPU + ":241", max_abs_err=err,
+        ms=time_ms(kern_mask, reps=5),
+        plain_ms=time_ms(plain_mask, reps=1, warmup=0),
+        bound_ms=bms, bound_by=by, library_ms=time_ms(lib_mask, reps=3))
+    print(f"[kernels] scan_topk_mask B={B} N={n} d={d} k={k}: "
+          f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, cdist+mask+topk "
+          f"{r['library_ms']:.3f}, bound {bms:.3f} by {by}, {n_rows} rows "
+          f"pass), ids equal on {same} of {ids.numel()} slots ({ties} "
+          f"near-ties), max abs err {err:.3g}", flush=True)
+    del mask, okr
+
+    if synthetic_windows:
+        # windows as a hybrid planner builds them: per lane a few disjoint
+        # extents, ascending by start, some longer than a block's chunk
+        W = 16
+        slot = max(1, min(8192, n // (2 * W)))
+        gen = np.random.default_rng(5)
+        st = np.full((B, W), -1, np.int32)
+        ct = np.zeros((B, W), np.int32)
+        for b in range(1, B):                   # lane 0: no windows
+            nw = int(gen.integers(1, W + 1))
+            cut = np.sort(gen.choice(n // slot, size=nw, replace=False))
+            st[b, :nw] = cut * slot
+            ct[b, :nw] = gen.integers(1, slot + 1, size=nw)
+        st[-1, 0], ct[-1, 0] = n - 100, 100      # ends at N
+        windows_check(corpus, attrs, q, qlo_s, qhi_s,
+                      torch.as_tensor(st).to(dev),
+                      torch.as_tensor(ct).to(dev), k, rows,
+                      "synthetic windows")
     del corpus, attrs, qv, qs, cb
 
     # -- l2dist_qn at (2048, d) x (65536, d)
@@ -246,6 +326,91 @@ def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev) -> dict:
           f"{rows['l2dist_qn']['library_ms']:.3f}, bound {bms:.3f} by {by}),"
           f" max abs err {err:.3g}", flush=True)
     return rows
+
+
+def windows_check(pos_vecs, pos_attrs, q, qlo, qhi, starts, counts, k,
+                  rows, what: str) -> None:
+    """The windowed scan against its plain version at (B, W) windows of a
+    position-ordered corpus, with the rule of ``topk_agree``; its bound
+    (the attrs of every row some lane's windows cover and the vector of
+    every row that passes the box of some lane covering it, each read
+    once, and 3 flops per dimension of each passing (lane, row) pair)
+    and a library yardstick (per lane: ``index_select`` of the window
+    rows, then ``cdist`` + mask + ``topk``)."""
+    from repro_torch.kernels import ops, ref
+
+    dev = pos_vecs.device
+    B, W = starts.shape
+    N, d = pos_vecs.shape
+    m = pos_attrs.shape[1]
+    st, ct = starts.cpu().numpy(), counts.cpu().numpy()
+    lane_rows, n_pass = [], 0
+    cov_any = torch.zeros(N, dtype=torch.bool, device=dev)
+    pass_any = torch.zeros(N, dtype=torch.bool, device=dev)
+    for b in range(B):
+        live = (st[b] >= 0) & (ct[b] > 0)
+        segs = [np.arange(s0, min(int(s0) + int(c0), N))
+                for s0, c0 in zip(st[b][live], ct[b][live])]
+        r = torch.as_tensor(np.concatenate(segs) if segs
+                            else np.zeros(0, np.int64)).to(dev)
+        a = pos_attrs.index_select(0, r)
+        ok = ((a >= qlo[b]) & (a <= qhi[b])).all(-1)
+        n_pass += int(ok.sum())
+        cov_any[r] = True
+        pass_any[r[ok]] = True
+        lane_rows.append(r)
+    covered = sum(int(r.numel()) for r in lane_rows)
+    # windows of different lanes overlap: the bytes count distinct rows
+    rows_cov, rows_pass = int(cov_any.sum()), int(pass_any.sum())
+    del cov_any, pass_any
+
+    def kern():
+        return ops.scan_topk_windows(pos_vecs, pos_attrs, q, qlo, qhi,
+                                     starts, counts, k=k)
+
+    def plain():
+        return ref.scan_topk_windows_ref(pos_vecs, pos_attrs, q, qlo, qhi,
+                                         starts, counts, k)
+
+    def lib():
+        out = []
+        for b, r in enumerate(lane_rows):
+            if r.numel():
+                dist = torch.cdist(q[b:b + 1], pos_vecs.index_select(0, r))
+                a = pos_attrs.index_select(0, r)
+                ok = ((a >= qlo[b]) & (a <= qhi[b])).all(-1)
+                out.append(torch.topk(torch.where(ok, dist[0], float("inf")),
+                                      min(k, r.numel()), largest=False))
+        return out
+
+    ids, dd = kern()
+    rids, rdd = plain()
+    torch.cuda.synchronize()
+    same, ties, err = topk_agree("scan_topk_windows", ids, dd, rids, rdd)
+    nbytes = (rows_cov * m * 4 + rows_pass * d * 4 + q.numel() * 4
+              + 2 * qlo.numel() * 4 + 2 * starts.numel() * 4 + B * k * 8)
+    bms, by = bound_ms(nbytes, n_pass * d * 3)
+    r = rows["scan_topk_windows"] = dict(
+        name="scan_topk_windows", route="cuda", launches=0, source=SCAN_CU,
+        replaces=SCAN_TPU + ":305", max_abs_err=err,
+        ms=time_ms(kern, reps=5),
+        plain_ms=time_ms(plain, reps=1, warmup=0),
+        bound_ms=bms, bound_by=by, library_ms=time_ms(lib, reps=2))
+    print(f"[kernels] scan_topk_windows at {what}: B={B} W={W} k={k}, "
+          f"{covered} covered (lane, row) pairs ({n_pass} pass) over "
+          f"{rows_cov} distinct rows ({rows_pass} pass some lane), d={d}: "
+          f"{r['ms']:.3f} ms "
+          f"(plain {r['plain_ms']:.3f}, per-lane index_select+cdist+mask+"
+          f"topk {r['library_ms']:.3f}, bound {bms:.3f} by {by}), ids equal "
+          f"on {same} of {ids.numel()} slots ({ties} near-ties), max abs "
+          f"err {err:.3g}", flush=True)
+
+
+def lanes_exact(ids, dists, t_ids, t_d):
+    """Per lane: every slot holds the truth's id, or a distance within
+    1e-5 relative of the truth's (a near-tie), with the same -1 slots."""
+    ok = (ids == t_ids) | np.isclose(dists, t_d, rtol=1e-5, atol=1e-4)
+    return ok.all(1) & ((ids < 0) == (t_ids < 0)).all(1)
 
 
 # -------------------------------------------------------------- phases 3-4
@@ -388,11 +553,14 @@ def main_path(n: int, n_full: int, dev, rows: dict) -> None:
 
     ref_ent = graph_checks(index, di, svc, Q, lo, hi, ids, use_scan, t_ids,
                            t_d, cfg, dev)
-    trace_programs("f32", di, svc.params, Q, lo, hi, use_scan)
+    trace_programs("f32", di, svc.params, Q, lo, hi, split_lanes(use_scan))
     del svc
     for quant in ("int8", "bf16"):
         quant_pass(quant, index, di, params, cfg, Q, lo, hi, serve_bursts,
                    use_scan, t_ids, ref_ent, dev, rows)
+    hybrid_pass(index, di, params, cfg, Q, lo, hi, perm >= nq, serve_bursts,
+                ids, use_scan, t_ids, t_d, dev, rows)
+    predicate_pass(index, di, params, cfg, Q, sizes, dev, rows)
 
 
 RECALL_BAR = 0.85   # the bar examples/quickstart.py sets for the reference
@@ -519,20 +687,26 @@ def check_served(ids, dists, vecs, attrs, Q, lo, hi, what: str) -> None:
               f"{what} lane {i}: served distances are not the exact ones")
 
 
-def trace_programs(tag, di, p, Q, lo, hi, use_scan) -> None:
-    """Where a served batch's time goes: the graph program over the graph
-    lanes and the scan program over the scan lanes, each run once to warm
-    and once under torch.profiler. Prints the wall time, the summed
-    device time of every kernel (self time, so nothing counts twice), the
-    device's idle share over the wall time and the top kernels. The
-    profiler itself slows the host, so the idle share is an upper bound
-    of the untraced run's."""
+def split_lanes(use_scan):
+    """(strategy, lanes) parts of an auto batch: its graph and scan lanes."""
+    return (("graph", np.nonzero(~use_scan)[0]),
+            ("scan", np.nonzero(use_scan)[0]))
+
+
+def trace_programs(tag, di, p, Q, lo, hi, parts, planner=None) -> None:
+    """Where a served batch's time goes: for each (strategy, lanes) of
+    ``parts``, that strategy's program over those lanes, run once to warm
+    and once under torch.profiler, on ``planner`` when given. Prints the
+    wall time, the summed device time of the device-side events (kernels
+    and copies, so nothing counts twice), the device's idle share over
+    the wall time and the top kernels. The profiler itself slows the
+    host, so the idle share is an upper bound of the untraced run's."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.engine import Planner
 
-    for strat, lanes in (("graph", np.nonzero(~use_scan)[0]),
-                         ("scan", np.nonzero(use_scan)[0])):
-        pl = Planner(di, dataclasses.replace(p, strategy=strat))
+    for strat, lanes in parts:
+        pl = planner or Planner(di, dataclasses.replace(p, strategy=strat))
         pl.search(Q[lanes], lo[lanes], hi[lanes])
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -541,8 +715,12 @@ def trace_programs(tag, di, p, Q, lo, hi, use_scan) -> None:
             pl.search(Q[lanes], lo[lanes], hi[lanes])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        # device-side events only: an operator's own entry repeats the
+        # device time of the kernels it launched
         evs = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages() if e.self_device_time_total > 0]
+               for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU
+               and e.self_device_time_total > 0]
         dev_ms = sum(t for _, t, _ in evs)
         if dev_ms == 0:
             print(f"[trace] {tag} {strat} program: the profiler saw no "
@@ -631,7 +809,7 @@ def quant_pass(quant, index, di, params, cfg, Q, lo, hi, serve_bursts,
     print(f"[{quant}] graph lanes ({len(gi)}): recall@{cfg.k} {rec:.4f}; "
           f"scan lanes with the f32 truth's ids: {scan_same} of {len(si)}",
           flush=True)
-    trace_programs(quant, dq, svc.params, Q, lo, hi, use_scan)
+    trace_programs(quant, dq, svc.params, Q, lo, hi, split_lanes(use_scan))
     if quant != "int8":
         return
 
@@ -682,6 +860,320 @@ def quant_pass(quant, index, di, params, cfg, Q, lo, hi, serve_bursts,
           f"({time.perf_counter() - t0:.1f}s on the host)", flush=True)
     check(same_scan >= 0.95 * len(si),
           "int8: the scan lanes disagree with the numpy reference")
+
+
+def hybrid_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts,
+                auto_ids, auto_scan, t_ids, t_d, dev, rows) -> None:
+    """strategy="hybrid" on the index already built, at the cell's node
+    threshold (0: the scan threshold, 10% of n), where every served lane
+    takes windows only, and at a hundredth of it, where lanes mix windows
+    with a walk (the served boxes' antichains hold nodes of up to ~8k
+    rows). At the cell's threshold the
+    windowed kernel is first held to its plain version at the windows of
+    the served 1/64 boxes. Each threshold serves the same warm-up pass
+    and bursts through KHIService. Every pure-window lane must give the
+    f32 truth's ids; on the 1/64 lanes the numpy antichain + windowed
+    scan over the DFS order (smoke_reference.py) must agree; every mixed
+    lane must reach at least the recall of the graph strategy's own walk
+    on it (the merged answer holds the walk's top-k; the windows only add
+    exact rows). Mixed lanes' recall beside the auto pass's is printed.
+    Launch counts are those of the cell's threshold."""
+    import smoke_reference as sref
+    from repro_torch.core.engine import Planner
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve import KHIService, ServeConfig
+
+    count = np.asarray(index.tree.count)
+    graph = Planner(di, dataclasses.replace(params, strategy="graph"))
+    for node_thr in (0, params.scan_threshold // 100):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc = KHIService(di, dataclasses.replace(
+            params, strategy="hybrid", node_scan_threshold=node_thr),
+            config=ServeConfig(buckets=cfg.buckets,
+                               cache_size=cfg.cache_size))
+        torch.cuda.synchronize()
+        pl = svc._planner
+        thr = pl.node_scan_threshold
+        tag = f"[hybrid {thr}]"
+        print(f"{tag} planner with the position-ordered f32 replica "
+              f"({pl._pos_vecs.numel() * 4 / 2**30:.2f} GiB) in "
+              f"{time.perf_counter() - t0:.2f}s", flush=True)
+        plan = pl.plan(lo, hi)
+        mode = plan.mode
+        if node_thr == 0:
+            # the windowed kernel at the served 1/64 boxes' windows (every
+            # 1/64 lane that takes windows, padded as the planner pads)
+            idx = np.nonzero(is_s & (mode >= 1))[0]
+            qs, ql, qh = pl._pad_pow2(Q[idx], lo[idx], hi[idx])
+            starts, counts, w_cap = pl._build_windows(plan.small_nodes, idx,
+                                                      qs.shape[0])
+            windows_check(pl._pos_vecs, pl._pos_attrs,
+                          *(torch.as_tensor(a).to(dev) for a in (qs, ql, qh)),
+                          starts[0].contiguous(), counts[0].contiguous(),
+                          cfg.k, rows, f"the windows of {len(idx)} served "
+                                       f"1/64 lanes (w_cap {w_cap})")
+            del starts, counts
+
+        # serve, recording each window batch's (lanes, W, w_cap)
+        shapes = []
+        build = pl._build_windows
+
+        def recording(small_nodes, lanes, bp, build=build, shapes=shapes):
+            out = build(small_nodes, lanes, bp)
+            shapes.append((bp, out[0].shape[2], out[2]))
+            return out
+
+        pl._build_windows = recording
+        t0 = time.perf_counter()
+        serve_bursts(svc, Q + np.float32(1e-3))    # warm-up, other keys
+        warm_s = time.perf_counter() - t0
+        shapes.clear()
+        ops.reset_launches()
+        ref.reset_calls()
+        before = svc.snapshot()
+        t0 = time.perf_counter()
+        results = serve_bursts(svc, Q)
+        dt = time.perf_counter() - t0
+        after = svc.snapshot()
+        launches = dict(ops.LAUNCHES)
+        plain_cuda = {k: v["cuda"] for k, v in ref.CALLS.items()}
+        dq = after["device_queries"] - before["device_queries"]
+        ds = after["device_seconds"] - before["device_seconds"]
+        n_mode = np.bincount(mode, minlength=3)
+        print(f"{tag} {len(results)} requests in {dt:.3f}s "
+              f"({len(results) / dt:.1f} QPS end-to-end; device "
+              f"{dq / ds:.1f} lane/s over {ds:.3f}s); warm-up {warm_s:.1f}s;"
+              f" lanes by mode: graph {n_mode[0]} (incl. "
+              f"{int((plan.card == 0).sum())} empty), pure-window "
+              f"{n_mode[1]}, mixed {n_mode[2]}", flush=True)
+        print(f"{tag} window batches (lanes, W, w_cap): {shapes}; launches "
+              f"on the path { {k: v for k, v in launches.items() if v} }; "
+              f"plain-version CUDA calls {plain_cuda}", flush=True)
+        check(launches["scan_topk_windows"] > 0,
+              f"{tag} the windowed kernel was never launched")
+        if node_thr == 0:
+            rows["scan_topk_windows"]["launches"] = \
+                launches["scan_topk_windows"]
+        check(all(v == 0 for v in plain_cuda.values()),
+              f"{tag} the path fell through to a plain version: "
+              f"{plain_cuda}")
+        want = "pure-window" if node_thr == 0 else "mixed"
+        check(n_mode[1 if node_thr == 0 else 2] > 0,
+              f"{tag} the bursts gave no {want} lane")
+        ids = np.stack([r.ids for r in results])
+        dists = np.stack([r.dists for r in results])
+        check_served(ids, dists, index.vecs, index.attrs, Q, lo, hi, tag)
+
+        # pure-window lanes: the f32 truth; the numpy reference on the
+        # 1/64 ones (the 1/4 lanes' windows cover ~16x more rows)
+        pure = np.nonzero(mode == 1)[0]
+        exact = lanes_exact(ids[pure], dists[pure], t_ids[pure], t_d[pure])
+        t0 = time.perf_counter()
+        sample = pure[is_s[pure]]
+        np_same = np_small = 0
+        for i in sample:
+            nodes = sref.antichain(index.tree, lo[i], hi[i])
+            np_small += bool((count[nodes] <= thr).all())
+            w_ids, w_d = sref.window_scan(index.vecs, index.attrs,
+                                          index.tree, nodes, Q[i], lo[i],
+                                          hi[i], cfg.k)
+            np_same += bool(lanes_exact(ids[i][None], dists[i][None],
+                                        w_ids[None], w_d[None])[0])
+        print(f"{tag} pure-window lanes: {int(exact.sum())} of {len(pure)} "
+              f"give the f32 truth's ids; of the {len(sample)} 1/64 ones, "
+              f"the numpy antichain is all-small on {np_small} and the "
+              f"numpy windowed scan equal on {np_same} "
+              f"({time.perf_counter() - t0:.1f}s on the host)", flush=True)
+        check(bool(exact.all()), f"{tag} a pure-window lane is not exact")
+        check(np_small == len(sample) and np_same == len(sample),
+              f"{tag} pure-window lanes disagree with the numpy reference")
+
+        # mixed lanes: the merged answer holds the walk's top-k, so on
+        # every one its recall is at least that of the graph strategy's
+        # own walk; beside it, the auto pass's recall on the same lanes
+        mixed = np.nonzero(mode == 2)[0]
+        if len(mixed):
+            g_ids = graph.search(Q[mixed], lo[mixed], hi[mixed])[0]
+
+            def per_lane(found, lanes):
+                return np.array([recall(found[j][None], t_ids[i][None])
+                                 for j, i in enumerate(lanes)])
+
+            rec_h, rec_g = per_lane(ids[mixed], mixed), per_lane(g_ids, mixed)
+            print(f"{tag} mixed lanes ({len(mixed)}): recall@{cfg.k} "
+                  f"{rec_h.mean():.4f} against {rec_g.mean():.4f} for the "
+                  f"graph strategy's walk; higher on "
+                  f"{int((rec_h > rec_g).sum())}, lower on "
+                  f"{int((rec_h < rec_g).sum())}", flush=True)
+            check(bool((rec_h >= rec_g).all()),
+                  f"{tag} a mixed lane's recall fell below the graph "
+                  f"strategy's walk on it")
+            for walked in (True, False):
+                sel = auto_scan[mixed] != walked
+                if not sel.any():
+                    continue
+                rec_a = per_lane(auto_ids[mixed[sel]], mixed[sel])
+                print(f"{tag} mixed lanes the auto pass "
+                      f"{'walked' if walked else 'scanned'} ({int(sel.sum())})"
+                      f": recall@{cfg.k} {rec_h[sel].mean():.4f} against "
+                      f"{rec_a.mean():.4f} in the auto pass; higher on "
+                      f"{int((rec_h[sel] > rec_a).sum())}, lower on "
+                      f"{int((rec_h[sel] < rec_a).sum())}", flush=True)
+        pl._build_windows = build
+        trace_programs(f"hybrid {thr}", di, svc.params, Q, lo, hi,
+                       [("hybrid", np.arange(len(Q)))], planner=pl)
+        del svc, pl
+
+
+def masked_truth(vecs, mask, Q, k: int, dev):
+    """Exact top-k ids (-1 padded) and dists of the rows where ``mask``
+    holds, by plain differences on the card (no port code)."""
+    rows = torch.as_tensor(np.nonzero(mask)[0]).to(dev)
+    sub = vecs.index_select(0, rows)
+    kk = min(k, int(rows.numel()))
+    ids = np.full((len(Q), k), -1, np.int64)
+    dd = np.full((len(Q), k), np.inf, np.float32)
+    for s in range(0, len(Q), 8):
+        q = torch.as_tensor(Q[s:s + 8]).to(dev)
+        dist = torch.cat([((sub[r:r + 32768][None] - q[:, None]) ** 2).sum(-1)
+                          for r in range(0, sub.shape[0], 32768)], 1)
+        v, i = torch.topk(dist, kk, largest=False)
+        ids[s:s + 8, :kk] = rows[i].cpu().numpy()
+        dd[s:s + 8, :kk] = v.cpu().numpy()
+    return ids, dd
+
+
+def predicate_pass(index, di, params, cfg, Q, sizes, dev, rows) -> None:
+    """Two filter expressions over the cell's attrs through KHIService
+    with Request(expr=...), under "auto" and under "hybrid": E1 lowers to
+    3 disjoint boxes, E2 (10 non-adjacent years) exceeds box_budget and
+    runs the bitmask scan. Even lanes send E1, odd lanes E2, in the
+    bursts of the other passes. The truth is a masked brute force whose
+    mask comes from smoke_reference.year_mask. E2 lanes must equal it on
+    every lane; E1's disjuncts that dispatch to an exact path (scan, or
+    pure windows) must equal the box's truth, and the merged E1 answer
+    too when all of them do."""
+    import smoke_reference as sref
+    from repro_torch.core.predicate import compile_expr, parse_expr
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve import KHIService, Request, ServeConfig
+
+    attrs, m, k = index.attrs, cfg.m, cfg.k
+    a1_max = float(np.float32(np.median(attrs[:, 1])))
+    years = {"E1": (2019, 2021, 2023), "E2": tuple(range(2005, 2024, 2))}
+    texts = {"E1": f"a0 in [2019, 2021, 2023] and a1 <= {a1_max!r}",
+             "E2": "a0 in [" + ", ".join(map(str, years["E2"])) + "]"}
+    exprs = {e: parse_expr(t, m) for e, t in texts.items()}
+    progs = {e: compile_expr(x, m, box_budget=params.box_budget)
+             for e, x in exprs.items()}
+    check(progs["E1"].mode == "boxes" and progs["E1"].n_boxes == 3
+          and progs["E2"].mode == "bitmask",
+          f"predicate: E1 -> {progs['E1'].mode} ({progs['E1'].n_boxes} "
+          f"boxes), E2 -> {progs['E2'].mode}")
+    masks = {"E1": sref.year_mask(attrs, years["E1"], a1_max),
+             "E2": sref.year_mask(attrs, years["E2"])}
+    p1 = progs["E1"]
+    box_masks = [((attrs >= p1.lo[b]) & (attrs <= p1.hi[b])).all(1)
+                 for b in range(p1.n_boxes)]
+    check(np.array_equal(np.logical_or.reduce(box_masks), masks["E1"])
+          and sum(int(bm.sum()) for bm in box_masks) == int(masks["E1"]
+                                                            .sum()),
+          "predicate: E1's boxes are not a disjoint cover of its rows")
+    lanes = {"E1": np.arange(0, len(Q), 2), "E2": np.arange(1, len(Q), 2)}
+    t0 = time.perf_counter()
+    truth = {e: masked_truth(di.vecs, masks[e], Q[lanes[e]], k, dev)
+             for e in masks}
+    box_truth = [masked_truth(di.vecs, bm, Q[lanes["E1"]], k, dev)
+                 for bm in box_masks]
+    print(f"[predicate] E1 = {texts['E1']!r}: 3 boxes, {int(masks['E1'].sum())}"
+          f" rows; E2 = {texts['E2']!r}: bitmask, {int(masks['E2'].sum())} "
+          f"rows; truth in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    def serve(svc, qs):
+        out, s = [], 0
+        for b in sizes:
+            tickets = [svc.submit(Request(qs[i], expr=exprs[
+                "E1" if i % 2 == 0 else "E2"])) for i in range(s, s + b)]
+            res = svc.flush()
+            out.extend(res[t] for t in tickets)
+            s += b
+        return out
+
+    launches = {}
+    for strategy in ("auto", "hybrid"):
+        svc = KHIService(di, dataclasses.replace(params, strategy=strategy),
+                         config=ServeConfig(buckets=cfg.buckets,
+                                            cache_size=cfg.cache_size))
+        t0 = time.perf_counter()
+        serve(svc, Q + np.float32(1e-3))           # warm-up, other keys
+        warm_s = time.perf_counter() - t0
+        ops.reset_launches()
+        ref.reset_calls()
+        before = svc.snapshot()
+        t0 = time.perf_counter()
+        results = serve(svc, Q)
+        dt = time.perf_counter() - t0
+        after = svc.snapshot()
+        got = dict(ops.LAUNCHES)
+        for name, v in got.items():
+            launches[name] = launches.get(name, 0) + v
+        plain_cuda = {n: v["cuda"] for n, v in ref.CALLS.items()}
+        plane = {kk: after["predicate_lanes"].get(kk, 0)
+                 - before["predicate_lanes"].get(kk, 0)
+                 for kk in after["predicate_lanes"]}
+        print(f"[predicate] {strategy}: {len(results)} requests in "
+              f"{dt:.3f}s ({len(results) / dt:.1f} QPS end-to-end); warm-up "
+              f"{warm_s:.1f}s; predicate_lanes {plane}; launches "
+              f"{ {n: v for n, v in got.items() if v} }", flush=True)
+        check(all(v == 0 for v in plain_cuda.values()),
+              f"predicate {strategy}: the path fell through to a plain "
+              f"version: {plain_cuda}")
+        check(got["scan_topk_mask"] > 0,
+              f"predicate {strategy}: the bitmask kernel was never launched")
+        ids = np.stack([r.ids for r in results])
+        dists = np.stack([r.dists for r in results])
+        for e in ("E1", "E2"):
+            li = lanes[e]
+            t_i, t_dd = truth[e]
+            ok = lanes_exact(ids[li], dists[li], t_i, t_dd)
+            for j, i in enumerate(li):
+                got_i = ids[i][ids[i] >= 0]
+                check(bool(masks[e][got_i].all()),
+                      f"predicate {strategy} {e} lane {i}: an id outside "
+                      f"the filter was served")
+            print(f"[predicate] {strategy} {e}: recall@{k} "
+                  f"{recall(ids[li], t_i):.4f}; {int(ok.sum())} of {len(li)}"
+                  f" lanes equal the masked brute force", flush=True)
+            if e == "E2":
+                check(bool(ok.all()), f"predicate {strategy}: a bitmask "
+                      f"lane differs from the masked brute force")
+        # E1's disjuncts: each box dispatches alike for every lane
+        pl = svc._planner
+        exact_boxes = 0
+        for b in range(p1.n_boxes):
+            blo = np.repeat(p1.lo[b][None], len(lanes["E1"]), 0)
+            bhi = np.repeat(p1.hi[b][None], len(lanes["E1"]), 0)
+            bplan = pl.plan(blo[:1], bhi[:1])
+            exact_b = bool(bplan.use_scan[0])   # scan, or pure windows
+            exact_boxes += exact_b
+            b_ids, b_d, _, _ = pl.search(Q[lanes["E1"]], blo, bhi)
+            ok = lanes_exact(b_ids, b_d, *box_truth[b])
+            print(f"[predicate] {strategy} E1 box {b}: card "
+                  f"{int(bplan.card[0])}, "
+                  f"{'exact path' if exact_b else 'graph path'}, "
+                  f"{int(ok.sum())} of {len(ok)} lanes equal its truth",
+                  flush=True)
+            if exact_b:
+                check(bool(ok.all()), f"predicate {strategy}: E1 box {b} "
+                      f"dispatched to an exact path is not exact")
+        if exact_boxes == p1.n_boxes:
+            ok = lanes_exact(ids[lanes["E1"]], dists[lanes["E1"]],
+                             *truth["E1"])
+            check(bool(ok.all()), f"predicate {strategy}: E1 lanes are not "
+                  f"exact though every box took an exact path")
+        del svc, pl
+    rows["scan_topk_mask"]["launches"] = launches["scan_topk_mask"]
 
 
 def builder_check(index, di, M: int, seed: int = 0) -> None:
@@ -759,7 +1251,8 @@ def main() -> None:
     from repro_torch.configs.khi_serve import config
     cfg = config()
     rows = kernel_checks(args.n, cfg.d, cfg.m, cfg.k,
-                         cfg.k * cfg.rerank_mult, dev)
+                         cfg.k * cfg.rerank_mult, dev,
+                         synthetic_windows=args.phases == "kernels")
     torch.cuda.empty_cache()
     if args.phases == "all":
         main_path(args.n, 1_000_000, dev, rows)

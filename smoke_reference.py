@@ -21,6 +21,15 @@ JAX reference itself cannot run.
     of a ``beam_search`` over the dequantized corpus) and
     ``scan_rerank`` (the scan lanes' over-fetch of ``kq`` on the
     dequantized corpus, then the same rerank).
+  * the hybrid path (DESIGN.md §12): ``antichain`` (one box's routing
+    antichain by the closed form of the reference's
+    ``HostCardEstimator``, walked node by node from the root) and
+    ``window_scan`` (the exact in-box top-k over the DFS ``order`` slices
+    of a set of nodes, the rows a lane's windows cover).
+  * the predicate pass (DESIGN.md §15): ``year_mask``, the row mask of
+    ``a0 in (years...)`` optionally ``and a1 <= a1_max``, the two forms of
+    filter expression ``chip_smoke.py`` serves, written directly in numpy
+    without the predicate compiler.
 
 ``tests/test_torch_reference.py`` pins all of them to the JAX package on
 the CPU.
@@ -34,7 +43,7 @@ import numpy as np
 
 __all__ = ["dfs_entries", "beam_search", "sq_dists_f64", "graph_rows",
            "graph_shape", "quantize_rows_i8", "dequant_rows", "rerank",
-           "scan_rerank"]
+           "scan_rerank", "antichain", "window_scan", "year_mask"]
 
 
 def _matches(attrs: np.ndarray, lo: np.ndarray, hi: np.ndarray):
@@ -242,3 +251,66 @@ def scan_rerank(deq, vecs, attrs, q, lo, hi, *, k: int, kq: int):
     cand = np.full(kq, -1, np.int64)
     cand[:len(top)] = top
     return rerank(vecs, cand, q, k)
+
+
+def antichain(tree, lo, hi) -> np.ndarray:
+    """The nodes at which the routing sweep stops for the box [lo, hi],
+    walked one tree level at a time from the root: a node stops when
+    every dim is covered (``bl`` or its rectangle inside the box) or it
+    is a leaf; a child is visited when its parent is visited and does not
+    stop, and either the parent's split dim is covered or the child's
+    extent on it meets the box. Node ids, level by level."""
+    lo = np.asarray(lo, np.float32)
+    hi = np.asarray(hi, np.float32)
+    m = len(lo)
+    full = (1 << m) - 1
+    left, right = np.asarray(tree.left), np.asarray(tree.right)
+    dim, bl = np.asarray(tree.dim), np.asarray(tree.bl).astype(np.int64)
+    tlo, thi = np.asarray(tree.lo), np.asarray(tree.hi)
+    bit = np.int64(1) << np.arange(m, dtype=np.int64)
+    out = []
+    frontier = np.nonzero(np.asarray(tree.parent) < 0)[0][:1]
+    while frontier.size:
+        inside = (tlo[frontier] >= lo) & (thi[frontier] <= hi)   # (F, m)
+        D = bl[frontier] | (inside * bit).sum(1)
+        stop = (D == full) | (left[frontier] < 0)
+        out.append(frontier[stop])
+        go, Dg = frontier[~stop], D[~stop]
+        dsp = dim[go]
+        kids = []
+        for child in (left[go], right[go]):
+            meets = ~((tlo[child, dsp] > hi[dsp]) | (thi[child, dsp] < lo[dsp]))
+            kids.append(child[((Dg >> dsp) & 1).astype(bool) | meets])
+        frontier = np.concatenate(kids)
+    return np.concatenate(out)
+
+
+def window_scan(vecs, attrs, tree, nodes, q, lo, hi, k: int):
+    """Exact in-box top-k (ids (k,) -1 padded, f32 dists) over the rows
+    ``order[start:start + count]`` of ``nodes`` (disjoint extents), by
+    (distance, id)."""
+    order = np.asarray(tree.order, np.int64)
+    nodes = np.asarray(nodes, np.int64)
+    start = np.asarray(tree.start, np.int64)[nodes]
+    count = np.asarray(tree.count, np.int64)[nodes]
+    mark = np.zeros(len(order) + 1, np.int64)
+    np.add.at(mark, start, 1)
+    np.add.at(mark, start + count, -1)
+    rows = order[np.cumsum(mark[:-1]) > 0]
+    rows = rows[_matches(attrs[rows], lo, hi)]
+    cand = np.full(max(k, len(rows)), -1, np.int64)
+    cand[:len(rows)] = rows
+    return rerank(vecs, cand, q, k)
+
+
+def year_mask(attrs, years, a1_max=None):
+    """Row mask of ``a0 in years`` (and ``a1 <= a1_max`` when given);
+    NaN fails."""
+    a = np.asarray(attrs, np.float32)
+    ok = np.zeros(len(a), bool)
+    for y in years:
+        ok |= a[:, 0] == np.float32(y)
+    if a1_max is not None:
+        ok &= a[:, 1] <= np.float32(a1_max)
+    return ok
+

@@ -21,12 +21,19 @@ Scoring goes through the ``Scorer`` registry. ``backend=
 it launches the hand-written CUDA kernel (``kernels/csrc/
 gather_l2_filter.cu``) for CUDA tensors and its plain version on the CPU.
 ``backend="jnp"`` is the unfused plain-PyTorch scorer. The strategies
-``graph``, ``scan`` and ``auto`` are ported, with ``quant`` in
-{none, bf16, int8}: a quantized search walks or scans a compressed
+``graph``, ``scan``, ``auto`` and ``hybrid`` are ported, with ``quant``
+in {none, bf16, int8}: a quantized search walks or scans a compressed
 corpus replica (``DeviceIndex.qvecs`` / ``qscale``, DESIGN.md §12) and
 reranks its over-fetched candidates exactly in f32 before answering.
-``hybrid``, sharded indexes and predicate expressions raise
-``NotImplementedError`` naming their ROADMAP item.
+``hybrid`` (DESIGN.md §12) classifies each lane's routing antichain on
+the device into small nodes, scanned exactly as contiguous windows of a
+position-ordered f32 replica (``kernels/csrc/scan_topk.cu``'s windowed
+form), and large ones, walked by the graph program; mixed lanes merge
+both streams with ``_merge_dedup``. ``Planner.search_expr`` serves a
+boolean filter expression (``core/predicate.py``, DESIGN.md §15): each
+disjoint box of its cover through ``search``, or, past ``box_budget``,
+one scan under a host-evaluated row mask (the bitmask kernel). Sharded
+indexes raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import hashlib
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -49,7 +56,8 @@ from ..kernels.quant import QUANTS, quant_replica
 
 __all__ = ["DeviceIndex", "SearchParams", "BACKENDS", "ROUTERS",
            "STRATEGIES", "SCAN_BACKENDS", "DEFAULT_SCAN_FRAC", "QUANTS",
-           "Scorer", "Plan", "Planner", "device_put_index", "resolve_scorer",
+           "Scorer", "Plan", "PredicatePlan", "Planner", "device_put_index",
+           "resolve_scorer",
            "resolve_scorer_pair", "with_quant_replica", "search_batch",
            "make_search_fn", "required_scan_budget", "required_stack_cap",
            "required_frontier_cap", "derive_search_params",
@@ -284,10 +292,13 @@ def validate_search_params(p: SearchParams, di: DeviceIndex, *,
                            expr=None) -> SearchParams:
     """Check ``p``'s index-dependent buffer bounds against ``di`` and the
     strategy/backend/router rules; ``on_undersized`` is raise | adjust |
-    ignore, as in the reference."""
+    ignore, as in the reference. ``expr``, a predicate expression
+    (``core/predicate.py``), is validated against this index's attribute
+    count."""
     _check_strategy_combo(p)
     if expr is not None:
-        raise _todo("predicate expressions", "12")
+        from .predicate import validate_expr
+        validate_expr(expr, int(di.attrs.shape[-1]))
     if on_undersized == "ignore":
         return p
     if on_undersized not in ("raise", "adjust"):
@@ -588,25 +599,111 @@ def _scan_shard_topk(di: DeviceIndex, attrs_nan, q, qlo, qhi,
     return _lex_topk(cids, exact_d, p.k)
 
 
+def _windows_one(pos_vecs, pos_attrs, order, q, qlo, qhi, starts, counts,
+                 k: int, *, use_kernel: bool):
+    """One index's windowed scan (DESIGN.md §12): positions from the CUDA
+    kernel (plain version on the CPU) or, on backend 'jnp', the plain
+    version, mapped back through the DFS ``order`` to row ids (int64)."""
+    if use_kernel:
+        pos, dd = _ops.scan_topk_windows(pos_vecs, pos_attrs, q, qlo, qhi,
+                                         starts, counts, k=k)
+    else:
+        pos, dd = _ref.scan_topk_windows_ref(pos_vecs, pos_attrs, q, qlo,
+                                             qhi, starts, counts, k)
+    pos = pos.to(torch.int64)
+    ids = torch.where(pos >= 0, order[pos.clamp_min(0)],
+                      torch.full_like(pos, -1))
+    return ids, dd
+
+
+def _mask_scan_one(vecs, mask, q, k: int, *, use_kernel: bool):
+    """One index's bitmask-fused exact scan (DESIGN.md §15), the predicate
+    compiler's dense fallback: the CUDA kernel (plain version on the CPU)
+    or its plain version, always on the f32 corpus."""
+    if use_kernel:
+        return _ops.scan_topk_mask(vecs, mask, q, k=k)
+    return _ref.scan_topk_mask_ref(vecs, mask, q, k)
+
+
+def _merge_dedup(ids_a: np.ndarray, d_a: np.ndarray, ids_b: np.ndarray,
+                 d_b: np.ndarray, k: int,
+                 out_dtype=np.int32) -> tuple[np.ndarray, np.ndarray]:
+    """Merge two partial top-k streams under the (dist, id) contract with
+    id-level dedup (a numpy copy of the reference's): a row found by both
+    streams keeps its lowest distance. Two lexsort passes: group by id
+    keeping the best occurrence first, mask the rest to (+inf, -1), then
+    rank by (dist, id) and take k. All comparisons run in int64;
+    ``out_dtype`` is the ids' output type."""
+    ids = np.concatenate([ids_a, ids_b], axis=1).astype(np.int64)
+    d = np.concatenate([d_a, d_b], axis=1).astype(np.float32)
+    sentinel = np.iinfo(np.int64).max
+    key = np.where(ids >= 0, ids, sentinel)
+    o1 = np.lexsort((d, key), axis=-1)            # id-major, best dist first
+    key = np.take_along_axis(key, o1, axis=1)
+    d = np.take_along_axis(d, o1, axis=1)
+    dup = np.zeros_like(key, bool)
+    dup[:, 1:] = (key[:, 1:] == key[:, :-1]) & (key[:, 1:] != sentinel)
+    d = np.where(dup, np.inf, d)
+    key = np.where(dup, sentinel, key)
+    o2 = np.lexsort((key, d), axis=-1)[:, :k]     # (dist, id) rank, take k
+    out_d = np.take_along_axis(d, o2, axis=1).astype(np.float32)
+    out_i = np.take_along_axis(key, o2, axis=1)
+    out_i = np.where(np.isinf(out_d), -1, out_i).astype(out_dtype)
+    return out_i, out_d
+
+
 @dataclasses.dataclass
 class Plan:
     """Host-side record of one batch's dispatch: the routing bound per
     query (-1 when the strategy was forced), the per-query scan decision
-    and the resolved absolute threshold."""
+    and the resolved absolute threshold.
+
+    ``strategy="hybrid"`` adds the per-node decision: ``mode`` is 0 =
+    graph lane, 1 = pure-window lane (every antichain node small; these
+    lanes also set ``use_scan``), 2 = mixed lane (graph walk + windows
+    over the small nodes); ``n_windows`` counts each lane's small nodes.
+    The reference keeps a dense (B, P) host mask per shard in
+    ``small_nodes``; here each shard's entry is the pair of device
+    tensors ``(lane, node)`` (int64, by lane then node) of the small
+    antichain nodes, which ``Planner._build_windows`` turns into the
+    window arrays."""
 
     card: np.ndarray
     use_scan: np.ndarray
     threshold: int
+    node_threshold: int = 0
+    mode: Optional[np.ndarray] = None         # (B,) int8, hybrid only
+    n_windows: Optional[np.ndarray] = None    # (B,) int64, hybrid only
+    small_nodes: Optional[list] = None        # per shard (lane, node)
+
+
+@dataclasses.dataclass
+class PredicatePlan:
+    """Host-side record of one compiled-predicate batch (DESIGN.md §15):
+    ``mode`` "boxes" ran each disjoint box through ``search`` (one
+    ``Plan`` each in ``box_plans``), "bitmask" ran the dense fallback
+    scan. ``lanes`` counts dispatched (query x disjunct) lanes per
+    strategy, {"graph", "scan", "window"}; mixed hybrid lanes count under
+    both graph and window."""
+
+    mode: str
+    n_boxes: int
+    lanes: dict
+    box_plans: list
+    program: Any = None    # the compiled PredicateProgram
 
 
 class Planner:
-    """Per-query strategy dispatch over one index: ``graph``, ``scan`` or
+    """Per-query strategy dispatch over one index: ``graph``, ``scan``,
     ``auto`` (scan iff ``0 < card <= threshold``; zero-card lanes, such as
     the serving layer's empty-box pad lanes, go to the graph program,
-    which exits at once). Mixed batches split into two sub-batches, each
-    padded to a power of two with empty-box lanes; results scatter back
-    by lane. The routing bound comes from ``HostCardEstimator`` through a
-    plan cache keyed on the box bytes plus ``plan_salt``."""
+    which exits at once) or ``hybrid`` (per antichain node: nodes of at
+    most ``node_scan_threshold`` rows are scanned as windows, larger ones
+    walked). Mixed batches split into sub-batches, each padded to a power
+    of two with empty-box lanes; results scatter back by lane. The
+    routing bound comes from ``HostCardEstimator`` through a plan cache
+    keyed on the box bytes plus ``plan_salt``. ``search_expr`` serves a
+    predicate expression."""
 
     def __init__(self, index, params: SearchParams, *, device=None,
                  on_undersized: str = "adjust",
@@ -615,8 +712,6 @@ class Planner:
         di = _as_device_index(index, device)
         self.params = p = validate_search_params(params, di,
                                                  on_undersized=on_undersized)
-        if p.strategy == "hybrid":
-            raise _todo("strategy='hybrid'", "10")
         if p.router != "level":
             raise _todo("router='dfs'", "3")
         # a quantized search streams the replica: derive it here when the
@@ -636,11 +731,30 @@ class Planner:
         self._scorer, self._exact = resolve_scorer_pair(p)
         self._use_kernel = p.backend == "pallas_gather_l2_filter"
         self._estimators = (self._build_estimators()
-                            if p.strategy == "auto" else None)
+                            if p.strategy in ("auto", "hybrid") else None)
+        # hybrid per-node state: the node threshold and the
+        # position-ordered f32 replica the windowed scan reads
+        self.node_scan_threshold = (int(p.node_scan_threshold)
+                                    or self.scan_threshold)
+        if p.strategy == "hybrid":
+            self._build_pos_replica()
         self._plan_cache: "collections.OrderedDict[bytes, int]" = (
             collections.OrderedDict() if plan_cache is None else plan_cache)
         self._plan_salt = plan_salt
         self.plan_cache_size = 65536
+        # the host copy of the NaN-masked scan attrs that the bitmask
+        # fallback's mask is evaluated over, fetched on first use
+        self._host_scan_attrs: Optional[np.ndarray] = None
+
+    def _build_pos_replica(self) -> None:
+        """Position-ordered copies of the scan corpus: row i is the object
+        at DFS rank i (``order[i]``), so an antichain node's objects are
+        the contiguous slice ``[start, start + count)``. The attrs come
+        from ``_scan_attrs``, so padded rows stay NaN. Always f32: window
+        lanes scan exactly whatever ``quant`` is."""
+        di = self.index
+        self._pos_vecs = di.vecs[di.order].contiguous()
+        self._pos_attrs = self._scan_attrs[di.order].contiguous()
 
     def _build_estimators(self):
         di = self.index
@@ -690,9 +804,109 @@ class Planner:
                         use_scan=np.full(B, p.strategy == "scan"),
                         threshold=self.scan_threshold)
         card = self._cards(qlo, qhi)
-        return Plan(card=card,
-                    use_scan=(card > 0) & (card <= self.scan_threshold),
-                    threshold=self.scan_threshold)
+        if p.strategy != "hybrid":
+            return Plan(card=card,
+                        use_scan=(card > 0) & (card <= self.scan_threshold),
+                        threshold=self.scan_threshold)
+        # hybrid: classify each lane by its antichain's node sizes, on the
+        # raw node counts (the rows a window scan reads)
+        thr = self.node_scan_threshold
+        n_small, n_large, pairs = self._classify_nodes(qlo, qhi, thr)
+        mode = np.zeros(B, np.int8)
+        mode[(n_large == 0) & (card > 0)] = 1          # pure-window: exact
+        mode[(n_large > 0) & (n_small > 0)] = 2        # mixed
+        return Plan(card=card, use_scan=(mode == 1),
+                    threshold=self.scan_threshold, node_threshold=thr,
+                    mode=mode, n_windows=n_small, small_nodes=[pairs])
+
+    def _classify_nodes(self, qlo: np.ndarray, qhi: np.ndarray, thr: int):
+        """Per lane, the antichain's small (0 < count <= thr) and large
+        (count > thr) node counts as numpy int64 (B,), and the small
+        nodes as device (lane, node) int64 pairs, by lane then node. The
+        antichain is evaluated on the device one chunk of lanes at a time
+        (the estimator's ``chunk_elems`` bound), and only the pairs leave
+        each chunk."""
+        est = self._estimators[0]
+        cnt = self.index.count.to(est.device)
+        small_node = (cnt > 0) & (cnt <= thr)
+        large_node = cnt > thr
+        P = cnt.shape[0]
+        B = qlo.shape[0]
+        step = max(1, est.chunk_elems // max(1, P))
+        n_small, n_large, lanes, nodes = [], [], [], []
+        for s in range(0, B, step):
+            anti = est.antichain(qlo[s:s + step], qhi[s:s + step])
+            small = anti & small_node
+            n_small.append(small.sum(1))
+            n_large.append((anti & large_node).sum(1))
+            nz = torch.nonzero(small)                  # row-major order
+            lanes.append(nz[:, 0] + s)
+            nodes.append(nz[:, 1])
+        if not n_small:
+            z = np.zeros(0, np.int64)
+            e = torch.zeros(0, dtype=torch.int64, device=self.device)
+            return z, z, (e, e)
+        return (torch.cat(n_small).cpu().numpy().astype(np.int64),
+                torch.cat(n_large).cpu().numpy().astype(np.int64),
+                (torch.cat(lanes).to(self.device),
+                 torch.cat(nodes).to(self.device)))
+
+    def _build_windows(self, small_nodes: list, idx: np.ndarray, bp: int):
+        """Window arrays for the (non-empty) lanes ``idx``, padded to
+        ``bp`` rows:
+        (starts (S, bp, W) int32, counts (S, bp, W) int32 device tensors,
+        w_cap). Each lane's windows are its small antichain nodes' raw
+        ``[start, count)`` DFS extents, ascending by start; W and w_cap
+        (the largest count) round up to powers of two, as in the
+        reference. Pad windows are (-1, 0). Built on the device from the
+        plan's (lane, node) pairs."""
+        dev = self.device
+        idx_t = torch.as_tensor(np.asarray(idx, np.int64), device=dev)
+        srt = torch.argsort(idx_t)
+        idx_s = idx_t[srt]
+        n_pos = int(self.index.order.shape[0]) + 1
+        per_shard = []
+        max_w, max_c = 1, 1
+        for lane, node in small_nodes:
+            at = torch.searchsorted(idx_s, lane).clamp_max(idx_s.numel() - 1)
+            hit = idx_s[at] == lane
+            row = srt[at[hit]]
+            st = self.index.start[node[hit]]
+            ct = self.index.count[node[hit]]
+            keep = ct > 0
+            row, st, ct = row[keep], st[keep], ct[keep]
+            o = torch.argsort(row * n_pos + st)        # (row, start)
+            row, st, ct = row[o], st[o], ct[o]
+            nw = torch.bincount(row, minlength=bp)
+            rank = torch.arange(row.numel(), device=dev) \
+                - (torch.cumsum(nw, 0) - nw)[row]
+            if row.numel():
+                max_w = max(max_w, int(nw.max()))
+                max_c = max(max_c, int(ct.max()))
+            per_shard.append((row, rank, st, ct))
+        W = pow2_at_least(max_w)
+        w_cap = pow2_at_least(max_c)
+        S = len(small_nodes)
+        starts = torch.full((S, bp, W), -1, dtype=torch.int32, device=dev)
+        counts = torch.zeros((S, bp, W), dtype=torch.int32, device=dev)
+        for s, (row, rank, st, ct) in enumerate(per_shard):
+            starts[s, row, rank] = st.to(torch.int32)
+            counts[s, row, rank] = ct.to(torch.int32)
+        return starts, counts, w_cap
+
+    def _run_windows(self, qs, lo, hi, starts, counts):
+        """Exact windowed scan over the position-ordered replica: the
+        kernel's positions map through ``order`` to ids. Window lanes
+        report hops = 0. The port's kernel reads only the rows inside
+        each window, so it needs no ``w_cap`` padding of the corpus."""
+        q, ql, qh = self._tensors(qs, lo, hi)
+        ids, dd = _windows_one(self._pos_vecs, self._pos_attrs,
+                               self.index.order, q, ql, qh,
+                               starts[0].contiguous(),
+                               counts[0].contiguous(), self.params.k,
+                               use_kernel=self._use_kernel)
+        return (ids.to(torch.int32).cpu().numpy(), dd.cpu().numpy(),
+                np.zeros(qs.shape[0], np.int32))
 
     @staticmethod
     def _pad_pow2(qs, lo, hi):
@@ -736,6 +950,8 @@ class Planner:
         qhi = np.ascontiguousarray(qhi, np.float32)
         plan = self.plan(qlo, qhi)
         B, k = queries.shape[0], self.params.k
+        if plan.mode is not None:
+            return self._search_hybrid(queries, qlo, qhi, plan)
         scan_idx = np.nonzero(plan.use_scan)[0]
         graph_idx = np.nonzero(~plan.use_scan)[0]
         if not len(graph_idx):
@@ -756,5 +972,110 @@ class Planner:
             out_h[idx] = hops[: len(idx)]
         return out_ids, out_d, out_h, plan
 
+    def _search_hybrid(self, queries, qlo, qhi, plan: Plan):
+        """Three-way lane split: mode 0 = graph walk, mode 1 = pure-window
+        (exact, hops = 0), mode 2 = mixed: the unrestricted graph walk
+        plus the small-node windows, merged on the host with id-level
+        dedup (the walk may find window rows again)."""
+        B, k = queries.shape[0], self.params.k
+        out_ids = np.full((B, k), -1, np.int32)
+        out_d = np.full((B, k), np.inf, np.float32)
+        out_h = np.zeros((B,), np.int32)
+        for m in (0, 1, 2):
+            idx = np.nonzero(plan.mode == m)[0]
+            if not len(idx):
+                continue
+            qs, lo, hi = self._pad_pow2(queries[idx], qlo[idx], qhi[idx])
+            if m == 0:
+                ids, dists, hops = self._run_graph(qs, lo, hi)
+            else:
+                starts, counts, _w_cap = self._build_windows(
+                    plan.small_nodes, idx, qs.shape[0])
+                ids, dists, hops = self._run_windows(qs, lo, hi, starts,
+                                                     counts)
+                if m == 2:
+                    gids, gd, hops = self._run_graph(qs, lo, hi)
+                    ids, dists = _merge_dedup(
+                        gids[: len(idx)], gd[: len(idx)],
+                        ids[: len(idx)], dists[: len(idx)], k)
+            out_ids[idx] = ids[: len(idx)]
+            out_d[idx] = dists[: len(idx)]
+            out_h[idx] = hops[: len(idx)]
+        return out_ids, out_d, out_h, plan
+
+    def _run_mask(self, queries: np.ndarray, prog):
+        """Dense-fallback execution (DESIGN.md §15): evaluate the
+        normalized expression on the host over the NaN-masked scan attrs
+        into a per-row f32 plane, then one exact f32 bitmask scan. The
+        batch pads to a power of two with zero queries."""
+        from .predicate import eval_expr
+
+        if self._host_scan_attrs is None:
+            self._host_scan_attrs = self._scan_attrs.cpu().numpy()
+        mask = eval_expr(prog.expr, self._host_scan_attrs).astype(np.float32)
+        B = queries.shape[0]
+        bp = pow2_at_least(B)
+        qs = queries if bp == B else np.concatenate(
+            [queries, np.zeros((bp - B,) + queries.shape[1:], np.float32)])
+        q, = self._tensors(qs)
+        ids, dd = _mask_scan_one(self.index.vecs,
+                                 torch.as_tensor(mask).to(self.device), q,
+                                 self.params.k, use_kernel=self._use_kernel)
+        return (ids.to(torch.int32).cpu().numpy()[:B], dd.cpu().numpy()[:B],
+                np.zeros(B, np.int32))
+
+    @staticmethod
+    def _count_lanes(plan: Plan, lanes: dict, B: int) -> None:
+        """Fold one box's dispatch into the per-strategy lane counters
+        (``PredicatePlan.lanes``; mixed hybrid lanes count under both)."""
+        if plan.mode is not None:
+            lanes["graph"] += int(((plan.mode == 0) | (plan.mode == 2)).sum())
+            lanes["window"] += int(((plan.mode == 1) | (plan.mode == 2)).sum())
+        else:
+            ns = int(plan.use_scan.sum())
+            lanes["scan"] += ns
+            lanes["graph"] += B - ns
+
     def search_expr(self, queries, expr):
-        raise _todo("Planner.search_expr", "12")
+        """Compiled-predicate search (DESIGN.md §15): (B, d) queries x one
+        boolean filter expression -> (ids (B, k) int32, dists (B, k) f32,
+        hops (B,) int32, PredicatePlan).
+
+        "boxes" programs run each disjoint box through ``search`` (any
+        strategy, plan cache shared) and merge the per-box streams with
+        ``_merge_dedup``; the cover is disjoint, so dedup only collapses
+        the (+inf, -1) pads. ``hops`` sums over boxes. "bitmask" programs
+        run one exact f32 fallback scan (hops 0)."""
+        from .predicate import compile_expr
+
+        queries = np.ascontiguousarray(queries, np.float32)
+        p = self.params
+        m = int(self.index.attrs.shape[-1])
+        prog = compile_expr(expr, m, box_budget=p.box_budget)
+        B, k = queries.shape[0], p.k
+        lanes = {"graph": 0, "scan": 0, "window": 0}
+        if prog.mode == "bitmask":
+            ids, dists, hops = self._run_mask(queries, prog)
+            lanes["scan"] = B
+            return ids, dists, hops, PredicatePlan(
+                mode="bitmask", n_boxes=0, lanes=lanes, box_plans=[],
+                program=prog)
+        out_ids = out_d = None
+        out_h = np.zeros(B, np.int32)
+        box_plans = []
+        for b in range(prog.n_boxes):
+            qlo = np.ascontiguousarray(
+                np.broadcast_to(prog.lo[b], (B, m)), np.float32)
+            qhi = np.ascontiguousarray(
+                np.broadcast_to(prog.hi[b], (B, m)), np.float32)
+            ids, dists, hops, plan = self.search(queries, qlo, qhi)
+            box_plans.append(plan)
+            self._count_lanes(plan, lanes, B)
+            out_h += hops
+            if out_ids is None:
+                out_ids, out_d = ids, dists
+            else:
+                out_ids, out_d = _merge_dedup(out_ids, out_d, ids, dists, k)
+        return out_ids, out_d, out_h, PredicatePlan(
+            mode="boxes", n_boxes=prog.n_boxes, lanes=lanes,
+            box_plans=box_plans, program=prog)

@@ -1,5 +1,6 @@
 """Range predicates and the exact ground truth, copied from
-``repro.core.query_ref`` (numpy only): ``Predicate`` and ``brute_force``.
+``repro.core.query_ref`` (numpy only): ``Predicate``, ``brute_force`` and
+``brute_force_expr``.
 The rest of the numpy oracle (DFS routing, the heap-based query) stays in
 the reference package."""
 
@@ -9,7 +10,7 @@ from typing import Sequence
 
 import numpy as np
 
-__all__ = ["Predicate", "brute_force"]
+__all__ = ["Predicate", "brute_force", "brute_force_expr"]
 
 
 class Predicate:
@@ -49,3 +50,20 @@ def brute_force(index_vecs: np.ndarray, attrs: np.ndarray, q: np.ndarray,
     k = min(k, len(ids))
     top = np.argpartition(d2, kth=k - 1)[:k]
     return ids[top[np.argsort(d2[top], kind="stable")]].astype(np.int64)
+
+
+def brute_force_expr(index_vecs: np.ndarray, attrs: np.ndarray,
+                     q: np.ndarray, expr, k: int) -> np.ndarray:
+    """Exact ground truth under a boolean filter expression (DESIGN.md
+    §15): mask-then-top-k with the engine's (distance, id) tie-break.
+    Shorter than k when the match count is."""
+    from .predicate import eval_expr
+
+    mask = eval_expr(expr, np.asarray(attrs, np.float32))
+    ids = np.nonzero(mask)[0].astype(np.int64)
+    if not ids.size:
+        return ids
+    diff = np.asarray(index_vecs[ids], np.float32) - np.asarray(q, np.float32)
+    d2 = np.einsum("nd,nd->n", diff, diff)
+    order = np.lexsort((ids, d2))[: min(k, ids.size)]
+    return ids[order]

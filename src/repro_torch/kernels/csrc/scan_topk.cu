@@ -1,11 +1,17 @@
 // Exact predicate-masked brute scan with a top-k, for Hopper (sm_90a), over
-// an f32 corpus, its bf16 replica or its int8 replica.
+// an f32 corpus, its bf16 replica or its int8 replica; its bitmask form; and
+// its windowed form over a position-ordered corpus.
 //
 // Replaces: src/repro/kernels/scan_topk.py:scan_topk_kernel (the Pallas TPU
 // kernel behind the planner's strategy="scan" lanes, which the reference
-// also runs on the bf16 replica) and
+// also runs on the bf16 replica),
 // src/repro/kernels/scan_topk.py:scan_topk_q8_kernel (its int8-replica
-// form, quant="int8").
+// form, quant="int8"),
+// src/repro/kernels/scan_topk.py:scan_topk_mask_kernel (the predicate
+// compiler's bitmask fallback: one (N, 1) f32 row mask shared by the batch,
+// > 0 passes, in place of the boxes) and
+// src/repro/kernels/scan_topk.py:scan_topk_windows_kernel (the hybrid
+// planner's per-node scan over each lane's (start, count) windows).
 //
 // Computes, per query b: the k rows with the smallest sum_j (q[b,j] -
 // row(r)[j])^2 among rows r whose attrs pass all(qlo[b] <= a <= qhi[b])
@@ -13,7 +19,9 @@
 // lowest id, exactly lax.top_k -- and (-1, +inf) past the in-range count.
 // row(r) is corpus[r] (f32), float(corpus[r]) (bf16) or
 // float(qcorpus[r]) * qscale[r] (int8, the product rounded on its own as
-// the reference's dequant_rows writes it).
+// the reference's dequant_rows writes it). The bitmask form tests
+// mask[r] > 0 (NaN fails) instead of the box; the windowed form only looks
+// at rows inside the lane's windows and returns their positions.
 //
 // Bound on the H100: it depends on the boxes. Reading the corpus and
 // attrs once is ~3.1 GB at N=1M, d=768 in f32 (~0.92 ms at 3.35 TB/s),
@@ -24,26 +32,43 @@
 // lanes (boxes under 10% of N) it is under 0.9 ms, so the bound is the
 // bytes. chip_smoke.py computes it from its own boxes. This design reads
 // the corpus once per 64-query tile, and computes every pair of a row
-// tile in which any pair passes.
+// tile in which any pair passes. The windowed form reads, per lane, the
+// attrs of every row its windows cover and the vector of each such row
+// that passes the box (the TPU kernel reads every covered vector): its
+// bound is covered rows x m x 4 + passing rows x d x 4 bytes, each row a
+// one-query dot product, so it is bound by bytes.
 //
 // Design: on the TPU the grid walks N in order and carries the running
 // top-k from step to step. H100 blocks run in no order, so this is two
 // passes:
 //   pass 1 (scan_partial_kernel): a block owns a tile of QT=64 queries and
 //     a chunk of rows. It walks the chunk in 64-row tiles: the tile's attrs
-//     are tested against the 64 boxes first (a tile with no passing pair
-//     skips its distance work), then distances come from a shared-memory
-//     tiled SIMT loop over 32-wide d slabs (a bf16 or int8 slab is widened
-//     to f32, and an int8 one scaled, while it is staged into shared
-//     memory, so the inner loop is the f32 one) with a 4x4 register tile per
-//     thread, and one thread per query folds the masked tile into that
-//     query's running top-k (insertion after equal distances, so ascending
-//     row order keeps the lowest id first). Each chunk writes its partial
-//     top-k.
+//     (or mask values) are tested against the 64 boxes first (a tile with
+//     no passing pair skips its distance work), then distances come from a
+//     shared-memory tiled SIMT loop over 32-wide d slabs (a bf16 or int8
+//     slab is widened to f32, and an int8 one scaled, while it is staged
+//     into shared memory, so the inner loop is the f32 one) with a 4x4
+//     register tile per thread, and one thread per query folds the masked
+//     tile into that query's running top-k (insertion after equal
+//     distances, so ascending row order keeps the lowest id first). Each
+//     chunk writes its partial top-k.
 //   pass 2 (scan_merge_kernel): one block per query merges the chunk
 //     partials by (distance, id) in k rounds of a block-wide arg-min.
 // The wrapper picks the chunk count so pass 1 fills the card; it allocates
 // the partial buffers and the outputs.
+//
+// The windowed form (windows_partial_kernel) has one block per (lane,
+// window, chunk of at most `chunk_rows` rows), so a 100k-row window is not
+// serialised: the wrapper lays the items out by an inclusive prefix sum of
+// each window's chunk count, and a block finds its window by binary search
+// in it. A block reads only the rows of its chunk that lie inside the
+// window (no padding past a window's count, unlike the TPU kernel's fixed
+// (w_cap, d) DMA), one warp per row: the attrs first, then the distance
+// with the lanes striding over d and a shuffle sum. The block keeps its
+// chunk's top-k by (distance, position) in k rounds of a block arg-min,
+// and pass 2 merges each lane's items, whose range the wrapper gives as
+// per-lane offsets. Positions are unique, so the (distance, position)
+// order is the reference's tie order whatever order the blocks ran in.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,7 +90,9 @@ __device__ __forceinline__ float widen(int8_t v, const float* scale, int r) {
   return __fmul_rn(static_cast<float>(v), __ldg(scale + r));
 }
 
-template <typename T>
+// MASK: `attrs` is the (N, 1) bitmask plane (m = 1) and a row passes for
+// every query iff its value is > 0; qlo/qhi are not read.
+template <typename T, bool MASK>
 __global__ void __launch_bounds__(256)
 scan_partial_kernel(const T* __restrict__ corpus,
                     const float* __restrict__ scale,
@@ -92,12 +119,14 @@ scan_partial_kernel(const T* __restrict__ corpus,
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
 
-  for (int e = tid; e < QT * m; e += 256) {
-    const int qi = e / m, a = e % m;
-    const int gq = q0 + qi;
-    // queries past B get the empty box: no row ever passes
-    QL[qi][a] = gq < B ? qlo[(size_t)gq * m + a] : CUDART_INF_F;
-    QH[qi][a] = gq < B ? qhi[(size_t)gq * m + a] : -CUDART_INF_F;
+  if (!MASK) {
+    for (int e = tid; e < QT * m; e += 256) {
+      const int qi = e / m, a = e % m;
+      const int gq = q0 + qi;
+      // queries past B get the empty box: no row ever passes
+      QL[qi][a] = gq < B ? qlo[(size_t)gq * m + a] : CUDART_INF_F;
+      QH[qi][a] = gq < B ? qhi[(size_t)gq * m + a] : -CUDART_INF_F;
+    }
   }
   for (int e = tid; e < QT * k; e += 256) {
     topd[e] = CUDART_INF_F;
@@ -120,9 +149,13 @@ scan_partial_kernel(const T* __restrict__ corpus,
       for (int j = 0; j < 4; ++j) {
         const int qi = ty + 16 * i, rj = tx + 16 * j;
         bool ok = true;
-        for (int a = 0; a < m; ++a) {
-          const float v = Ra[rj][a];
-          ok = ok && (v >= QL[qi][a]) && (v <= QH[qi][a]);
+        if (MASK) {
+          ok = Ra[rj][0] > 0.f;          // NaN (and the tile's tail) fails
+        } else {
+          for (int a = 0; a < m; ++a) {
+            const float v = Ra[rj][a];
+            ok = ok && (v >= QL[qi][a]) && (v <= QH[qi][a]);
+          }
         }
         pass |= (ok ? 1u : 0u) << (i * 4 + j);
       }
@@ -210,19 +243,43 @@ __device__ __forceinline__ bool lex_less(float ad, int ai, float bd, int bi) {
   return ad < bd || (ad == bd && ai < bi);
 }
 
-__global__ void __launch_bounds__(256)
-scan_merge_kernel(const float* __restrict__ part_d,
-                  const int* __restrict__ part_i, int* __restrict__ out_i,
-                  float* __restrict__ out_d, int nchunks, int k) {
-  __shared__ float sd[32];
-  __shared__ int si[32];
-  const int b = blockIdx.x;
-  const int total = nchunks * k;
-  const float* pd = part_d + (size_t)b * total;
-  const int* pi = part_i + (size_t)b * total;
+// Block-wide arg-min of (bd, bi) by (distance, id); every thread returns
+// the block's minimum. sd/si are 32-entry shared scratch.
+__device__ __forceinline__ void block_lex_min(float& bd, int& bi, float* sd,
+                                              int* si) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) {
+    const float od = __shfl_xor_sync(0xffffffffu, bd, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+    if (lex_less(od, oi, bd, bi)) { bd = od; bi = oi; }
+  }
+  if (lane == 0) { sd[warp] = bd; si[warp] = bi; }
+  __syncthreads();
+  if (warp == 0) {
+    bd = lane < nwarps ? sd[lane] : CUDART_INF_F;
+    bi = lane < nwarps ? si[lane] : INT_MAX;
+    for (int o = 16; o > 0; o >>= 1) {
+      const float od = __shfl_xor_sync(0xffffffffu, bd, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+      if (lex_less(od, oi, bd, bi)) { bd = od; bi = oi; }
+    }
+    if (lane == 0) { sd[0] = bd; si[0] = bi; }
+  }
+  __syncthreads();
+  bd = sd[0];
+  bi = si[0];
+  __syncthreads();
+}
 
+// The k smallest finite (d[e], id[e]) of e in [0, total) by (distance, id),
+// ids unique, written to out_d/out_i[0..k) with (+inf, -1) past the finite
+// count: k rounds of a block arg-min, each above the previous round's pick.
+// `id` null means id[e] = id0 + e.
+__device__ void block_topk(const float* d, const int* id, int id0, int total,
+                           int k, float* out_d, int* out_i, float* sd,
+                           int* si) {
+  const int tid = threadIdx.x;
   float prev_d = -CUDART_INF_F;
   int prev_i = -1;
   bool done = false;
@@ -231,47 +288,117 @@ scan_merge_kernel(const float* __restrict__ part_d,
     int bi = INT_MAX;
     if (!done) {
       for (int e = tid; e < total; e += blockDim.x) {
-        const float dv = pd[e];
+        const float dv = d[e];
         if (!(dv < CUDART_INF_F)) continue;
-        const int iv = pi[e];
+        const int iv = id ? id[e] : id0 + e;
         if (lex_less(prev_d, prev_i, dv, iv) && lex_less(dv, iv, bd, bi)) {
           bd = dv;
           bi = iv;
         }
       }
-      for (int o = 16; o > 0; o >>= 1) {
-        const float od = __shfl_xor_sync(0xffffffffu, bd, o);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-        if (lex_less(od, oi, bd, bi)) { bd = od; bi = oi; }
-      }
-      if (lane == 0) { sd[warp] = bd; si[warp] = bi; }
-      __syncthreads();
-      if (warp == 0) {
-        bd = lane < nwarps ? sd[lane] : CUDART_INF_F;
-        bi = lane < nwarps ? si[lane] : INT_MAX;
-        for (int o = 16; o > 0; o >>= 1) {
-          const float od = __shfl_xor_sync(0xffffffffu, bd, o);
-          const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-          if (lex_less(od, oi, bd, bi)) { bd = od; bi = oi; }
-        }
-        if (lane == 0) { sd[0] = bd; si[0] = bi; }
-      }
-      __syncthreads();
-      bd = sd[0];
-      bi = si[0];
-      __syncthreads();
+      block_lex_min(bd, bi, sd, si);     // bd is the same in every thread
       if (!(bd < CUDART_INF_F)) done = true;
     }
     if (tid == 0) {
-      out_d[(size_t)b * k + r] = done ? CUDART_INF_F : bd;
-      out_i[(size_t)b * k + r] = done ? -1 : bi;
+      out_d[r] = done ? CUDART_INF_F : bd;
+      out_i[r] = done ? -1 : bi;
     }
     prev_d = bd;
     prev_i = bi;
   }
 }
 
-template <typename T>
+// Pass 2: one block per query merges its partials. With lane_off null
+// query b owns nchunks partials of k; else it owns partials
+// [lane_off[b], lane_off[b + 1]).
+__global__ void __launch_bounds__(256)
+scan_merge_kernel(const float* __restrict__ part_d,
+                  const int* __restrict__ part_i,
+                  const int* __restrict__ lane_off, int* __restrict__ out_i,
+                  float* __restrict__ out_d, int nchunks, int k) {
+  __shared__ float sd[32];
+  __shared__ int si[32];
+  const int b = blockIdx.x;
+  const size_t begin = lane_off ? (size_t)lane_off[b] : (size_t)b * nchunks;
+  const int total =
+      (lane_off ? lane_off[b + 1] - lane_off[b] : nchunks) * k;
+  block_topk(part_d + begin * k, part_i + begin * k, 0, total, k,
+             out_d + (size_t)b * k, out_i + (size_t)b * k, sd, si);
+}
+
+// Windowed pass 1: block `item` owns chunk c of window j = (lane b, w),
+// where offs (B*W, inclusive prefix sum of each live window's chunk count)
+// gives offs[j-1] <= item < offs[j]. Writes that chunk's top-k positions.
+__global__ void __launch_bounds__(256)
+windows_partial_kernel(const float* __restrict__ corpus,
+                       const float* __restrict__ attrs,
+                       const float* __restrict__ q,
+                       const float* __restrict__ qlo,
+                       const float* __restrict__ qhi,
+                       const int* __restrict__ starts,
+                       const int* __restrict__ counts,
+                       const int* __restrict__ offs,
+                       float* __restrict__ part_d, int* __restrict__ part_i,
+                       int BW, int W, int N, int d, int m, int k,
+                       int chunk_rows) {
+  extern __shared__ float wsm[];
+  float* qs = wsm;                          // the lane's query, d floats
+  float* Dt = wsm + d;                      // chunk_rows distances
+  __shared__ float QL[MMAX], QH[MMAX];
+  __shared__ float sd[32];
+  __shared__ int si[32];
+  const int item = blockIdx.x;
+  int lo = 0, hi = BW - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (offs[mid] > item) hi = mid; else lo = mid + 1;
+  }
+  const int j = lo, b = j / W;
+  const int cnt = counts[j];
+  const int nch = (cnt + chunk_rows - 1) / chunk_rows;
+  const long long r0 = (long long)starts[j] +
+                       (long long)(item - (offs[j] - nch)) * chunk_rows;
+  long long r1 = (long long)starts[j] + cnt;
+  if (r1 > N) r1 = N;                       // rows past N do not exist
+  if (r1 > r0 + chunk_rows) r1 = r0 + chunk_rows;
+  const int nr = r1 > r0 ? (int)(r1 - r0) : 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+
+  for (int e = tid; e < d; e += blockDim.x) qs[e] = q[(size_t)b * d + e];
+  if (tid < m) {
+    QL[tid] = qlo[(size_t)b * m + tid];
+    QH[tid] = qhi[(size_t)b * m + tid];
+  }
+  __syncthreads();
+  for (int r = warp; r < nr; r += nwarps) {
+    const size_t row = (size_t)(r0 + r);
+    bool ok = true;
+    for (int a = 0; a < m; ++a) {
+      const float v = __ldg(attrs + row * m + a);
+      ok = ok && (v >= QL[a]) && (v <= QH[a]);
+    }
+    float dv = CUDART_INF_F;
+    if (ok) {                               // the same in every lane
+      const float* x = corpus + row * d;
+      float acc = 0.f;
+#pragma unroll 4
+      for (int e = lane; e < d; e += 32) {
+        const float t = qs[e] - __ldg(x + e);
+        acc = fmaf(t, t, acc);
+      }
+      for (int o = 16; o > 0; o >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      dv = acc;
+    }
+    if (lane == 0) Dt[r] = dv;
+  }
+  __syncthreads();
+  block_topk(Dt, nullptr, (int)r0, nr, k, part_d + (size_t)item * k,
+             part_i + (size_t)item * k, sd, si);
+}
+
+template <typename T, bool MASK>
 int launch(const void* corpus, const void* scale, const void* attrs,
            const void* q, const void* qlo, const void* qhi, void* part_d,
            void* part_i, void* out_i, void* out_d, int B, int N, int d,
@@ -281,20 +408,21 @@ int launch(const void* corpus, const void* scale, const void* attrs,
     return (int)cudaErrorInvalidValue;
   const int smem = QT * k * (int)(sizeof(float) + sizeof(int));
   cudaError_t e = cudaFuncSetAttribute(
-      scan_partial_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      scan_partial_kernel<T, MASK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
   dim3 grid1(nchunks, (B + QT - 1) / QT);
-  scan_partial_kernel<T><<<grid1, 256, smem, s>>>(
+  scan_partial_kernel<T, MASK><<<grid1, 256, smem, s>>>(
       (const T*)corpus, (const float*)scale, (const float*)attrs,
       (const float*)q, (const float*)qlo, (const float*)qhi, (float*)part_d,
       (int*)part_i, B, N, d, m, k, chunk_rows, nchunks);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   scan_merge_kernel<<<B, 256, 0, s>>>((const float*)part_d,
-                                      (const int*)part_i, (int*)out_i,
-                                      (float*)out_d, nchunks, k);
+                                      (const int*)part_i, nullptr,
+                                      (int*)out_i, (float*)out_d, nchunks,
+                                      k);
   return (int)cudaGetLastError();
 }
 
@@ -308,11 +436,59 @@ int launch(const void* corpus, const void* scale, const void* attrs,
                       const void* qhi, void* part_d, void* part_i,           \
                       void* out_i, void* out_d, int B, int N, int d, int m,  \
                       int k, int chunk_rows, int nchunks, void* stream) {    \
-    return launch<T>(corpus, scale, attrs, q, qlo, qhi, part_d, part_i,      \
-                     out_i, out_d, B, N, d, m, k, chunk_rows, nchunks,       \
-                     stream);                                                \
+    return launch<T, false>(corpus, scale, attrs, q, qlo, qhi, part_d,       \
+                            part_i, out_i, out_d, B, N, d, m, k, chunk_rows, \
+                            nchunks, stream);                                \
   }
 
 SCAN_ENTRY(scan_topk_f32, float)
 SCAN_ENTRY(scan_topk_bf16, __nv_bfloat16)
 SCAN_ENTRY(scan_topk_q8, int8_t)
+
+// The bitmask scan over an f32 corpus: mask (N) f32, > 0 passes.
+extern "C" int scan_topk_mask_f32(const void* corpus, const void* mask,
+                                  const void* q, void* part_d, void* part_i,
+                                  void* out_i, void* out_d, int B, int N,
+                                  int d, int k, int chunk_rows, int nchunks,
+                                  void* stream) {
+  return launch<float, true>(corpus, nullptr, mask, q, nullptr, nullptr,
+                             part_d, part_i, out_i, out_d, B, N, d, 1, k,
+                             chunk_rows, nchunks, stream);
+}
+
+// The windowed scan over a position-ordered f32 corpus. starts/counts are
+// (B, W); offs (B*W) is the inclusive prefix sum of each window's chunk
+// count (0 for a pad window: start < 0 or count <= 0), lane_off (B+1) the
+// items each lane starts at, `items` = offs[B*W-1]; part_d/part_i hold
+// items * k entries. Outputs are positions.
+extern "C" int scan_topk_windows_f32(
+    const void* corpus, const void* attrs, const void* q, const void* qlo,
+    const void* qhi, const void* starts, const void* counts, const void* offs,
+    const void* lane_off, void* part_d, void* part_i, void* out_i,
+    void* out_d, int B, int W, int N, int d, int m, int k, int chunk_rows,
+    int items, void* stream) {
+  if (B == 0) return 0;
+  if (k < 1 || k > KMAX || m < 1 || m > MMAX || N < 1 || W < 1 ||
+      chunk_rows < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (items > 0) {
+    const int smem = (d + chunk_rows) * (int)sizeof(float);
+    cudaError_t e = cudaFuncSetAttribute(
+        windows_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    windows_partial_kernel<<<items, 256, smem, s>>>(
+        (const float*)corpus, (const float*)attrs, (const float*)q,
+        (const float*)qlo, (const float*)qhi, (const int*)starts,
+        (const int*)counts, (const int*)offs, (float*)part_d, (int*)part_i,
+        B * W, W, N, d, m, k, chunk_rows);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  scan_merge_kernel<<<B, 256, 0, s>>>((const float*)part_d,
+                                      (const int*)part_i,
+                                      (const int*)lane_off, (int*)out_i,
+                                      (float*)out_d, 0, k);
+  return (int)cudaGetLastError();
+}

@@ -20,13 +20,15 @@ from . import _build
 from . import ref as _ref
 
 __all__ = ["LAUNCHES", "reset_launches", "gather_l2_filter",
-           "gather_l2_filter_q8", "scan_topk", "scan_topk_q8", "l2dist_qn"]
+           "gather_l2_filter_q8", "scan_topk", "scan_topk_q8",
+           "scan_topk_mask", "scan_topk_windows", "l2dist_qn"]
 
 # one count per kernel form: the bf16 forms of gather_l2_filter and
 # scan_topk are the same sources instantiated for a bf16 corpus
 LAUNCHES = {"gather_l2_filter": 0, "gather_l2_filter_bf16": 0,
             "gather_l2_filter_q8": 0, "scan_topk": 0, "scan_topk_bf16": 0,
-            "scan_topk_q8": 0, "l2dist_qn": 0}
+            "scan_topk_q8": 0, "scan_topk_mask": 0, "scan_topk_windows": 0,
+            "l2dist_qn": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -189,6 +191,14 @@ def _check_scan(corpus, attrs, q, qlo, qhi, k) -> torch.device:
     return dev
 
 
+def _scan_buffers(B: int, nchunks: int, k: int, dev):
+    part_d = torch.empty((B, nchunks, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((B, nchunks, k), dtype=torch.int32, device=dev)
+    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+    dists = torch.empty((B, k), dtype=torch.float32, device=dev)
+    return part_d, part_i, ids, dists
+
+
 def _launch_scan(kind: str, corpus, scale, attrs, q, qlo, qhi, k: int):
     N, d = corpus.shape
     B, m = qlo.shape
@@ -199,10 +209,7 @@ def _launch_scan(kind: str, corpus, scale, attrs, q, qlo, qhi, k: int):
     dev = corpus.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, nchunks = _scan_chunking(B, N, sms)
-    part_d = torch.empty((B, nchunks, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((B, nchunks, k), dtype=torch.int32, device=dev)
-    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
-    dists = torch.empty((B, k), dtype=torch.float32, device=dev)
+    part_d, part_i, ids, dists = _scan_buffers(B, nchunks, k, dev)
     f = _fn("scan_topk", f"scan_topk_{kind}", [_P] * 10 + [_I] * 7 + [_P])
     rc = f(corpus.data_ptr(), None if scale is None else scale.data_ptr(),
            attrs.data_ptr(), q.data_ptr(), qlo.data_ptr(), qhi.data_ptr(),
@@ -238,6 +245,106 @@ def scan_topk_q8(qcorpus: torch.Tensor, qscale: torch.Tensor,
     if dev.type == "cpu":
         return _ref.scan_topk_q8_ref(qcorpus, qscale, attrs, q, qlo, qhi, k)
     return _launch_scan("q8", qcorpus, qscale, attrs, q, qlo, qhi, k)
+
+
+def scan_topk_mask(corpus: torch.Tensor, mask: torch.Tensor,
+                   q: torch.Tensor, *, k: int):
+    """Exact top-k under one row mask shared by the batch: corpus (N, d)
+    f32, mask (N,) or (N, 1) f32 (a row passes iff its value is > 0; NaN
+    fails), q (B, d) f32 -> (ids (B, k) int32, dists (B, k) f32),
+    ascending by (distance, id), (-1, +inf) past the passing count. The
+    kernel takes k <= 64."""
+    dev = _device_of(corpus, mask, q)
+    _check(corpus, "corpus", torch.float32, 2)
+    _check(q, "q", torch.float32, 2)
+    N, d = corpus.shape
+    if mask.dtype != torch.float32 or tuple(mask.shape) not in ((N,), (N, 1)) \
+            or not mask.is_contiguous():
+        raise ValueError(f"mask must be a contiguous float32 ({N},) or "
+                         f"({N}, 1), got {mask.dtype} {tuple(mask.shape)}")
+    if q.shape[1] != d:
+        raise ValueError(f"q must be (B, {d}), got {tuple(q.shape)}")
+    if not 1 <= k <= N:
+        raise ValueError(f"k must be in [1, N={N}], got {k}")
+    if dev.type == "cpu":
+        return _ref.scan_topk_mask_ref(corpus, mask, q, k)
+    if k > 64:
+        raise ValueError(f"the scan kernel takes k <= 64, got {k}")
+    B = q.shape[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, nchunks = _scan_chunking(B, N, sms)
+    part_d, part_i, ids, dists = _scan_buffers(B, nchunks, k, dev)
+    f = _fn("scan_topk", "scan_topk_mask_f32", [_P] * 7 + [_I] * 6 + [_P])
+    rc = f(corpus.data_ptr(), mask.data_ptr(), q.data_ptr(),
+           part_d.data_ptr(), part_i.data_ptr(), ids.data_ptr(),
+           dists.data_ptr(), B, N, d, k, rows, nchunks, _stream(dev))
+    _raise_on(rc, "scan_topk_mask")
+    LAUNCHES["scan_topk_mask"] += 1
+    return ids, dists
+
+
+# rows a block of the windowed scan reads at most: a window of more rows
+# spreads over several blocks
+WINDOW_CHUNK_ROWS = 1024
+
+
+def scan_topk_windows(corpus: torch.Tensor, attrs: torch.Tensor,
+                      q: torch.Tensor, qlo: torch.Tensor, qhi: torch.Tensor,
+                      starts: torch.Tensor, counts: torch.Tensor, *, k: int):
+    """Exact masked top-k over each query's windows of a position-ordered
+    corpus: corpus (N, d) f32 and attrs (N, m) f32 in position order,
+    q (B, d), qlo/qhi (B, m) f32, starts/counts (B, W) int32 (start < 0
+    pads a window) -> (positions (B, k) int32, dists (B, k) f32),
+    ascending by (distance, position), (-1, +inf) past the passing count.
+    The kernel reads only the rows inside each window (no row past a
+    window's count or past N) and takes k <= 64 and m <= 8."""
+    dev = _device_of(corpus, attrs, q, qlo, qhi, starts, counts)
+    _check(corpus, "corpus", torch.float32, 2)
+    for t, nm in ((attrs, "attrs"), (q, "q"), (qlo, "qlo"), (qhi, "qhi")):
+        _check(t, nm, torch.float32, 2)
+    _check(starts, "starts", torch.int32, 2)
+    _check(counts, "counts", torch.int32, 2)
+    N, d = corpus.shape
+    B, m = qlo.shape
+    if attrs.shape[0] != N or q.shape != (B, d) or qhi.shape != (B, m) \
+            or attrs.shape[1] != m or starts.shape[0] != B \
+            or counts.shape != starts.shape:
+        raise ValueError("scan_topk_windows shape mismatch")
+    if not 1 <= k <= N:
+        raise ValueError(f"k must be in [1, N={N}], got {k}")
+    if dev.type == "cpu":
+        return _ref.scan_topk_windows_ref(corpus, attrs, q, qlo, qhi,
+                                          starts, counts, k)
+    if k > 64:
+        raise ValueError(f"the scan kernel takes k <= 64, got {k}")
+    if m > 8:
+        raise ValueError(f"the scan kernel takes m <= 8 attributes, got {m}")
+    W = starts.shape[1]
+    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+    dists = torch.empty((B, k), dtype=torch.float32, device=dev)
+    if B == 0:
+        return ids, dists
+    if W == 0:
+        return ids.fill_(-1), dists.fill_(_ref._INF)
+    ch = WINDOW_CHUNK_ROWS
+    live = (starts >= 0) & (counts > 0)
+    nch = torch.where(live, (counts + (ch - 1)) // ch,
+                      torch.zeros_like(counts))
+    offs = torch.cumsum(nch.reshape(-1), 0, dtype=torch.int32)
+    lane_off = torch.zeros(B + 1, dtype=torch.int32, device=dev)
+    lane_off[1:] = offs.view(B, W)[:, -1]
+    items = int(lane_off[-1])
+    part_d = torch.empty((max(items, 1), k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((max(items, 1), k), dtype=torch.int32, device=dev)
+    f = _fn("scan_topk", "scan_topk_windows_f32", [_P] * 13 + [_I] * 8 + [_P])
+    rc = f(corpus.data_ptr(), attrs.data_ptr(), q.data_ptr(),
+           qlo.data_ptr(), qhi.data_ptr(), starts.data_ptr(),
+           counts.data_ptr(), offs.data_ptr(), lane_off.data_ptr(),
+           part_d.data_ptr(), part_i.data_ptr(), ids.data_ptr(),
+           dists.data_ptr(), B, W, N, d, m, k, ch, items, _stream(dev))
+    _raise_on(rc, "scan_topk_windows")
+    LAUNCHES["scan_topk_windows"] += 1
+    return ids, dists
 
 
 def l2dist_qn(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

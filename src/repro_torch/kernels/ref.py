@@ -18,11 +18,13 @@ from .quant import dequant_rows
 
 __all__ = ["CALLS", "reset_calls", "lex_smallest", "l2dist_qn_ref",
            "gather_l2_filter_ref", "scan_topk_ref",
-           "gather_l2_filter_q8_ref", "scan_topk_q8_ref"]
+           "gather_l2_filter_q8_ref", "scan_topk_q8_ref",
+           "scan_topk_mask_ref", "scan_topk_windows_ref"]
 
 CALLS = {name: {"cpu": 0, "cuda": 0}
          for name in ("gather_l2_filter", "scan_topk", "l2dist_qn",
-                      "gather_l2_filter_q8", "scan_topk_q8")}
+                      "gather_l2_filter_q8", "scan_topk_q8",
+                      "scan_topk_mask", "scan_topk_windows")}
 
 _INF = float("inf")
 
@@ -135,12 +137,22 @@ def gather_l2_filter_q8_ref(idx: torch.Tensor, qcorpus: torch.Tensor,
         attrs, q, qlo, qhi)
 
 
-def _scan_topk(N, rows_of, attrs, q, qlo, qhi, k, budget):
+def _box_ok(a, qlo, qhi):
+    """(ch, m) attrs x (B, m) boxes -> (B, ch) bool; NaN fails."""
+    a = a.to(torch.float32)
+    return ((a[None] >= qlo[:, None, :]) & (a[None] <= qhi[:, None, :])
+            ).all(-1)
+
+
+def _scan_topk(N, rows_of, ok_of, q, k, budget):
+    """The running top-k over rows [0, N) in chunks: ``rows_of(s, e)``
+    gives the rows as f32, ``ok_of(s, e)`` which (query, row) pairs pass,
+    (B, e - s) or (1, e - s)."""
     B, d = q.shape
     if not 1 <= k <= N:
         raise ValueError(f"k must be in [1, N={N}], got {k}")
     q = q.to(torch.float32)
-    dev = attrs.device
+    dev = q.device
     best_d = torch.empty((B, 0), dtype=torch.float32, device=dev)
     best_i = torch.empty((B, 0), dtype=torch.int64, device=dev)
     step = max(1, budget // max(1, B * d))
@@ -148,9 +160,7 @@ def _scan_topk(N, rows_of, attrs, q, qlo, qhi, k, budget):
         c = rows_of(s, min(N, s + step))                  # (ch, d) f32
         diff = c[None, :, :] - q[:, None, :]
         dist = (diff * diff).sum(-1)                      # (B, ch)
-        a = attrs[s:s + step].to(torch.float32)
-        ok = ((a[None] >= qlo[:, None, :]) & (a[None] <= qhi[:, None, :])
-              ).all(-1)
+        ok = ok_of(s, s + c.shape[0])
         dist = torch.where(ok, dist, torch.full_like(dist, _INF))
         rows = torch.arange(s, s + c.shape[0], device=dev,
                             dtype=torch.int64).expand(B, -1)
@@ -178,7 +188,8 @@ def scan_topk_ref(corpus: torch.Tensor, attrs: torch.Tensor, q: torch.Tensor,
     _count("scan_topk", corpus)
     return _scan_topk(corpus.shape[0],
                       lambda s, e: dequant_rows(corpus[s:e]),
-                      attrs, q, qlo, qhi, k, budget)
+                      lambda s, e: _box_ok(attrs[s:e], qlo, qhi),
+                      q, k, budget)
 
 
 def scan_topk_q8_ref(qcorpus: torch.Tensor, qscale: torch.Tensor,
@@ -192,4 +203,99 @@ def scan_topk_q8_ref(qcorpus: torch.Tensor, qscale: torch.Tensor,
     _count("scan_topk_q8", qcorpus)
     return _scan_topk(qcorpus.shape[0],
                       lambda s, e: dequant_rows(qcorpus[s:e], qscale[s:e]),
-                      attrs, q, qlo, qhi, k, budget)
+                      lambda s, e: _box_ok(attrs[s:e], qlo, qhi),
+                      q, k, budget)
+
+
+def scan_topk_mask_ref(corpus: torch.Tensor, mask: torch.Tensor,
+                       q: torch.Tensor, k: int, *, budget: int = 1 << 27):
+    """Exact top-k under one row mask shared by the batch: corpus (N, d)
+    f32, mask (N,) or (N, 1) f32 (a row passes iff its value is > 0, so
+    NaN fails), q (B, d) -> (ids (B, k) int32, dists (B, k) f32),
+    ascending by (distance, id), (-1, +inf) past the passing count. Rows
+    stream in chunks of at most ``budget`` elements, as
+    ``scan_topk_ref``."""
+    _count("scan_topk_mask", corpus)
+    ok = mask.reshape(-1).to(torch.float32) > 0.0
+    return _scan_topk(corpus.shape[0],
+                      lambda s, e: corpus[s:e].to(torch.float32),
+                      lambda s, e: ok[None, s:e], q, k, budget)
+
+
+def scan_topk_windows_ref(corpus: torch.Tensor, attrs: torch.Tensor,
+                          q: torch.Tensor, qlo: torch.Tensor,
+                          qhi: torch.Tensor, starts: torch.Tensor,
+                          counts: torch.Tensor, k: int, *,
+                          budget: int = 1 << 27):
+    """Exact masked top-k over each query's windows of a position-ordered
+    corpus: corpus (N, d) f32 and attrs (N, m) in position order, q (B, d),
+    qlo/qhi (B, m), starts/counts (B, W) int32 (a window with start < 0 is
+    a pad) -> (positions (B, k) int32, dists (B, k) f32). A row takes
+    part for query b iff it lies in one of b's windows and passes b's box
+    (NaN fails); ascending by (distance, position), (-1, +inf) past the
+    passing count.
+
+    The reference's oracle builds a dense (B, W, N) coverage plane; this
+    version gathers each lane's covered positions instead (their union,
+    sorted, so window order and overlap do not matter), scores the
+    (lane, position) pairs in chunks of at most ``budget`` elements, and
+    ranks each lane's pairs by (distance, position) with stable sorts."""
+    _count("scan_topk_windows", corpus)
+    N = corpus.shape[0]
+    B, d = q.shape
+    if not 1 <= k <= N:
+        raise ValueError(f"k must be in [1, N={N}], got {k}")
+    dev = corpus.device
+    q = q.to(torch.float32)
+    ids = torch.full((B, k), -1, dtype=torch.int32, device=dev)
+    dists = torch.full((B, k), _INF, dtype=torch.float32, device=dev)
+    st = starts.to(torch.int64)
+    live = (st >= 0) & (counts > 0)
+    st = torch.where(live, st, torch.zeros_like(st))
+    en = torch.where(live, torch.clamp(st + counts.to(torch.int64), max=N),
+                     st)
+    ct = torch.clamp(en - st, min=0)                      # (B, W)
+    per_lane = ct.sum(1).cpu().tolist()
+    # lanes in groups of at most ``cap`` covered pairs (a lane alone may
+    # exceed it: its pairs are at most N)
+    cap = max(N, 1 << 24)
+    step = max(1, budget // max(1, d))
+    b0 = 0
+    while b0 < B:
+        b1, tot = b0, 0
+        while b1 < B and (b1 == b0 or tot + per_lane[b1] <= cap):
+            tot += per_lane[b1]
+            b1 += 1
+        if tot:
+            c = ct[b0:b1].reshape(-1)
+            w_lane = torch.arange(b0, b1, device=dev).repeat_interleave(
+                ct.shape[1])
+            lane = w_lane.repeat_interleave(c)
+            first = torch.cumsum(c, 0) - c
+            pos = (st[b0:b1].reshape(-1).repeat_interleave(c)
+                   + torch.arange(lane.numel(), device=dev)
+                   - first.repeat_interleave(c))
+            key = torch.unique(lane * (N + 1) + pos)      # sorted, distinct
+            lane, pos = key // (N + 1), key % (N + 1)
+            dist = torch.empty(key.numel(), dtype=torch.float32, device=dev)
+            for s in range(0, key.numel(), step):
+                pl, pp = lane[s:s + step], pos[s:s + step]
+                diff = corpus[pp].to(torch.float32) - q[pl]
+                dd = (diff * diff).sum(-1)
+                a = attrs[pp].to(torch.float32)
+                ok = ((a >= qlo[pl]) & (a <= qhi[pl])).all(-1)
+                dist[s:s + step] = torch.where(ok, dd,
+                                               torch.full_like(dd, _INF))
+            # (lane, distance, position): pairs are in (lane, position)
+            # order, so two stable sorts finish the ranking
+            o = torch.argsort(dist, stable=True)
+            o = o[torch.argsort(lane[o], stable=True)]
+            lane, pos, dist = lane[o], pos[o], dist[o]
+            n_lane = torch.bincount(lane - b0, minlength=b1 - b0)
+            rank = torch.arange(lane.numel(), device=dev) - (
+                torch.cumsum(n_lane, 0) - n_lane)[lane - b0]
+            sel = (rank < k) & torch.isfinite(dist)
+            ids[lane[sel], rank[sel]] = pos[sel].to(torch.int32)
+            dists[lane[sel], rank[sel]] = dist[sel]
+        b0 = b1
+    return ids, dists

@@ -8,6 +8,12 @@ PyTorch versions of the kernels on the CPU. ``--backend
 pallas_gather_l2_filter`` is the predicate-fused scorer, which on the port
 is the hand-written CUDA kernel. ``--quant int8`` (or ``bf16``) serves
 from the compressed corpus replica with an exact f32 rerank.
+``--strategy hybrid`` scans each query's small tree nodes as windows
+(``--node-scan-threshold`` rows at most) and walks the rest.
+``--filter-expr 'a0 >= 3 and (a1 in [1, 4] or not a2 <= 0)'`` also serves
+a boolean filter expression through ``KHIService.search_expr`` and checks
+the answers against a numpy mask-then-top-k (``--box-budget`` boxes at
+most before the bitmask fallback).
 """
 
 from __future__ import annotations
@@ -38,7 +44,9 @@ def serve_khi(args):
                           expand_width=args.expand_width,
                           strategy=args.strategy,
                           scan_threshold=args.scan_threshold,
-                          quant=args.quant, rerank_mult=args.rerank_mult)
+                          quant=args.quant, rerank_mult=args.rerank_mult,
+                          node_scan_threshold=args.node_scan_threshold,
+                          box_budget=args.box_budget)
     buckets = tuple(sorted({1, 8, args.batch}))
     svc = KHIService(device_put_index(index, device=dev), params,
                      config=ServeConfig(buckets=buckets))
@@ -64,7 +72,50 @@ def serve_khi(args):
           f"scan_lanes={snap['scan_lanes']} pad_lanes={snap['pad_lanes']} "
           f"cache_hits={snap['cache_hits']} "
           f"buckets={snap['traced_buckets']}")
+    if args.filter_expr:
+        filter_expr_smoke(svc, vecs, attrs, Q, args)
+        snap = svc.snapshot()
     return snap
+
+
+def filter_expr_smoke(svc, vecs, attrs, Q, args):
+    """Parse ``--filter-expr``, serve it through ``KHIService.search_expr``
+    and check the answers against ``brute_force_expr``, the numpy
+    mask-then-top-k: every served id passes the filter; under ``--strategy
+    scan`` (every lane exact) the ids equal it, otherwise recall >= 0.6."""
+    from repro_torch.core.predicate import compile_expr, eval_expr, parse_expr
+    from repro_torch.core.query_ref import brute_force_expr
+
+    m = attrs.shape[-1]
+    expr = parse_expr(args.filter_expr, m)
+    prog = compile_expr(expr, m, box_budget=args.box_budget)
+    B = min(16, len(Q))
+    k = svc.params.k
+    t0 = time.perf_counter()
+    ids, _dists = svc.search_expr(Q[:B], expr)
+    dt = time.perf_counter() - t0
+    mask = eval_expr(expr, attrs)
+    hits = total = 0
+    for i in range(B):
+        ref_ids = brute_force_expr(vecs, attrs, Q[i], expr, k)
+        got = ids[i][ids[i] >= 0]
+        if not mask[got].all():
+            raise AssertionError(f"lane {i}: an id outside the filter was "
+                                 f"served")
+        if args.strategy == "scan" and got.tolist() != ref_ids.tolist():
+            raise AssertionError(f"lane {i}: scan lanes must equal the "
+                                 f"mask-then-top-k")
+        hits += len(set(got.tolist()) & set(ref_ids.tolist()))
+        total += max(len(ref_ids), 1)
+    recall = hits / total
+    floor = 1.0 if args.strategy == "scan" else 0.6
+    if recall < floor:
+        raise AssertionError(f"filter-expr recall {recall:.2f} < {floor}")
+    snap = svc.snapshot()
+    print(f"[serve] filter-expr: {args.filter_expr!r} -> {prog.mode} "
+          f"program ({prog.n_boxes} boxes, budget {args.box_budget}); "
+          f"{B} queries in {dt * 1e3:.0f}ms, recall {recall:.2f}, "
+          f"predicate_lanes={snap['predicate_lanes']}")
 
 
 def main(argv=None):
@@ -83,7 +134,9 @@ def main(argv=None):
                          "CUDA kernel (its plain version on the CPU)")
     ap.add_argument("--expand-width", type=int, default=1,
                     help="frontier width E: pool entries expanded per hop")
-    ap.add_argument("--strategy", default="auto", choices=list(STRATEGIES))
+    ap.add_argument("--strategy", default="auto", choices=list(STRATEGIES),
+                    help="graph | scan | auto (per-query dispatch) | "
+                         "hybrid (per-node windowed scan + graph walk)")
     ap.add_argument("--scan-threshold", type=int, default=0,
                     help="auto-dispatch threshold in in-range objects "
                          "(0 = 10%% of the corpus)")
@@ -94,6 +147,17 @@ def main(argv=None):
     ap.add_argument("--rerank-mult", type=int, default=4,
                     help="quantized over-fetch factor before the exact "
                          "f32 rerank")
+    ap.add_argument("--node-scan-threshold", type=int, default=0,
+                    help="hybrid per-node scan threshold in rows "
+                         "(0 = inherit the resolved scan threshold)")
+    ap.add_argument("--filter-expr", default="",
+                    help="boolean predicate to serve through the predicate "
+                         "compiler, e.g. 'a0 >= 2015 and (a1 in [1, 4] or "
+                         "a2 > 0.5)', checked against a numpy "
+                         "mask-then-top-k")
+    ap.add_argument("--box-budget", type=int, default=8,
+                    help="max disjoint boxes a compiled predicate may lower "
+                         "to before the bitmask fallback")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' for the plain "
                          "versions)")

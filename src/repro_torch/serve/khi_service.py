@@ -9,10 +9,13 @@ entry points. Every micro-batch runs through an ``engine.Planner``
 (``strategy="graph"`` makes every lane a graph lane). With
 ``SearchParams.quant`` set, the service attaches the compressed corpus
 replica to each epoch's index before its planner is built.
+``search_expr`` and ``Request(expr=...)`` serve boolean filter
+expressions (``core/predicate.py``): each disjoint box of the compiled
+cover through the cached, bucketed ``search`` path, merged with
+``_merge_dedup``, or one bitmask scan past ``box_budget``.
 
-Mesh serving, streaming writes, degradation tiers above 0 and predicate
-expressions are not ported yet and raise ``NotImplementedError`` naming
-their ROADMAP item.
+Mesh serving, streaming writes and degradation tiers above 0 are not
+ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,9 +28,10 @@ from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..core.engine import (DeviceIndex, Planner, SearchParams, _todo,
-                           _with_replica_for, device_put_index,
+from ..core.engine import (DeviceIndex, Planner, SearchParams, _merge_dedup,
+                           _todo, _with_replica_for, device_put_index,
                            validate_search_params)
+from ..core.predicate import canonical_key, compile_expr, validate_expr
 from ..core.util import resolve_device
 
 __all__ = ["ServeConfig", "Request", "Result", "KHIService"]
@@ -56,7 +60,9 @@ class ServeConfig:
 
 @dataclasses.dataclass
 class Request:
-    """One RFANNS query: a vector and a per-attribute [lo, hi] box."""
+    """One RFANNS query: a vector and exactly one filter form, a
+    per-attribute [lo, hi] box (``lo``/``hi``) or a boolean predicate
+    expression (``expr=``) compiled at serve time."""
 
     query: np.ndarray
     lo: Optional[np.ndarray] = None
@@ -64,10 +70,15 @@ class Request:
     expr: Optional[object] = None
 
     def __post_init__(self):
-        if self.expr is not None:
-            raise _todo("Request(expr=...)", "12")
-        if self.lo is None or self.hi is None:
-            raise ValueError("Request needs a filter: pass both lo= and hi=")
+        if self.expr is None:
+            if self.lo is None or self.hi is None:
+                raise ValueError(
+                    "Request needs a filter: pass both lo= and hi= (range "
+                    "box) or expr= (predicate expression, DESIGN.md §15)")
+        elif self.lo is not None or self.hi is not None:
+            raise ValueError(
+                "Request mixes expr= with lo/hi — a compiled predicate "
+                "already encodes its boxes; pass exactly one filter form")
 
 
 @dataclasses.dataclass
@@ -110,6 +121,9 @@ class KHIService:
             "tier_lanes": collections.Counter(),
             "predicate_lanes": collections.Counter(),
         }
+        # stats["predicate_lanes"] while a compiled predicate runs, so the
+        # dispatch attributes its device lanes to it; None otherwise
+        self._pred_lanes: Optional[collections.Counter] = None
         self._install_index(index)
 
     def _install_index(self, index) -> None:
@@ -159,6 +173,10 @@ class KHIService:
         def run(q, lo, hi):
             ids, dists, _hops, plan = planner.search(q, lo, hi)
             self.stats["scan_lanes"] += int(plan.use_scan.sum())
+            if self._pred_lanes is not None:
+                # every device lane of a predicate box, pads included (a
+                # graph strategy's plan makes them all graph lanes)
+                Planner._count_lanes(plan, self._pred_lanes, q.shape[0])
             return ids, dists
         return run
 
@@ -259,8 +277,45 @@ class KHIService:
         ids, dists, _ = self._answer(queries, lo, hi)
         return ids, dists
 
-    def search_expr(self, queries, expr, *, tier: int = 0):
-        raise _todo("KHIService.search_expr", "12")
+    def search_expr(self, queries: np.ndarray, expr, *, tier: int = 0
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Predicate front door: (B, d) queries x one boolean filter
+        expression -> ids/dists (B, k). Box-mode programs serve each
+        disjoint box through the cached, bucketed ``_answer`` path and
+        merge the per-box streams with ``_merge_dedup``; bitmask programs
+        run one exact f32 scan through the planner.
+        ``stats["predicate_lanes"]`` counts the lanes either way."""
+        if tier != 0:
+            raise _todo("degradation tiers", "14")
+        validate_expr(expr, self.m)
+        queries = np.ascontiguousarray(queries, np.float32)
+        B, k = queries.shape[0], self.params.k
+        prog = compile_expr(expr, self.m, box_budget=self.params.box_budget)
+        if prog.mode == "bitmask":
+            self.stats["requests"] += B
+            self.stats["predicate_lanes"]["bitmask"] += B
+            ids, dists, _hops = self._planner._run_mask(queries, prog)
+            return ids, dists
+        out_ids = np.full((B, k), -1, np.int32)
+        out_d = np.full((B, k), np.inf, np.float32)
+        m = self.m
+        self._pred_lanes = self.stats["predicate_lanes"]
+        try:
+            for b in range(prog.n_boxes):
+                lo = np.ascontiguousarray(
+                    np.broadcast_to(prog.lo[b], (B, m)), np.float32)
+                hi = np.ascontiguousarray(
+                    np.broadcast_to(prog.hi[b], (B, m)), np.float32)
+                ids, dists, _hit = self._answer(queries, lo, hi)
+                if b == 0:
+                    out_ids, out_d = ids, dists
+                else:
+                    # disjoint cover: dedup only collapses (-1, inf) pads
+                    out_ids, out_d = _merge_dedup(out_ids, out_d, ids,
+                                                  dists, k)
+        finally:
+            self._pred_lanes = None
+        return out_ids, out_d
 
     def submit(self, req: Request) -> int:
         """Enqueue one request; returns a ticket for flush()'s result dict."""
@@ -270,12 +325,32 @@ class KHIService:
         return ticket
 
     def _run_batch(self, batch: Sequence[Request]) -> List[Result]:
-        qs = np.stack([r.query for r in batch]).astype(np.float32)
-        los = np.stack([r.lo for r in batch]).astype(np.float32)
-        his = np.stack([r.hi for r in batch]).astype(np.float32)
-        ids, dists, hit = self._answer(qs, los, his)
-        return [Result(ids=ids[i], dists=dists[i], cached=bool(hit[i]))
-                for i in range(len(batch))]
+        """Answer one mixed batch: the box requests as one micro-batch
+        through ``_answer``, the predicate requests grouped by their
+        expression's ``canonical_key``, each group one ``search_expr``
+        batch. Predicate Results report ``cached=False``: a merged
+        multi-box answer is not one cache entry."""
+        results: List[Optional[Result]] = [None] * len(batch)
+        box_idx = [j for j, r in enumerate(batch) if r.expr is None]
+        if box_idx:
+            qs = np.stack([batch[j].query for j in box_idx]).astype(np.float32)
+            los = np.stack([batch[j].lo for j in box_idx]).astype(np.float32)
+            his = np.stack([batch[j].hi for j in box_idx]).astype(np.float32)
+            ids, dists, hit = self._answer(qs, los, his)
+            for i, j in enumerate(box_idx):
+                results[j] = Result(ids=ids[i], dists=dists[i],
+                                    cached=bool(hit[i]))
+        groups: "collections.OrderedDict[bytes, List[int]]" = (
+            collections.OrderedDict())
+        for j, r in enumerate(batch):
+            if r.expr is not None:
+                groups.setdefault(canonical_key(r.expr), []).append(j)
+        for idx in groups.values():
+            qs = np.stack([batch[j].query for j in idx]).astype(np.float32)
+            ids, dists = self.search_expr(qs, batch[idx[0]].expr)
+            for i, j in enumerate(idx):
+                results[j] = Result(ids=ids[i], dists=dists[i])
+        return results
 
     def flush(self) -> dict:
         """Run all pending requests (micro-batched); {ticket: Result}."""

@@ -81,3 +81,52 @@ def test_cuda_replica_kernels_match_plain_versions():
             rids, rdd = ref.scan_topk_ref(cb, attrs, q, lo, hi, k)
             assert torch.equal(ids, rids)
             torch.testing.assert_close(dd, rdd, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_windows_and_mask_kernels_match_plain_versions():
+    """The windowed scan (windows longer than one block's chunk, an empty
+    lane, windows that end at N and one that runs past it) and the
+    bitmask scan (NaN, zero and negative mask values) against their plain
+    versions. Ids are equal; distances within rtol 1e-5, atol 1e-4
+    (reduce order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    N, m, B = 6000, 3, 9
+    for d in (96, 36):
+        corpus = torch.randn((N, d), generator=g, device=dev)
+        attrs = torch.rand((N, m), generator=g, device=dev)
+        attrs[5::53, 1] = float("nan")
+        q = torch.randn((B, d), generator=g, device=dev)
+        lo = torch.rand((B, m), generator=g, device=dev) * 0.3
+        hi = lo + 0.7
+        starts = torch.tensor([[0, 2500, -1, -1], [-1, -1, -1, -1],
+                               [100, 1200, 4000, N - 7],
+                               [N - 3000, -1, -1, -1],
+                               [10, 20, 30, 40], [5990, -1, -1, -1],
+                               [0, -1, -1, -1], [3000, 3100, -1, -1],
+                               [1, 2, 3, 4]],
+                              dtype=torch.int32, device=dev)
+        counts = torch.tensor([[2400, 3000, 0, 0], [0, 0, 0, 0],
+                               [50, 1500, 1, 7], [3000, 0, 0, 0],
+                               [5, 5, 5, 5], [40, 0, 0, 0],
+                               [N, 0, 0, 0], [100, 2900, 0, 0],
+                               [1, 1, 1, 1]],
+                              dtype=torch.int32, device=dev)
+        for k in (10, 40):
+            ids, dd = ops.scan_topk_windows(corpus, attrs, q, lo, hi, starts,
+                                            counts, k=k)
+            rids, rdd = ref.scan_topk_windows_ref(corpus, attrs, q, lo, hi,
+                                                  starts, counts, k)
+            assert torch.equal(ids, rids)
+            torch.testing.assert_close(dd, rdd, rtol=1e-5, atol=1e-4)
+            assert bool((ids[1] == -1).all())
+            mask = torch.rand((N, 1), generator=g, device=dev) - 0.4
+            mask[::31] = float("nan")
+            mask[::37] = 0.0
+            ids, dd = ops.scan_topk_mask(corpus, mask, q, k=k)
+            rids, rdd = ref.scan_topk_mask_ref(corpus, mask, q, k)
+            assert torch.equal(ids, rids)
+            torch.testing.assert_close(dd, rdd, rtol=1e-5, atol=1e-4)

@@ -119,11 +119,17 @@ def test_make_search_fn_and_unported_options(tiny_index):
     di = teng.device_put_index(tiny_index, device="cpu")
     with pytest.raises(ValueError, match="graph program only"):
         teng.make_search_fn(_params(teng, strategy="auto"))
-    for kw, item in ((dict(strategy="hybrid"), "item 10"),
-                     (dict(router="dfs"), "item 3")):
-        with pytest.raises(NotImplementedError, match=item):
-            teng.Planner(di, _params(teng, **kw))
+    with pytest.raises(NotImplementedError, match="item 3"):
+        teng.Planner(di, _params(teng, router="dfs"))
     with pytest.raises(NotImplementedError, match="item 8"):
         teng.resolve_scorer("pallas_gather_l2")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        teng.Planner(di, _params(teng)).search_expr(None, None)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        teng.Planner(type("Sharded", (), {"offsets": 0, "di": di})(),
+                     _params(teng))
+    # hybrid and predicate expressions are ported (tests/test_torch_hybrid.py,
+    # tests/test_torch_predicate.py): an empty expression answers nothing
+    from repro_torch.core.predicate import Range
+    ids, _, _, pplan = teng.Planner(di, _params(teng, strategy="hybrid")) \
+        .search_expr(np.zeros((2, di.vecs.shape[1]), np.float32),
+                     Range(0, 1.0, 0.0))
+    assert (ids == -1).all() and pplan.mode == "boxes"

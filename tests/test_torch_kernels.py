@@ -162,10 +162,16 @@ def test_cpu_tensors_run_the_plain_versions_and_count():
     ops.gather_l2_filter(idx, corpus, attrs, q, lo, hi)
     ids, _ = ops.scan_topk(corpus, attrs, q, lo, hi, k=5)
     ops.l2dist_qn(q, corpus)
+    mids, _ = ops.scan_topk_mask(corpus, torch.ones(50), q, k=5)
+    wids, _ = ops.scan_topk_windows(
+        corpus, attrs, q, lo, hi, torch.zeros((3, 1), dtype=torch.int32),
+        torch.full((3, 1), 50, dtype=torch.int32), k=5)
     assert ids[:, 0].tolist() == [0, 1, 2]
+    assert torch.equal(mids, ids) and torch.equal(wids, ids)
     assert {k: v["cpu"] for k, v in ref.CALLS.items()} == {
         "gather_l2_filter": 1, "scan_topk": 1, "l2dist_qn": 1,
-        "gather_l2_filter_q8": 0, "scan_topk_q8": 0}
+        "gather_l2_filter_q8": 0, "scan_topk_q8": 0, "scan_topk_mask": 1,
+        "scan_topk_windows": 1}
     assert all(v["cuda"] == 0 for v in ref.CALLS.values())
     assert all(v == 0 for v in ops.LAUNCHES.values())
 

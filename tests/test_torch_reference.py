@@ -1,9 +1,11 @@
 """``smoke_reference.py`` (the plain numpy reference ``chip_smoke.py``
 holds the port to at full shard size) against the JAX package on the
 CPU: the DFS router, the wide-frontier beam search with its hop cap, the
-bulk builder's graph rows, and the int8 score path (replica, graph-lane
-rerank, scan-lane over-fetch and rerank). Ids and hops are equal;
-distances within rtol = atol = 1e-5 (reduce order)."""
+bulk builder's graph rows, the int8 score path (replica, graph-lane
+rerank, scan-lane over-fetch and rerank), the hybrid path's antichain and
+windowed scan, and the predicate pass's row masks and masked top-k. Ids
+and hops are equal; distances within rtol = atol = 1e-5 (reduce
+order)."""
 
 import os
 import sys
@@ -12,6 +14,7 @@ import numpy as np
 import pytest
 
 from repro.core import engine as jeng
+from repro.core import predicate as jpred
 from repro.core import query_ref as jref
 from repro.core.build_device import build_graphs_device as j_build
 from repro.kernels import quant as jq
@@ -145,3 +148,78 @@ def test_int8_scan_rerank_matches_engine(tiny_index, tiny_queries):
         fin = np.isfinite(w_d[i])
         np.testing.assert_allclose(dists[fin], w_d[i][fin], rtol=1e-5,
                                    atol=1e-5)
+
+
+def _boxes(tiny_queries, m):
+    _, preds = tiny_queries
+    lo = np.stack([p.lo for p in preds]).astype(np.float32)
+    hi = np.stack([p.hi for p in preds]).astype(np.float32)
+    lo = np.concatenate([lo, np.full((2, m), -np.inf, np.float32)])
+    hi = np.concatenate([hi, np.full((2, m), np.inf, np.float32)])
+    lo[-1], hi[-1] = np.inf, -np.inf                 # an empty box
+    return lo, hi
+
+
+def test_antichain_matches_reference_estimator(tiny_index, tiny_queries):
+    from repro.core.router import HostCardEstimator
+
+    t = tiny_index.tree
+    m = tiny_index.attrs.shape[1]
+    root = int(np.nonzero(np.asarray(t.parent) < 0)[0][0])
+    est = HostCardEstimator(np.asarray(t.left), np.asarray(t.right),
+                            np.asarray(t.dim), np.asarray(t.bl),
+                            np.asarray(t.lo), np.asarray(t.hi),
+                            np.asarray(t.count), root)
+    lo, hi = _boxes(tiny_queries, m)
+    want = est.antichain(lo, hi)
+    for i in range(len(lo)):
+        got = sref.antichain(t, lo[i], hi[i])
+        assert sorted(got) == np.nonzero(want[i])[0].tolist()
+    assert sref.antichain(t, lo[-2], hi[-2]).tolist() == [root]
+
+
+def test_window_scan_matches_hybrid_window_lanes(tiny_index, tiny_queries):
+    """Pure-window lanes of the reference's hybrid planner: every node of
+    the numpy antichain is small, and the numpy windowed scan over those
+    nodes gives the planner's ids."""
+    Q, _ = tiny_queries
+    t = tiny_index.tree
+    lo, hi = _boxes(tiny_queries, tiny_index.attrs.shape[1])
+    Q = np.concatenate([Q, Q[:2]])
+    thr = 120
+    p = jeng.SearchParams(k=10, ef=32, c_n=16, backend="jnp",
+                          strategy="hybrid", node_scan_threshold=thr)
+    ids, dists, _, plan = jeng.Planner(tiny_index, p).search(Q, lo, hi)
+    lanes = np.nonzero(plan.mode == 1)[0]
+    assert len(lanes) >= 3
+    count = np.asarray(t.count)
+    for i in range(len(Q)):
+        nodes = sref.antichain(t, lo[i], hi[i])
+        small = all(count[nodes] <= thr)
+        assert (plan.mode[i] == 1) == (small and plan.card[i] > 0)
+        if plan.mode[i] != 1:
+            continue
+        got, gd = sref.window_scan(tiny_index.vecs, tiny_index.attrs, t,
+                                   nodes, Q[i], lo[i], hi[i], 10)
+        np.testing.assert_array_equal(got, ids[i])
+        fin = np.isfinite(dists[i])
+        np.testing.assert_allclose(gd[fin], dists[i][fin], rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_year_mask_matches_predicate_compiler(tiny_index):
+    attrs = tiny_index.attrs.copy()
+    attrs[::29, 0] = np.nan
+    years = np.unique(attrs[:, 0][np.isfinite(attrs[:, 0])])
+    a1_max = float(np.float32(np.median(attrs[:, 1])))
+    e1 = years[::3][:3].tolist()
+    e2 = years[::2].tolist()
+    cases = ((e1, a1_max, "a0 in [{}] and a1 <= {!r}"),
+             (e2, None, "a0 in [{}]"))
+    for ys, amax, form in cases:
+        text = form.format(", ".join(repr(float(y)) for y in ys), amax)
+        expr = jpred.parse_expr(text, attrs.shape[1])
+        want = jpred.eval_expr(expr, attrs)
+        got = sref.year_mask(attrs, ys, amax)
+        np.testing.assert_array_equal(got, want)
+        assert 0 < got.sum() < len(attrs)

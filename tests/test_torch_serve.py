@@ -11,6 +11,7 @@ from repro.data import make_queries
 
 from repro_torch.configs import khi_serve
 from repro_torch.core import engine as teng
+from repro_torch.core.predicate import Range
 from repro_torch.serve import KHIService, Request, ServeConfig
 
 BUCKETS = (1, 8, 32)
@@ -117,5 +118,8 @@ def test_khi_serve_config_and_rejections(tiny_index):
         ServeConfig(buckets=(8, 1))
     with pytest.raises(NotImplementedError, match="item 13"):
         KHIService(tiny_index, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Request(np.zeros(3), expr=object())
+    with pytest.raises(ValueError, match="exactly one filter form"):
+        Request(np.zeros(3), lo=np.zeros(3), hi=np.ones(3),
+                expr=Range(0, 0.0, 1.0))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        KHIService(tiny_index, device="cpu").enable_streaming()
