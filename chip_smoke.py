@@ -1,14 +1,17 @@
 """Chip smoke for the PyTorch/CUDA port: builds the hand-written kernels,
 holds each against its plain PyTorch version on the card (the gather and
-scan kernels in their f32, bf16 and int8 forms, the bitmask scan, and the
-windowed scan at the windows of the served 1/64 boxes), then builds a KHI
-index at the khi-serve shard's widths on the card and serves
-mixed-selectivity bursts through the auto planner, checking the answers;
-then serves the same bursts again on the quantized score path,
-quant="int8" and then quant="bf16", from a replica attached to the same
-index; then with strategy="hybrid" (per-node windows + graph walk); then
-two filter expressions through Request(expr=...) under "auto" and
-"hybrid" (one lowers to 3 disjoint boxes, one to the bitmask scan).
+scan kernels in their f32, bf16 and int8 forms, the unfused gathers in
+both forms, l2dist_qc, the bitmask scan, and the windowed scan at the
+windows of the served 1/64 boxes), then builds a KHI index at the
+khi-serve shard's widths on the card and serves mixed-selectivity bursts
+through the auto planner, checking the answers; then serves the same
+bursts again on the quantized score path, quant="int8" and then
+quant="bf16", from a replica attached to the same index; then with
+strategy="hybrid" (per-node windows + graph walk); then two filter
+expressions through Request(expr=...) under "auto" and "hybrid" (one
+lowers to 3 disjoint boxes, one to the bitmask scan); then with
+strategy="graph" under every scoring backend it takes (the fused filter
+gather, the unfused gather, pallas_l2) and both routers (level, dfs).
 
     python3 chip_smoke.py                 # full run, one GPU
     python3 chip_smoke.py --n 200000      # a smaller corpus (widths kept)
@@ -23,10 +26,13 @@ int8 scan over-fetch + f32 rerank. The hybrid pass's pure-window lanes are
 held to the f32 brute force and to the same file's numpy antichain and
 windowed scan over the DFS order; its mixed lanes' recall to that of the
 graph strategy's own walk on the same lanes. The predicate pass's truth is a masked brute
-force whose mask comes from the same file's numpy year evaluator. Launch
-counts are reset before each served path (the f32 build + serve, the int8
-pass, the bf16 pass, the hybrid pass, the predicate pass) and read after
-it.
+force whose mask comes from the same file's numpy year evaluator. The
+graph pass holds the unfused gather's walk to the fused one's bit for
+bit, pallas_l2's to it on ids and recall, and the DFS router to the same
+file's numpy DFS. Launch counts are reset before each served path (the
+f32 build + serve, the int8 pass, the bf16 pass, the hybrid pass, the
+predicate pass, each graph configuration) and read after it; the public
+wrappers' rescoring of the graph pass's answers is counted apart.
 
 Prints one line per phase, a {"kernels": [...]} line, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}. Exits
@@ -183,6 +189,7 @@ def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev, *,
               f"{n_pass} of {B * C} lanes pass, {nbytes / 1e6:.1f} MB), "
               f"max abs err {err:.3g}", flush=True)
     del idx, valid
+    unfused_checks(corpus, cb, q, rows)
 
     # -- scan_topk at B=256, N=n: k for the f32 form, the over-fetch kq
     # of a quantized scan (k * rerank_mult) for the replica forms
@@ -326,6 +333,98 @@ def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev, *,
           f"{rows['l2dist_qn']['library_ms']:.3f}, bound {bms:.3f} by {by}),"
           f" max abs err {err:.3g}", flush=True)
     return rows
+
+
+GATHER_L2_TPU = "src/repro/kernels/gather_l2.py"
+L2DIST_CU = "src/repro_torch/kernels/csrc/l2dist.cu"
+
+
+def unfused_checks(corpus, cb, q, rows) -> None:
+    """The graph strategy's unfused kernels at its shapes (B=256 lanes of
+    C=E*c_n=128 in-range ids, repeated ids included): the gather without
+    predicate in both forms, f32 and bf16, against gather_l2_ref (rtol
+    1e-5, atol 1e-3: other sum orders), the two forms bitwise equal, and
+    the f32 forms bitwise equal to gather_l2_filter's lanes under a box
+    every row passes; l2dist_qc on the materialized (B, C, d) gather
+    against its plain version (rtol 1e-4, atol 1e-3: the expansion
+    cancels, as for l2dist_qn). Every eighth id repeats its neighbour's.
+    Gather bounds count each distinct row once (a repeated id needs no
+    second read); l2dist_qc's counts the whole (B, C, d) block, which is
+    its input. Its library yardstick is one batched cdist, squared."""
+    from repro_torch.kernels import ops, ref
+
+    dev = corpus.device
+    n, d = corpus.shape
+    B, C = q.shape[0], 128
+    g = torch.Generator(device=dev).manual_seed(7)
+    idx = torch.randint(0, n, (B, C), generator=g, device=dev)
+    idx[:, 7::8] = idx[:, 6::8]                      # repeated ids
+    n_rows = int(torch.unique(idx).numel())
+    allpass = torch.zeros((n, 1), device=dev)
+    lo = torch.full((B, 1), -1.0, device=dev)
+    hi = torch.ones((B, 1), device=dev)
+    for name, c_blk in (("gather_l2", 128), ("gather_l2_rows", None)):
+        for corp, kind in ((corpus, "f32"), (cb, "bf16")):
+            def kern(corp=corp, c_blk=c_blk):
+                return ops.gather_l2(idx, corp, q, c_blk=c_blk)
+
+            def plain(corp=corp):
+                return ref.gather_l2_ref(idx, corp, q)
+
+            got, want = kern(), plain()
+            other = ops.gather_l2(idx, corp, q,
+                                  c_blk=None if c_blk else 128)
+            filt = ops.gather_l2_filter(idx, corp, allpass, q, lo, hi)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            check(torch.allclose(got, want, rtol=1e-5, atol=1e-3),
+                  f"{name} ({kind}) disagrees: max abs err {err}")
+            check(torch.equal(got, other),
+                  f"{name} ({kind}): the two gather forms differ")
+            check(torch.equal(got, filt),
+                  f"{name} ({kind}) differs from gather_l2_filter's lanes")
+            row_bytes = corp.element_size() * d
+            nbytes = idx.numel() * 8 + q.numel() * 4 + got.numel() * 4 \
+                + n_rows * row_bytes
+            bms, by = bound_ms(nbytes, idx.numel() * d * 3)
+            ms = time_ms(kern, reps=50)
+            print(f"[kernels] {name} ({kind}) B={B} C={C} d={d}: {ms:.4f} "
+                  f"ms (bound {bms:.4f} by {by}, {n_rows} distinct rows, "
+                  f"{nbytes / 1e6:.1f} MB), "
+                  f"max abs err {err:.3g}; bitwise equal to the other form "
+                  f"and to gather_l2_filter's lanes", flush=True)
+            if kind == "f32":
+                rows[name] = dict(
+                    name=name, route="cuda", launches=0, source=GATHER_CU,
+                    replaces=GATHER_L2_TPU + (":67" if c_blk else ":36"),
+                    max_abs_err=err, ms=ms,
+                    plain_ms=time_ms(plain, reps=20), bound_ms=bms,
+                    bound_by=by, library_ms=None)
+
+    cand = corpus[idx]                               # the (B, C, d) gather
+    got, want = ops.l2dist_qc(q, cand), ref.l2dist_qc_ref(q, cand)
+    exact = ((cand.double() - q.double()[:, None]) ** 2).sum(-1)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=1e-4, atol=1e-3),
+          f"l2dist_qc disagrees: max abs err {err}")
+    nbytes = (cand.numel() + q.numel() + got.numel()) * 4
+    bms, by = bound_ms(nbytes, 4.0 * cand.numel())
+    r = rows["l2dist_qc"] = dict(
+        name="l2dist_qc", route="cuda", launches=0, source=L2DIST_CU,
+        replaces="src/repro/kernels/l2dist.py:50", max_abs_err=err,
+        ms=time_ms(lambda: ops.l2dist_qc(q, cand), reps=50),
+        plain_ms=time_ms(lambda: ref.l2dist_qc_ref(q, cand), reps=20),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: torch.cdist(q[:, None], cand)
+                           .square(), reps=50))
+    gms = time_ms(lambda: corpus[idx], reps=50)
+    print(f"[kernels] l2dist_qc B={B} C={C} d={d}: {r['ms']:.4f} ms (plain "
+          f"{r['plain_ms']:.4f}, cdist squared {r['library_ms']:.4f}, bound "
+          f"{bms:.4f} by {by}, {nbytes / 1e6:.1f} MB); the materialized "
+          f"gather before it {gms:.4f} ms; max abs err {err:.3g} against "
+          f"the plain version, {float((got.double() - exact).abs().max()):.3g}"
+          f" against float64", flush=True)
 
 
 def windows_check(pos_vecs, pos_attrs, q, qlo, qhi, starts, counts, k,
@@ -561,6 +660,8 @@ def main_path(n: int, n_full: int, dev, rows: dict) -> None:
     hybrid_pass(index, di, params, cfg, Q, lo, hi, perm >= nq, serve_bursts,
                 ids, use_scan, t_ids, t_d, dev, rows)
     predicate_pass(index, di, params, cfg, Q, sizes, dev, rows)
+    graph_pass(index, di, params, cfg, Q, lo, hi, perm >= nq, serve_bursts,
+               t_ids, dev, rows)
 
 
 RECALL_BAR = 0.85   # the bar examples/quickstart.py sets for the reference
@@ -668,8 +769,10 @@ def graph_checks(index, di, svc, Q, lo, hi, ids, use_scan, t_ids, t_d, cfg,
     return ref_ent
 
 
-def check_served(ids, dists, vecs, attrs, Q, lo, hi, what: str) -> None:
-    """Served lanes: in the box, distinct, ascending, exact distances."""
+def check_served(ids, dists, vecs, attrs, Q, lo, hi, what: str,
+                 atol: float = 1e-8) -> None:
+    """Served lanes: in the box, distinct, ascending, exact distances
+    (within rtol 1e-4 and ``atol`` of float64)."""
     check(bool(np.isfinite(dists[ids >= 0]).all()),
           f"{what}: non-finite distance on a served id")
     for i in range(len(Q)):
@@ -683,7 +786,7 @@ def check_served(ids, dists, vecs, attrs, Q, lo, hi, what: str) -> None:
         check(bool((np.diff(dd) >= 0).all()),
               f"{what} lane {i}: not ascending")
         exact = ((vecs[got].astype(np.float64) - Q[i]) ** 2).sum(1)
-        check(bool(np.allclose(dd, exact, rtol=1e-4)),
+        check(bool(np.allclose(dd, exact, rtol=1e-4, atol=atol)),
               f"{what} lane {i}: served distances are not the exact ones")
 
 
@@ -1174,6 +1277,269 @@ def predicate_pass(index, di, params, cfg, Q, sizes, dev, rows) -> None:
                   f"exact though every box took an exact path")
         del svc, pl
     rows["scan_topk_mask"]["launches"] = launches["scan_topk_mask"]
+
+
+# (tag, backend, router) of the graph pass, and the kernels each must launch
+GRAPH_CONFIGS = (("a", "pallas_gather_l2_filter", "level"),
+                 ("b", "pallas_gather_l2", "level"),
+                 ("c", "pallas_l2", "level"),
+                 ("d", "pallas_gather_l2", "dfs"))
+GRAPH_KERNELS = {"a": ("gather_l2_filter",), "b": ("gather_l2",),
+                 "c": ("l2dist_qc",), "d": ("gather_l2",)}
+# the public wrapper each unfused configuration's served answers are
+# rescored through afterwards, and the kernel it must launch
+WRAPPER_KERNELS = {"b": "gather_l2_rows", "c": "l2dist_qc",
+                   "d": "gather_l2_rows"}
+
+
+def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
+               dev, rows) -> None:
+    """strategy="graph" on the index already built, with every scoring
+    backend the graph strategy takes and both routers: (a) the fused
+    filter gather, level router (the baseline); (b) the unfused gather,
+    level; (c) pallas_l2 (a PyTorch gather of the candidate rows, then
+    l2dist_qc), level; (d) the unfused gather with the stack DFS. Each
+    serves the same warm-up pass and the 384 requests in the same bursts
+    through KHIService, and its launches are counted over the served run
+    alone. Then, under counts of their own, the served answers of (b),
+    (c) and (d) are rescored through the public wrappers (the
+    row-per-step ops.gather_l2, the rank-dispatching ops.l2dist), which
+    must give the served distances bit for bit. Then the graph program
+    runs the same lanes once more for hops (for (d), recording its DFS
+    entries and pops). (d) warms up on one batch: a DFS batch costs its
+    longest walk's pops. Checks: (b) equals (a) bit for bit (ids, dists,
+    hops) and launches no gather_l2_filter; (c) equals (a)'s ids on >= 95%
+    of lanes, its recall@10 lies within 0.01 of (a)'s and its distances
+    within rtol 1e-4, atol 1e-3 of float64; (d), at the default
+    max_steps, gives entries equal to smoke_reference.dfs_entries capped
+    at the same pops on every lane (the lanes cut are counted), and it
+    equals (b) wherever its entries equal the level router's. The DFS
+    router alone then walks the same boxes with max_steps at the tree's
+    node count: entries equal to the uncapped numpy DFS on every lane,
+    and no lane reaches that cap."""
+    import smoke_reference as sref
+    from repro_torch.core import engine as eng
+    from repro_torch.core import router as rt
+    from repro_torch.core.engine import Planner
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve import KHIService, ServeConfig
+
+    sel = {"1/4": np.nonzero(~is_s)[0], "1/64": np.nonzero(is_s)[0]}
+    qt = torch.as_tensor(Q).to(dev)
+    out, svc_params, dfs_run = {}, {}, {}
+    for tag, backend, router in GRAPH_CONFIGS:
+        name = f"[graph {tag}]"
+        p = dataclasses.replace(params, strategy="graph", backend=backend,
+                                router=router)
+        svc = KHIService(di, p, config=ServeConfig(
+            buckets=cfg.buckets, cache_size=cfg.cache_size))
+        svc_params[tag] = svc.params
+        t0 = time.perf_counter()
+        if router == "dfs":
+            # one batch: a batch of DFS lanes costs its longest walk's pops
+            svc.search(Q[:8] + np.float32(1e-3), lo[:8], hi[:8])
+        else:
+            serve_bursts(svc, Q + np.float32(1e-3))    # other keys
+        warm_s = time.perf_counter() - t0
+        ops.reset_launches()
+        ref.reset_calls()
+        t0 = time.perf_counter()
+        results = serve_bursts(svc, Q)
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        plain_cuda = {k: v["cuda"] for k, v in ref.CALLS.items()}
+        ids = np.stack([r.ids for r in results])
+        dists = np.stack([r.dists for r in results])
+        if tag in WRAPPER_KERNELS:
+            # the public wrappers, a user's own call on the served ids
+            safe = torch.as_tensor(np.maximum(ids, 0)).to(dev).long()
+            cand = di.vecs[safe] if backend == "pallas_l2" else None
+            ops.reset_launches()
+            ref.reset_calls()
+            if backend == "pallas_l2":
+                again = ops.l2dist(qt, cand)
+            else:
+                again = ops.gather_l2(safe, di.vecs, qt)
+            torch.cuda.synchronize()
+            w_launches = {k: c for k, c in ops.LAUNCHES.items() if c}
+            w_plain = sum(v["cuda"] for v in ref.CALLS.values())
+            wk = WRAPPER_KERNELS[tag]
+            v = ids >= 0
+            same_w = np.array_equal(again.cpu().numpy()[v], dists[v])
+            print(f"{name} public wrapper ops."
+                  f"{'l2dist' if backend == 'pallas_l2' else 'gather_l2'}"
+                  f" on the served ids: launches {w_launches}, plain-version "
+                  f"CUDA calls {w_plain}, served distances bit for bit "
+                  f"{same_w}", flush=True)
+            check(same_w, f"{name} the public wrapper does not give the "
+                  f"served distances bit for bit")
+            check(w_launches.get(wk, 0) > 0 and w_plain == 0,
+                  f"{name} the public wrapper did not launch {wk}")
+            if tag == "b":
+                rows[wk]["launches"] = w_launches.get(wk, 0)
+        if router == "dfs":
+            # the graph program's own DFS call, recorded with its pops
+            orig_dfs = rt.route_dfs
+
+            def recording(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ent, card, pops = orig_dfs(*a, with_steps=True)
+                torch.cuda.synchronize()
+                dfs_run.update(ent=ent.cpu().numpy(), pops=pops.cpu().numpy(),
+                               s=time.perf_counter() - t0)
+                return ent, card
+
+            rt.route_dfs = recording
+            try:
+                g_ids, g_d, g_hops, _ = svc._planner.search(Q, lo, hi)
+            finally:
+                rt.route_dfs = orig_dfs
+        else:
+            g_ids, g_d, g_hops, _ = svc._planner.search(Q, lo, hi)
+        check(np.array_equal(g_ids, ids) and np.array_equal(g_d, dists),
+              f"{name} served lanes differ from the graph program's")
+        out[tag] = (ids, dists, g_hops)
+        rec = {k: recall(ids[i], t_ids[i]) for k, i in sel.items()}
+        print(f"{name} backend={backend} router={router}: {len(results)} "
+              f"requests in {dt:.3f}s ({len(results) / dt:.1f} QPS "
+              f"end-to-end); warm-up {warm_s:.1f}s; recall@{cfg.k} "
+              + ", ".join(f"{k} lanes {r:.4f}" for k, r in rec.items())
+              + f"; mean hops {g_hops.mean():.1f}; launches "
+              f"{ {k: c for k, c in launches.items() if c} }; "
+              f"plain-version CUDA calls {plain_cuda}", flush=True)
+        check(all(c == 0 for c in plain_cuda.values()),
+              f"{name} the path fell through to a plain version: "
+              f"{plain_cuda}")
+        for k in GRAPH_KERNELS[tag]:
+            check(launches[k] > 0, f"{name} {k} was never launched")
+        if tag != "a":
+            check(launches["gather_l2_filter"] == 0,
+                  f"{name} launched the fused filter gather")
+        check_served(ids, dists, index.vecs, index.attrs, Q, lo, hi, name,
+                     atol=1e-3 if backend == "pallas_l2" else 1e-8)
+        if tag == "b":
+            rows["gather_l2"]["launches"] = launches["gather_l2"]
+        if tag == "c":
+            rows["l2dist_qc"]["launches"] = launches["l2dist_qc"]
+        del svc
+
+    a, b, c, d = (out[t] for t in "abcd")
+    same = [np.array_equal(x, y) for x, y in zip(b, a)]
+    print(f"[graph] (b) against (a): ids, dists, hops bit-equal {same}",
+          flush=True)
+    check(all(same), "(b) the unfused gather's walk differs from (a)'s")
+    c_same = (c[0] == a[0]).all(1)
+    rec_a, rec_c = recall(a[0], t_ids), recall(c[0], t_ids)
+    print(f"[graph] (c) against (a): ids equal on {int(c_same.sum())} of "
+          f"{len(Q)} lanes, hops on {int((c[2] == a[2]).sum())}; recall@"
+          f"{cfg.k} {rec_c:.4f} against {rec_a:.4f}", flush=True)
+    check(c_same.sum() >= 0.95 * len(Q),
+          "(c) pallas_l2's ids differ from (a)'s on more than 5% of lanes")
+    check(abs(rec_c - rec_a) <= 0.01,
+          "(c) pallas_l2's recall is more than 0.01 from (a)'s")
+
+    # (d): the stack DFS against the numpy DFS capped at the same pops,
+    # and where its entries equal the level router's, the walk against (b)'s
+    pd, pb = svc_params["d"], svc_params["b"]
+    ent, pops, dfs_s = dfs_run["ent"], dfs_run["pops"], dfs_run["s"]
+    lvl = rt.route_level_sync(di, torch.as_tensor(lo).to(dev),
+                              torch.as_tensor(hi).to(dev), pb)[0]
+    lvl = lvl.cpu().numpy()
+
+    def numpy_dfs(max_steps):
+        return [sref.dfs_entries(index.tree, index.attrs, lo[i], hi[i],
+                                 pd.c_e, pd.scan_budget, max_steps)
+                for i in range(len(Q))]
+
+    def n_same(ent, ref_ent):
+        return sum(ent[i][ent[i] >= 0].tolist() == e
+                   for i, e in enumerate(ref_ent))
+
+    t0 = time.perf_counter()
+    same_ref = n_same(ent, numpy_dfs(pd.max_steps))
+    host_s = time.perf_counter() - t0
+    # lanes that max_steps stopped short of c_e entries
+    cut = (pops >= pd.max_steps) & ((ent >= 0).sum(1) < pd.c_e)
+    eq_lvl = (ent == lvl).all(1)
+    walk = (d[0] == b[0]).all(1) & (d[2] == b[2])
+    print(f"[graph] (d) DFS router over {len(Q)} lanes (in the graph "
+          f"program's run above) in {dfs_s:.3f}s: entries equal to the numpy "
+          f"DFS capped at max_steps {pd.max_steps} on {same_ref} of "
+          f"{len(Q)} lanes ({host_s:.1f}s on the host); {int(cut.sum())} "
+          f"lanes stopped by max_steps short of {pd.c_e} entries; pops per lane max {int(pops.max())}, "
+          f"mean {pops.mean():.1f} ({dfs_s / max(1, int(pops.max())) * 1e3:.2f}"
+          f" ms a lockstep pop); entries equal to the level router's on "
+          f"{int(eq_lvl.sum())}, and ids and hops equal to (b)'s on "
+          f"{int(walk[eq_lvl].sum())} of those", flush=True)
+    check(same_ref == len(Q), "(d) the DFS entries differ from numpy's")
+    check(bool(walk[eq_lvl].all()),
+          "(d) the walk differs from (b)'s on lanes with equal entries")
+    # the router alone, uncapped: a DFS pops each node at most once
+    p_all = dataclasses.replace(pd, max_steps=int(di.left.numel()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ent_u, _, pops_u = rt.route_dfs(di, torch.as_tensor(lo).to(dev),
+                                    torch.as_tensor(hi).to(dev), p_all,
+                                    with_steps=True)
+    torch.cuda.synchronize()
+    u_s = time.perf_counter() - t0
+    ent_u, pops_u = ent_u.cpu().numpy(), pops_u.cpu().numpy()
+    same_u = n_same(ent_u, numpy_dfs(None))
+    print(f"[graph] (d) DFS router alone with max_steps {p_all.max_steps} "
+          f"(the node count) in {u_s:.3f}s: entries equal to the uncapped "
+          f"numpy DFS on {same_u} of {len(Q)} lanes, to the level router's "
+          f"on {int((ent_u == lvl).all(1).sum())}; pops per lane max "
+          f"{int(pops_u.max())}, mean {pops_u.mean():.1f} "
+          f"({u_s / max(1, int(pops_u.max())) * 1e3:.2f} ms a lockstep pop)",
+          flush=True)
+    check(same_u == len(Q), "(d) the uncapped DFS entries differ from "
+          "numpy's")
+    check(int(pops_u.max()) < p_all.max_steps,
+          "(d) a lane reached the node count in pops")
+
+    pc = svc_params["c"]
+    trace_programs("graph pallas_l2", di, pc, Q, lo, hi,
+                   [("graph", np.arange(len(Q)))])
+    # the (c) program's scoring split by CUDA events around the engine's
+    # own scorer and around the ops.l2dist_qc call it makes, over one burst
+    scorer, kern = [], []
+
+    def evented(fn, marks):
+        def call(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            res = fn(*a, **kw)
+            ev[1].record()
+            marks.append(ev)
+            return res
+        return call
+
+    orig, orig_qc = eng._dist_ids_pallas_l2, ops.l2dist_qc
+    eng._dist_ids_pallas_l2 = evented(orig, scorer)
+    ops.l2dist_qc = evented(orig_qc, kern)
+    try:
+        pl = Planner(di, pc)
+        lanes = np.arange(min(256, len(Q)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t_ids2 = pl.search(Q[lanes], lo[lanes], hi[lanes])[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        eng._dist_ids_pallas_l2, ops.l2dist_qc = orig, orig_qc
+    check(np.array_equal(t_ids2, c[0][lanes]),
+          "(c) the event-timed run answered differently")
+    s_ms = sum(e[0].elapsed_time(e[1]) for e in scorer)
+    k_ms = sum(e[0].elapsed_time(e[1]) for e in kern)
+    print(f"[trace] graph pallas_l2 scoring over {len(lanes)} lanes "
+          f"(CUDA events): {len(scorer)} scorer calls in {s_ms:.2f} ms, of "
+          f"which {len(kern)} ops.l2dist_qc calls {k_ms:.2f} ms and the "
+          f"rest (the materialized gather) {s_ms - k_ms:.2f} ms, in a "
+          f"{wall * 1e3:.1f} ms wall", flush=True)
+    check(len(kern) == len(scorer) > 0,
+          "(c) the scorer did not call ops.l2dist_qc once a call")
 
 
 def builder_check(index, di, M: int, seed: int = 0) -> None:

@@ -50,8 +50,11 @@ def _matches(attrs: np.ndarray, lo: np.ndarray, hi: np.ndarray):
     return np.all((attrs >= lo) & (attrs <= hi), axis=-1)
 
 
-def dfs_entries(tree, attrs, lo, hi, c_e: int, scan_budget: int) -> list:
-    """<= c_e entry ids in DFS order for the box [lo, hi]."""
+def dfs_entries(tree, attrs, lo, hi, c_e: int, scan_budget: int,
+                max_steps: int | None = None) -> list:
+    """<= c_e entry ids in DFS order for the box [lo, hi]. With
+    ``max_steps`` the walk stops after that many pops (every pop counts,
+    a scanned node's as an internal node's)."""
     m = attrs.shape[1]
     full = (1 << m) - 1
     root = int(np.nonzero(np.asarray(tree.parent) < 0)[0][0])
@@ -68,7 +71,10 @@ def dfs_entries(tree, attrs, lo, hi, c_e: int, scan_budget: int) -> list:
 
     entries: list = []
     stack = [(root, D0)]
-    while stack and len(entries) < c_e:
+    pops = 0
+    while stack and len(entries) < c_e and (max_steps is None
+                                            or pops < max_steps):
+        pops += 1
         p, D = stack.pop()
         D |= int(tree.bl[p])
         if D == full or int(tree.left[p]) < 0:

@@ -9,7 +9,9 @@ all lanes together: a lane whose frontier is exhausted, or that reached
 merged), and the loop ends when no lane is alive. Everything else keeps
 the reference's fixed-shape formulation and its tie rules:
 
-  * Phase A — ``router.route_level_sync`` (compacted frontier);
+  * Phase A — ``router.route_level_sync`` (compacted frontier), or the
+    legacy per-lane stack DFS ``router.route_dfs`` (``router="dfs"``,
+    graph strategy only);
   * Phase B — the wide frontier: the top-``expand_width`` unexpanded pool
     slots per hop, one fused ``E*H*M`` candidate stream per lane, a
     scatter-max first-occurrence dedup (``seen``), per-expansion ``c_n``
@@ -20,7 +22,13 @@ Scoring goes through the ``Scorer`` registry. ``backend=
 "pallas_gather_l2_filter"`` names the predicate-fused scorer: on the port
 it launches the hand-written CUDA kernel (``kernels/csrc/
 gather_l2_filter.cu``) for CUDA tensors and its plain version on the CPU.
-``backend="jnp"`` is the unfused plain-PyTorch scorer. The strategies
+The unfused backends score the clamped ids and write +inf over the -1
+lanes: ``"jnp"`` in plain PyTorch, ``"pallas_gather_l2"`` with the CUDA
+gather without predicate and ``"pallas_l2"`` with the CUDA expansion
+kernel ``l2dist_qc`` over a materialized ``vecs[ids]`` gather, as the
+reference does; a legacy ``dist_fn(q, rows)`` override takes their
+place. Only the graph strategy takes ``pallas_l2`` and
+``pallas_gather_l2`` (they have no filter form for the scan). The strategies
 ``graph``, ``scan``, ``auto`` and ``hybrid`` are ported, with ``quant``
 in {none, bf16, int8}: a quantized search walks or scans a compressed
 corpus replica (``DeviceIndex.qvecs`` / ``qscale``, DESIGN.md §12) and
@@ -48,7 +56,7 @@ import torch
 
 from . import beam
 from .router import (HostCardEstimator, ROUTERS, required_frontier_cap,
-                     route_level_sync)
+                     resolve_router)
 from .util import pow2_at_least, resolve_device
 from ..kernels import ops as _ops
 from ..kernels import ref as _ref
@@ -57,7 +65,7 @@ from ..kernels.quant import QUANTS, quant_replica
 __all__ = ["DeviceIndex", "SearchParams", "BACKENDS", "ROUTERS",
            "STRATEGIES", "SCAN_BACKENDS", "DEFAULT_SCAN_FRAC", "QUANTS",
            "Scorer", "Plan", "PredicatePlan", "Planner", "device_put_index",
-           "resolve_scorer",
+           "resolve_dist_ids", "resolve_scorer",
            "resolve_scorer_pair", "with_quant_replica", "search_batch",
            "make_search_fn", "required_scan_budget", "required_stack_cap",
            "required_frontier_cap", "derive_search_params",
@@ -267,24 +275,32 @@ def derive_search_params(p: SearchParams, di: DeviceIndex) -> SearchParams:
 def _check_strategy_combo(p: SearchParams) -> None:
     """Reject strategy combinations that cannot execute (the reference's
     rules, word for word in substance)."""
+    unfused = [b for b in BACKENDS if b not in SCAN_BACKENDS]
     if p.strategy in ("scan", "auto", "hybrid") \
             and p.backend not in SCAN_BACKENDS:
         raise ValueError(
             f"strategy={p.strategy!r} is incompatible with backend "
             f"{p.backend!r}: the brute-scan path masks the pass with the "
             f"range predicate, which needs the fused filter kernel "
-            f"('pallas_gather_l2_filter') or the plain mask path ('jnp'). "
+            f"('pallas_gather_l2_filter') or the plain mask path ('jnp'); "
+            f"the unfused pallas backends {unfused} have no filter form. "
             f"Switch backend, or force strategy='graph'.")
     if p.strategy in ("auto", "hybrid") and p.router != "level":
         raise ValueError(
             f"strategy={p.strategy!r} requires router='level' (got "
-            f"{p.router!r}): the DFS router early-stops after c_e entries, "
-            f"so its count sum is not an in-range cardinality bound.")
+            f"{p.router!r}): the DFS router early-stops after c_e entries "
+            f"and never sweeps the full scannable antichain, so its count "
+            f"sum is not an in-range cardinality bound and its visited "
+            f"node set is not the full antichain. Use router='level', or "
+            f"pick the strategy explicitly.")
     if p.quant != "none" and p.backend not in SCAN_BACKENDS:
         raise ValueError(
             f"quant={p.quant!r} is incompatible with backend "
-            f"{p.backend!r}: the quantized score path needs "
-            f"'pallas_gather_l2_filter' or 'jnp'.")
+            f"{p.backend!r}: the quantized score path needs the fused "
+            f"filter kernel ('pallas_gather_l2_filter', which has bf16 and "
+            f"int8 replica forms) or the plain path ('jnp'); the unfused "
+            f"pallas backends {unfused} have no replica form. Switch "
+            f"backend, or set quant='none'.")
 
 
 def validate_search_params(p: SearchParams, di: DeviceIndex, *,
@@ -344,11 +360,62 @@ class Scorer:
         return ((a >= qlo[:, None, :]) & (a <= qhi[:, None, :])).all(-1)
 
 
-def _plain_score(di, q, qlo, qhi, ids):
-    safe = ids.clamp_min(0)
-    diff = di.vecs[safe] - q[:, None, :]
-    d = (diff * diff).sum(-1)
-    return torch.where(ids >= 0, d, torch.full_like(d, _INF))
+def _dist_jnp(q: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """q (..., d), cand (..., C, d) -> (..., C) f32: subtract and square in
+    the corpus dtype, sum in f32 (the reference's ``_dist_jnp``, batched).
+    Also a legacy ``dist_fn(q, rows)`` that any batch shape can call."""
+    diff = cand - q.to(cand.dtype)[..., None, :]
+    return (diff * diff).sum(-1, dtype=torch.float32)
+
+
+# Every unfused backend is fn(vecs (n, d), q (B, d), safe_ids (B, C)) ->
+# (B, C) f32; ids are pre-clamped into range by the caller, which writes
+# +inf over the invalid lanes (garbage rows are fine).
+
+def _dist_ids_jnp(vecs, q, ids):
+    return _dist_jnp(q, vecs[ids])
+
+
+def _dist_ids_pallas_l2(vecs, q, ids):
+    # the reference materializes the gather outside its kernel too: a
+    # (B, C, d) PyTorch index, then the expansion kernel over it
+    rows = vecs[ids]
+    return _ops.l2dist_qc(q, rows)
+
+
+def _dist_ids_gather_l2(vecs, q, ids):
+    # the blocked form, bitwise equal to the row-per-step one
+    return _ops.gather_l2(ids, vecs, q, c_blk=128)
+
+
+def resolve_dist_ids(backend: Optional[str] = None, *,
+                     dist_fn: Optional[Callable] = None) -> Callable:
+    """An *unfused* distance backend as ``fn(vecs, q, ids)``. A legacy
+    ``dist_fn(q, rows)`` wins if given: here ``q`` is (B, d) and ``rows``
+    (B, C, d), and it returns (B, C). The predicate-fused backend has no
+    dist-only form: resolve it with ``resolve_scorer``."""
+    if dist_fn is not None:
+        return lambda vecs, q, ids: dist_fn(q, vecs[ids])
+    backend = backend or "jnp"
+    if backend == "jnp":
+        return _dist_ids_jnp
+    if backend == "pallas_l2":
+        return _dist_ids_pallas_l2
+    if backend == "pallas_gather_l2":
+        return _dist_ids_gather_l2
+    if backend == "pallas_gather_l2_filter":
+        raise ValueError(
+            f"{backend!r} is predicate-fused and has no dist-only form; "
+            f"resolve it with resolve_scorer()")
+    raise ValueError(f"unknown distance backend {backend!r}; "
+                     f"expected one of {BACKENDS}")
+
+
+def _unfused_scorer(name: str, dist_ids: Callable) -> Scorer:
+    def score(di, q, qlo, qhi, ids):
+        d = dist_ids(di.vecs, q, ids.clamp_min(0))
+        return torch.where(ids >= 0, d, torch.full_like(d, _INF))
+    return Scorer(name=name, fused_filter=False, score=score)
 
 
 def _filter_score(di, q, qlo, qhi, ids):
@@ -383,11 +450,18 @@ def _quant_scorer(backend: str, quant: str) -> Scorer:
 
 
 def resolve_scorer(backend: Optional[str] = None, *,
+                   dist_fn: Optional[Callable] = None,
                    quant: str = "none") -> Scorer:
-    """``SearchParams.backend`` as a ``Scorer``. With ``quant`` != "none"
-    the scorer streams the compressed replica and its distances are
+    """``SearchParams.backend`` as a ``Scorer``. A legacy ``dist_fn(q,
+    rows)`` override wins if given (an unfused scorer). With ``quant`` !=
+    "none" the scorer streams the compressed replica and its distances are
     approximate: pair it with the exact scorer (``resolve_scorer_pair``).
     """
+    if dist_fn is not None:
+        if quant != "none":
+            raise ValueError("dist_fn overrides cannot run on the "
+                             "quantized replica; set quant='none'")
+        return _unfused_scorer("dist_fn", resolve_dist_ids(dist_fn=dist_fn))
     backend = backend or "jnp"
     if backend not in BACKENDS:
         raise ValueError(f"unknown scoring backend {backend!r}; "
@@ -399,20 +473,20 @@ def resolve_scorer(backend: Optional[str] = None, *,
             raise ValueError(f"quant={quant!r} requires a backend in "
                              f"{SCAN_BACKENDS}, got {backend!r}")
         return _quant_scorer(backend, quant)
-    if backend == "jnp":
-        return Scorer(name="jnp", fused_filter=False, score=_plain_score)
     if backend == "pallas_gather_l2_filter":
         return Scorer(name=backend, fused_filter=True, score=_filter_score)
-    raise _todo(f"backend={backend!r}", "8")
+    return _unfused_scorer(backend, resolve_dist_ids(backend))
 
 
-def resolve_scorer_pair(p: SearchParams):
+def resolve_scorer_pair(p: SearchParams, *,
+                        dist_fn: Optional[Callable] = None):
     """(loop scorer, exact rerank scorer or None) for ``p``: with a quant
     the loop scores on the replica and the second scorer rescores the
     over-fetched candidates in f32."""
     if p.quant == "none":
-        return resolve_scorer(p.backend), None
-    return resolve_scorer(p.backend, quant=p.quant), resolve_scorer(p.backend)
+        return resolve_scorer(p.backend, dist_fn=dist_fn), None
+    return (resolve_scorer(p.backend, dist_fn=dist_fn, quant=p.quant),
+            resolve_scorer(p.backend))
 
 
 _ID_LAST = np.iinfo(np.int32).max
@@ -451,7 +525,7 @@ def _query_batch(di: DeviceIndex, q: torch.Tensor, qlo: torch.Tensor,
     cap = E * p.c_n
     dev = q.device
 
-    entries, _ = route_level_sync(di, qlo, qhi, p)
+    entries, _ = resolve_router(p.router)(di, qlo, qhi, p)
     e_valid = entries >= 0
     e_dist = scorer.score(di, q, qlo, qhi, entries)
     visited = beam.visited_init(B, n, dev)
@@ -516,21 +590,22 @@ def _query_batch(di: DeviceIndex, q: torch.Tensor, qlo: torch.Tensor,
     return ids_k, dists_k, hops
 
 
-def make_search_fn(p: SearchParams, *, di: Optional[DeviceIndex] = None,
+def make_search_fn(p: SearchParams, *, dist_fn=None,
+                   di: Optional[DeviceIndex] = None,
                    on_undersized: str = "raise"):
     """Graph search over tensors: fn(di, q (B, d), qlo, qhi (B, m)) ->
-    (ids (B, k) int64, dists (B, k) f32, hops (B,) int64). Pass ``di`` to
-    validate the index-dependent bounds up front."""
+    (ids (B, k) int64, dists (B, k) f32, hops (B,) int64). The scorer
+    comes from ``p.backend`` unless a legacy ``dist_fn(q, rows)`` override
+    is given. Pass ``di`` to validate the index-dependent bounds up
+    front."""
     if p.strategy != "graph":
         raise ValueError(
             f"make_search_fn builds the graph program only; strategy="
             f"{p.strategy!r} dispatches per query on the host — build a "
             f"Planner (or call search_batch, which does).")
-    if p.router != "level":
-        raise _todo("router='dfs'", "3")
     if di is not None:
         p = validate_search_params(p, di, on_undersized=on_undersized)
-    scorer, exact = resolve_scorer_pair(p)
+    scorer, exact = resolve_scorer_pair(p, dist_fn=dist_fn)
 
     def search(di: DeviceIndex, q, qlo, qhi):
         if p.quant != "none" and di.qvecs is None:
@@ -550,14 +625,16 @@ def _as_device_index(index, device) -> DeviceIndex:
 
 
 def search_batch(index_or_di, queries: np.ndarray, preds,
-                 params: SearchParams, *, device=None,
+                 params: SearchParams, *, dist_fn=None, device=None,
                  on_undersized: str = "adjust"):
     """Host API: a host index or a DeviceIndex plus a list of
-    ``Predicate``s -> numpy (ids int32, dists, hops int32)."""
+    ``Predicate``s -> numpy (ids int32, dists, hops int32). A legacy
+    ``dist_fn(q, rows)`` overrides the graph path's scorer."""
     di = _as_device_index(index_or_di, device)
     qlo = np.stack([pr.lo for pr in preds]).astype(np.float32)
     qhi = np.stack([pr.hi for pr in preds]).astype(np.float32)
-    planner = Planner(di, params, on_undersized=on_undersized)
+    planner = Planner(di, params, dist_fn=dist_fn,
+                      on_undersized=on_undersized)
     ids, dists, hops, _ = planner.search(queries, qlo, qhi)
     return ids, dists, hops
 
@@ -703,17 +780,16 @@ class Planner:
     of two with empty-box lanes; results scatter back by lane. The
     routing bound comes from ``HostCardEstimator`` through a plan cache
     keyed on the box bytes plus ``plan_salt``. ``search_expr`` serves a
-    predicate expression."""
+    predicate expression. A legacy ``dist_fn(q, rows)`` override
+    changes the graph path's scoring only (the scan is exact)."""
 
-    def __init__(self, index, params: SearchParams, *, device=None,
-                 on_undersized: str = "adjust",
+    def __init__(self, index, params: SearchParams, *, dist_fn=None,
+                 device=None, on_undersized: str = "adjust",
                  plan_cache: Optional["collections.OrderedDict"] = None,
                  plan_salt: bytes = b""):
         di = _as_device_index(index, device)
         self.params = p = validate_search_params(params, di,
                                                  on_undersized=on_undersized)
-        if p.router != "level":
-            raise _todo("router='dfs'", "3")
         # a quantized search streams the replica: derive it here when the
         # caller handed a bare f32 index
         di = _with_replica_for(di, p.quant)
@@ -728,7 +804,7 @@ class Planner:
             < self.n_total
         self._scan_attrs = torch.where(valid[:, None], di.attrs,
                                        torch.full_like(di.attrs, np.nan))
-        self._scorer, self._exact = resolve_scorer_pair(p)
+        self._scorer, self._exact = resolve_scorer_pair(p, dist_fn=dist_fn)
         self._use_kernel = p.backend == "pallas_gather_l2_filter"
         self._estimators = (self._build_estimators()
                             if p.strategy in ("auto", "hybrid") else None)

@@ -23,6 +23,16 @@ stop per node at its first in-range object, its ``count`` or
 are disjoint), so the reference's per-level stable merge of the
 ``c_e`` smallest keys equals one final per-lane selection.
 
+``route_dfs`` is the reference's legacy per-query stack DFS (one node
+pop per step, right child popped first, early stop after ``c_e``
+entries, ``max_steps`` pops or an empty stack), batched: every lane
+holds a ``(stack_cap,)`` stack of ``(node, D)`` pairs, the live lanes
+pop together, and the entry scan of a covered node or a leaf goes
+through the same first-hit window scan as the level router, so no dense
+``(B, scan_budget)`` window is gathered. Its count sum covers only the
+visited prefix of the antichain, so it is no cardinality bound: the
+planner's ``auto`` and ``hybrid`` need the level router.
+
 ``HostCardEstimator`` keeps the reference's closed-form node-parallel
 computation, with torch tensors on a chosen device and lanes processed
 in chunks, so no ``(B, P)`` plane is built whole at a 1M-object shard.
@@ -35,8 +45,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["ROUTERS", "route_level_sync", "HostCardEstimator",
-           "deleted_per_node", "required_frontier_cap"]
+__all__ = ["ROUTERS", "resolve_router", "route_dfs", "route_level_sync",
+           "HostCardEstimator", "deleted_per_node", "required_frontier_cap"]
 
 ROUTERS = ("level", "dfs")
 
@@ -171,6 +181,103 @@ def route_level_sync(di, qlo: torch.Tensor, qhi: torch.Tensor, p):
         sel = rank < p.c_e
         entries[hl[sel], rank[sel]] = he[sel]
     return entries, card
+
+
+def route_dfs(di, qlo: torch.Tensor, qhi: torch.Tensor, p, *,
+              with_steps: bool = False):
+    """(B, m) boxes -> (entries (B, c_e) int64, -1 padded, DFS order;
+    card (B,) int64, the count sum of the scanned nodes the DFS visited,
+    which is not an in-range bound). ``with_steps`` also returns each
+    lane's pop count (B,) int64.
+
+    Each lane runs the reference's loop: pop the top ``(node, D)``, OR in
+    ``bl[node]``; a covered node (``D`` full) or a leaf is scanned for its
+    first in-box object among its first ``scan_budget``; an internal node
+    pushes each child that is not disjoint from the box on the split dim
+    (both, with ``D`` unchanged, when the split dim is covered), left
+    first so the right pops first, and ``D`` gains the split dim's bit
+    for a child the box contains on it. A push past ``stack_cap`` is
+    dropped and the stack pointer clamps at ``stack_cap``. A lane stops at
+    ``c_e`` entries, an empty stack or ``max_steps`` pops; the batch loop
+    ends when every lane has stopped.
+
+    Every step is dense over the batch, with masked writes into a sink
+    column; the entry scans of the step's scanned lanes go through
+    ``_first_hits`` together."""
+    B, m = qlo.shape
+    S = int(p.stack_cap)
+    if S < 1:
+        raise ValueError(f"route_dfs needs stack_cap >= 1, got {S}")
+    full = (1 << m) - 1
+    dev = qlo.device
+    c_e, SB = int(p.c_e), int(p.scan_budget)
+    # column S of the stack and column c_e of the entries take the writes
+    # of lanes that push or find nothing
+    stack_node = torch.full((B, S + 1), -1, dtype=torch.int64, device=dev)
+    stack_D = torch.zeros((B, S + 1), dtype=torch.int64, device=dev)
+    stack_node[:, 0] = int(di.root)
+    stack_D[:, 0] = _root_D0(di, qlo, qhi)
+    sp = torch.ones(B, dtype=torch.int64, device=dev)
+    entries = torch.full((B, c_e + 1), -1, dtype=torch.int64, device=dev)
+    n_e = torch.zeros(B, dtype=torch.int64, device=dev)
+    card = torch.zeros(B, dtype=torch.int64, device=dev)
+    steps = torch.zeros(B, dtype=torch.int64, device=dev)
+    lanes = torch.arange(B, device=dev)
+    sink_s = torch.full((B,), S, dtype=torch.int64, device=dev)
+    sink_e = torch.full((B,), c_e, dtype=torch.int64, device=dev)
+
+    while True:
+        live = (sp > 0) & (n_e < c_e) & (steps < p.max_steps)
+        if not bool(live.any()):
+            break
+        top = (sp - 1).clamp_min(0)
+        node = stack_node[lanes, top].clamp_min(0)
+        D = stack_D[lanes, top] | di.bl[node]
+        do_scan = live & ((D == full) | (di.left[node] < 0))
+        cnt = di.count[node]
+        card.add_(torch.where(do_scan, cnt, torch.zeros_like(cnt)))
+        e = torch.full_like(n_e, -1)
+        sl = torch.nonzero(do_scan).squeeze(1)
+        if sl.numel():
+            e[sl] = _first_hits(di, qlo, qhi, sl, node[sl], SB)
+        got = e >= 0
+        entries[lanes, torch.where(got, n_e, sink_e)] = e
+        n_e.add_(got.to(torch.int64))
+
+        expand = live & ~do_scan
+        dsp = di.dim[node].clamp_min(0)
+        covered = ((D >> dsp) & 1) == 1
+        qlod, qhid = qlo[lanes, dsp], qhi[lanes, dsp]
+        bit = torch.ones_like(D) << dsp
+
+        def push(pc, at):
+            csafe = pc.clamp_min(0)
+            lc, rc = di.lo[csafe, dsp], di.hi[csafe, dsp]
+            disjoint = (lc > qhid) | (rc < qlod)
+            contained = (lc >= qlod) & (rc <= qhid)
+            newD = torch.where(covered | ~contained, D, D | bit)
+            valid = expand & (covered | ~disjoint)
+            col = torch.where(valid & (at < S), at, sink_s)
+            stack_node[lanes, col] = pc
+            stack_D[lanes, col] = newD
+            return at + valid.to(torch.int64)
+
+        at = push(di.left[node], top)
+        at = push(di.right[node], at)
+        sp = torch.where(live, at.clamp_max(S), sp)
+        steps.add_(live.to(torch.int64))
+    if with_steps:
+        return entries[:, :c_e], card, steps
+    return entries[:, :c_e], card
+
+
+def resolve_router(name: str):
+    """Router name -> route(di, qlo, qhi, p) -> (entries, card)."""
+    if name == "level":
+        return route_level_sync
+    if name == "dfs":
+        return route_dfs
+    raise ValueError(f"unknown router {name!r}; expected one of {ROUTERS}")
 
 
 class HostCardEstimator:

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,15 +20,20 @@ from . import _build
 from . import ref as _ref
 
 __all__ = ["LAUNCHES", "reset_launches", "gather_l2_filter",
-           "gather_l2_filter_q8", "scan_topk", "scan_topk_q8",
-           "scan_topk_mask", "scan_topk_windows", "l2dist_qn"]
+           "gather_l2_filter_q8", "gather_l2", "scan_topk", "scan_topk_q8",
+           "scan_topk_mask", "scan_topk_windows", "l2dist", "l2dist_qn",
+           "l2dist_qc"]
 
 # one count per kernel form: the bf16 forms of gather_l2_filter and
-# scan_topk are the same sources instantiated for a bf16 corpus
+# scan_topk are the same sources instantiated for a bf16 corpus, counted
+# apart because the bf16 replica's path runs them; the unfused gathers and
+# l2dist_qc count their bf16 instances with their f32 ones (no served path
+# runs those on a bf16 corpus)
 LAUNCHES = {"gather_l2_filter": 0, "gather_l2_filter_bf16": 0,
-            "gather_l2_filter_q8": 0, "scan_topk": 0, "scan_topk_bf16": 0,
-            "scan_topk_q8": 0, "scan_topk_mask": 0, "scan_topk_windows": 0,
-            "l2dist_qn": 0}
+            "gather_l2_filter_q8": 0, "gather_l2": 0, "gather_l2_rows": 0,
+            "scan_topk": 0, "scan_topk_bf16": 0, "scan_topk_q8": 0,
+            "scan_topk_mask": 0, "scan_topk_windows": 0, "l2dist_qn": 0,
+            "l2dist_qc": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -164,6 +169,47 @@ def gather_l2_filter_q8(idx: torch.Tensor, qcorpus: torch.Tensor,
         return _ref.gather_l2_filter_q8_ref(idx, qcorpus, qscale, attrs, q,
                                             qlo, qhi)
     return _launch_gather("q8", idx, qcorpus, qscale, attrs, q, qlo, qhi)
+
+
+def gather_l2(idx: torch.Tensor, corpus: torch.Tensor, q: torch.Tensor, *,
+              c_blk: Optional[int] = None) -> torch.Tensor:
+    """Fused gather + squared L2 with no predicate: idx (B, C) int32/int64
+    into corpus (N, d) f32 or bf16, q (B, d) f32 -> (B, C) f32
+    ``sum((q - corpus[idx])^2)``, accumulated in f32. Ids must be in range
+    (clamp upstream); one outside [0, N) gives +inf and reads nothing.
+    ``c_blk=None`` runs the row-per-step kernel (one candidate row per
+    block, the reference's validation form); an int runs the blocked
+    kernel (8 rows a block, one query staged per block; the int selects
+    the form, the block shape is the kernel's). Both forms, and
+    ``gather_l2_filter``'s finite lanes on the same ids, are bitwise
+    equal."""
+    kind = _corpus_kind(corpus)
+    dev = _device_of(idx, corpus, q)
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"idx must be int32 or int64, got {idx.dtype}")
+    _check(idx, "idx", idx.dtype, 2)
+    _check(q, "q", torch.float32, 2)
+    B, C = idx.shape
+    N, d = corpus.shape
+    if q.shape != (B, d):
+        raise ValueError(f"gather_l2 shape mismatch: idx {tuple(idx.shape)}, "
+                         f"corpus {tuple(corpus.shape)}, q {tuple(q.shape)}")
+    if c_blk is not None and c_blk < 1:
+        raise ValueError(f"c_blk must be None or >= 1, got {c_blk}")
+    if dev.type == "cpu":
+        return _ref.gather_l2_ref(idx, corpus, q)
+    if B > 65535:
+        raise ValueError(f"gather_l2 takes at most 65535 rows, got {B}")
+    out = torch.empty((B, C), dtype=torch.float32, device=dev)
+    ib = "i64" if idx.dtype == torch.int64 else "i32"
+    name = "gather_l2" if c_blk is not None else "gather_l2_rows"
+    f = _fn("gather_l2_filter", f"{name}_{kind}_{ib}",
+            [_P] * 4 + [_I] * 4 + [_P])
+    rc = f(idx.data_ptr(), corpus.data_ptr(), q.data_ptr(), out.data_ptr(),
+           B, C, N, d, _stream(dev))
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return out
 
 
 def _scan_chunking(B: int, N: int, sms: int) -> Tuple[int, int]:
@@ -375,3 +421,44 @@ def l2dist_qn(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     _raise_on(rc, "l2dist_qn")
     LAUNCHES["l2dist_qn"] += 1
     return out if batched else out[0]
+
+
+def l2dist_qc(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Per-query candidates by the expansion: q (B, d) f32, c (B, C, d)
+    f32 or bf16 (upcast) -> (B, C) f32, the sum over d-tiles of width
+    ``ref.qc_tile_width(d)`` (the reference engine's) of
+    ``|q_t|^2 + |c_t|^2 - 2 q_t.c_t``. Full fp32: no tensor cores."""
+    dev = _device_of(q, c)
+    _check(q, "q", torch.float32, 2)
+    kind = _KIND.get(c.dtype)
+    if kind is None:
+        raise TypeError(f"c must be float32 or bfloat16, got {c.dtype}")
+    _check(c, "c", c.dtype, 3)
+    B, d = q.shape
+    if c.shape[0] != B or c.shape[2] != d:
+        raise ValueError(f"l2dist_qc takes q (B, d) and c (B, C, d), got "
+                         f"{tuple(q.shape)} and {tuple(c.shape)}")
+    if dev.type == "cpu":
+        return _ref.l2dist_qc_ref(q, c)
+    if B > 65535:
+        raise ValueError(f"l2dist_qc takes at most 65535 rows, got {B}")
+    C = c.shape[1]
+    out = torch.empty((B, C), dtype=torch.float32, device=dev)
+    f = _fn("l2dist", f"l2dist_qc_{kind}", [_P] * 3 + [_I] * 4 + [_P])
+    rc = f(q.data_ptr(), c.data_ptr(), out.data_ptr(), B, C, d,
+           _ref.qc_tile_width(d), _stream(dev))
+    _raise_on(rc, "l2dist_qc")
+    LAUNCHES["l2dist_qc"] += 1
+    return out
+
+
+def l2dist(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distances, dispatched on the rank of ``c`` as the
+    reference's ``ops.l2dist``: q (B, d) with c (N, d) -> (B, N) all pairs
+    (``l2dist_qn``); q (B, d) with c (B, C, d) -> (B, C) per-query
+    candidates (``l2dist_qc``)."""
+    if c.dim() == 2:
+        return l2dist_qn(q, c)
+    if c.dim() == 3:
+        return l2dist_qc(q, c)
+    raise ValueError(f"bad candidate rank {c.dim()}")

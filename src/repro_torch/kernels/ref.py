@@ -17,14 +17,16 @@ import torch
 from .quant import dequant_rows
 
 __all__ = ["CALLS", "reset_calls", "lex_smallest", "l2dist_qn_ref",
-           "gather_l2_filter_ref", "scan_topk_ref",
+           "l2dist_qc_ref", "l2dist_qc_direct", "qc_tile_width",
+           "gather_l2_ref", "gather_l2_filter_ref", "scan_topk_ref",
            "gather_l2_filter_q8_ref", "scan_topk_q8_ref",
            "scan_topk_mask_ref", "scan_topk_windows_ref"]
 
 CALLS = {name: {"cpu": 0, "cuda": 0}
          for name in ("gather_l2_filter", "scan_topk", "l2dist_qn",
                       "gather_l2_filter_q8", "scan_topk_q8",
-                      "scan_topk_mask", "scan_topk_windows")}
+                      "scan_topk_mask", "scan_topk_windows", "gather_l2",
+                      "l2dist_qc")}
 
 _INF = float("inf")
 
@@ -96,6 +98,60 @@ def l2dist_qn_ref(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     qs = (q * q).sum(-1, keepdim=True)
     cs = (c * c).sum(-1).unsqueeze(-2)
     return qs + cs - 2.0 * (q @ c.transpose(-1, -2))
+
+
+def qc_tile_width(d: int) -> int:
+    """The d-tile width of the per-candidate expansion: the reference's
+    ``_dist_ids_pallas_l2`` tiles d by ``min(128, ceil8(d))``."""
+    return min(128, -(-d // 8) * 8)
+
+
+def l2dist_qc_ref(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Per-query candidates by the expansion, as the TPU kernel
+    ``l2dist_qc_kernel`` computes it: q (B, d), c (B, C, d) (any float,
+    upcast) -> (B, C) f32, the sum over d-tiles of width
+    ``qc_tile_width(d)`` of ``|q_t|^2 + |c_t|^2 - 2 q_t.c_t``, added
+    tile by tile. The expansion cancels, so it loses digits against the
+    direct form (``l2dist_qc_direct``) where a distance is small next to
+    the norms."""
+    _count("l2dist_qc", c)
+    q = q.to(torch.float32)
+    c = c.to(torch.float32)
+    d = q.shape[-1]
+    td = qc_tile_width(d)
+    out = torch.zeros(c.shape[:-1], dtype=torch.float32, device=c.device)
+    for t0 in range(0, d, td):
+        qt = q[:, t0:t0 + td]
+        ct = c[:, :, t0:t0 + td]
+        qs = (qt * qt).sum(-1, keepdim=True)              # (B, 1)
+        cs = (ct * ct).sum(-1)                            # (B, C)
+        qc = (ct * qt[:, None, :]).sum(-1)                # (B, C)
+        out = out + (qs + cs - 2.0 * qc)
+    return out
+
+
+def l2dist_qc_direct(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The direct form ``sum((c - q)^2)`` of the JAX package's
+    ``ref.l2dist_qc_ref``: q (B, d), c (B, C, d) -> (B, C) f32. An oracle
+    for the tests; no kernel computes it this way."""
+    diff = c.to(torch.float32) - q.to(torch.float32)[:, None, :]
+    return (diff * diff).sum(-1)
+
+
+def gather_l2_ref(idx: torch.Tensor, corpus: torch.Tensor,
+                  q: torch.Tensor) -> torch.Tensor:
+    """Fused gather + squared L2 with no predicate: idx (B, C) into corpus
+    (N, d) f32 or bf16, q (B, d) -> (B, C) f32, ``sum((q - row)^2)`` with
+    the row upcast to f32. The caller clamps ids into range; an id outside
+    [0, N) gives +inf, as in the kernel, which never reads past the
+    corpus."""
+    _count("gather_l2", corpus)
+    N = corpus.shape[0]
+    valid = (idx >= 0) & (idx < N)
+    safe = torch.where(valid, idx, torch.zeros_like(idx)).long()
+    diff = dequant_rows(corpus[safe]) - q.to(torch.float32)[:, None, :]
+    dist = (diff * diff).sum(-1)
+    return torch.where(valid, dist, torch.full_like(dist, _INF))
 
 
 def _gather_l2_filter(idx, N, rows_of, attrs, q, qlo, qhi):

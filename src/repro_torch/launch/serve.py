@@ -8,7 +8,11 @@ PyTorch versions of the kernels on the CPU. ``--backend
 pallas_gather_l2_filter`` is the predicate-fused scorer, which on the port
 is the hand-written CUDA kernel. ``--quant int8`` (or ``bf16``) serves
 from the compressed corpus replica with an exact f32 rerank.
-``--strategy hybrid`` scans each query's small tree nodes as windows
+``--backend pallas_gather_l2`` (the CUDA gather without predicate) and
+``--backend pallas_l2`` (a PyTorch gather, then the CUDA expansion
+kernel) run under ``--strategy graph`` only, as in the reference;
+``--router dfs`` routes with the legacy stack DFS, also under ``--strategy
+graph`` only. ``--strategy hybrid`` scans each query's small tree nodes as windows
 (``--node-scan-threshold`` rows at most) and walks the rest.
 ``--filter-expr 'a0 >= 3 and (a1 in [1, 4] or not a2 <= 0)'`` also serves
 a boolean filter expression through ``KHIService.search_expr`` and checks
@@ -42,7 +46,7 @@ def serve_khi(args):
     params = SearchParams(k=10, ef=args.ef, c_e=10, c_n=16,
                           backend=args.backend,
                           expand_width=args.expand_width,
-                          strategy=args.strategy,
+                          router=args.router, strategy=args.strategy,
                           scan_threshold=args.scan_threshold,
                           quant=args.quant, rerank_mult=args.rerank_mult,
                           node_scan_threshold=args.node_scan_threshold,
@@ -67,7 +71,8 @@ def serve_khi(args):
           f"({len(results)/dt:.0f} QPS end-to-end; "
           f"device {snap['device_qps'] and round(snap['device_qps'])} QPS)")
     print(f"[serve] backend={args.backend} E={args.expand_width} "
-          f"strategy={args.strategy} quant={args.quant} "
+          f"router={args.router} strategy={args.strategy} "
+          f"quant={args.quant} "
           f"batches={snap['batches']} "
           f"scan_lanes={snap['scan_lanes']} pad_lanes={snap['pad_lanes']} "
           f"cache_hits={snap['cache_hits']} "
@@ -119,7 +124,7 @@ def filter_expr_smoke(svc, vecs, attrs, Q, args):
 
 
 def main(argv=None):
-    from repro_torch.core.engine import BACKENDS, QUANTS, STRATEGIES
+    from repro_torch.core.engine import BACKENDS, QUANTS, ROUTERS, STRATEGIES
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["khi"], default="khi")
@@ -130,10 +135,15 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--backend", default="pallas_gather_l2_filter",
                     choices=list(BACKENDS),
-                    help="scoring backend; pallas_gather_l2_filter is the "
-                         "CUDA kernel (its plain version on the CPU)")
+                    help="scoring backend; the pallas_* backends are the "
+                         "CUDA kernels (their plain versions on the CPU); "
+                         "pallas_l2 and pallas_gather_l2 need --strategy "
+                         "graph")
     ap.add_argument("--expand-width", type=int, default=1,
                     help="frontier width E: pool entries expanded per hop")
+    ap.add_argument("--router", default="level", choices=list(ROUTERS),
+                    help="Phase-A tree router (level = batched sweep; dfs = "
+                         "the legacy stack DFS, graph strategy only)")
     ap.add_argument("--strategy", default="auto", choices=list(STRATEGIES),
                     help="graph | scan | auto (per-query dispatch) | "
                          "hybrid (per-node windowed scan + graph walk)")

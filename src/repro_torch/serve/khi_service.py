@@ -90,11 +90,13 @@ class Result:
 
 class KHIService:
     """Micro-batching, caching front-end over one KHI index (a host
-    ``KHIIndex`` or a ``DeviceIndex``) on ``device`` (default ``cuda``)."""
+    ``KHIIndex`` or a ``DeviceIndex``) on ``device`` (default ``cuda``).
+    A legacy ``dist_fn(q, rows)`` overrides the graph path's scorer of
+    every planner the service builds."""
 
     def __init__(self, index, params: Optional[SearchParams] = None, *,
                  config: Optional[ServeConfig] = None, mesh=None,
-                 device=None, on_undersized: str = "adjust",
+                 device=None, dist_fn=None, on_undersized: str = "adjust",
                  tiers: Sequence[SearchParams] = ()):
         if on_undersized not in ("raise", "adjust", "ignore"):
             raise ValueError(f"on_undersized must be raise|adjust|ignore, "
@@ -104,6 +106,7 @@ class KHIService:
         if tiers:
             raise _todo("degradation tiers", "14")
         self._user_params = params or SearchParams()
+        self._legacy_dist_fn = dist_fn
         self._on_undersized = on_undersized
         self._device = device
         self.config = config or ServeConfig()
@@ -165,6 +168,7 @@ class KHIService:
 
     def _build_search_fn(self):
         planner = Planner(self.index, self.params,
+                          dist_fn=self._legacy_dist_fn,
                           on_undersized=self._on_undersized,
                           plan_cache=self._plan_cache,
                           plan_salt=self.epoch.to_bytes(8, "little"))

@@ -130,3 +130,49 @@ def test_cuda_windows_and_mask_kernels_match_plain_versions():
             rids, rdd = ref.scan_topk_mask_ref(corpus, mask, q, k)
             assert torch.equal(ids, rids)
             torch.testing.assert_close(dd, rdd, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_unfused_kernels_match_plain_versions():
+    """The unfused gather in both forms (blocked and row-per-step), f32 and
+    bf16 corpora, int32 and int64 ids, at a d that takes the 16-byte row
+    loads (96) and one that does not (36): within rtol 1e-5, atol 1e-4 of
+    the plain version, the two forms bitwise equal to each other and to
+    gather_l2_filter's lanes under an all-pass box; +inf for ids outside
+    [0, N). l2dist_qc (f32 and bf16 candidates) within rtol 1e-4, atol
+    1e-3 of its plain version (the expansion cancels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    N, m, B, C = 5000, 3, 40, 70
+    for d in (96, 36):
+        corpus = torch.randn((N, d), generator=g, device=dev)
+        attrs = torch.rand((N, m), generator=g, device=dev)
+        q = torch.randn((B, d), generator=g, device=dev)
+        lo = torch.full((B, m), -1.0, device=dev)
+        hi = torch.full((B, m), 2.0, device=dev)
+        idx = torch.randint(0, N, (B, C), generator=g, device=dev)
+        idx[:, ::9] = idx[:, 1::9][:, : idx[:, ::9].shape[1]]
+        for cb in (corpus, corpus.to(torch.bfloat16)):
+            for ids in (idx, idx.to(torch.int32)):
+                rows = ops.gather_l2(ids, cb, q)
+                blk = ops.gather_l2(ids, cb, q, c_blk=128)
+                assert torch.equal(rows, blk)
+                torch.testing.assert_close(blk, ref.gather_l2_ref(ids, cb, q),
+                                           rtol=1e-5, atol=1e-4)
+                assert torch.equal(blk, ops.gather_l2_filter(ids, cb, attrs,
+                                                             q, lo, hi))
+        bad = idx.clone()
+        bad[0, 0], bad[1, 1] = -1, N
+        out = ops.gather_l2(bad, corpus, q, c_blk=128)
+        assert torch.isinf(out[0, 0]) and torch.isinf(out[1, 1])
+        assert torch.isinf(ops.gather_l2(bad, corpus, q)[1, 1])
+        cand = corpus[idx]
+        for c in (cand, cand.to(torch.bfloat16)):
+            torch.testing.assert_close(ops.l2dist_qc(q, c),
+                                       ref.l2dist_qc_ref(q, c),
+                                       rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(ops.l2dist(q, cand),
+                                   ref.l2dist_qc_direct(q, cand),
+                                   rtol=1e-4, atol=1e-3)

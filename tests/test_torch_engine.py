@@ -119,10 +119,17 @@ def test_make_search_fn_and_unported_options(tiny_index):
     di = teng.device_put_index(tiny_index, device="cpu")
     with pytest.raises(ValueError, match="graph program only"):
         teng.make_search_fn(_params(teng, strategy="auto"))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        teng.Planner(di, _params(teng, router="dfs"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        teng.resolve_scorer("pallas_gather_l2")
+    # the DFS router (item 3) and the unfused backends (item 8) run:
+    # tests/test_torch_backends.py holds them to the reference
+    q = np.zeros((2, di.vecs.shape[1]), np.float32)
+    lo = np.full((2, di.attrs.shape[1]), -np.inf, np.float32)
+    hi = np.full((2, di.attrs.shape[1]), np.inf, np.float32)
+    ids, _, hops, _ = teng.Planner(
+        di, _params(teng, router="dfs", backend="pallas_gather_l2")) \
+        .search(q, lo, hi)
+    assert (ids >= 0).all() and (hops > 0).all()
+    for backend in ("pallas_l2", "pallas_gather_l2"):
+        assert teng.resolve_scorer(backend).name == backend
     with pytest.raises(NotImplementedError, match="item 13"):
         teng.Planner(type("Sharded", (), {"offsets": 0, "di": di})(),
                      _params(teng))

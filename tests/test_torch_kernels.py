@@ -5,7 +5,8 @@ counters, and the CUDA build command.
 Tolerances: on 1/32-grid inputs every squared distance is exact in f32
 whatever the reduce order, so distances are compared bit for bit; on
 float inputs the two reduce orders differ, so rtol = atol = 1e-5; the
-l2dist expansion cancels, so rtol 1e-4, atol 1e-3. Ids are always equal.
+l2dist expansion (``l2dist_qn``, ``l2dist_qc``) cancels, so rtol 1e-4,
+atol 1e-3. Ids are always equal.
 """
 
 import numpy as np
@@ -16,7 +17,10 @@ import jax
 import jax.numpy as jnp
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.gather_l2 import gather_l2_blocked_raw, gather_l2_raw
 from repro.kernels.gather_l2_filter import gather_l2_filter_blocked_raw
+from repro.kernels.l2dist import l2dist_qc_raw
 from repro.kernels.scan_topk import scan_topk_raw
 
 from repro_torch.kernels import _build, ops, ref
@@ -134,6 +138,73 @@ def test_l2dist_qn_matches_pallas(shape):
     np.testing.assert_allclose(gb[0], got, rtol=1e-6, atol=1e-5)
 
 
+@pytest.mark.parametrize("grid", [True, False])
+@pytest.mark.parametrize("shape", [(5, 40, 300, 24), (3, 130, 90, 36)])
+def test_gather_l2_matches_pallas(grid, shape):
+    """``gather_l2_ref`` against both Pallas gathers (row-per-step and
+    blocked, which the reference pins bitwise equal), and its lanes
+    against ``gather_l2_filter_ref``'s finite lanes under an all-pass box
+    on the same ids; an id outside [0, N) gives +inf."""
+    B, C, N, d = shape
+    rng = np.random.default_rng(B * C)
+    corpus = _vecs(rng, (N, d), grid)
+    q = _vecs(rng, (B, d), grid)
+    idx = rng.integers(0, N, size=(B, C)).astype(np.int32)
+    idx[:, ::5] = idx[:, 1::5][:, : idx[:, ::5].shape[1]]  # repeated ids
+    rows = jnp.asarray(idx), jnp.asarray(corpus), jnp.asarray(q)
+    want_rows = gather_l2_raw(*rows, interpret=True)
+    want_blk = gather_l2_blocked_raw(*rows, c_blk=16, interpret=True)
+    got = ref.gather_l2_ref(*_t(idx, corpus, q)).numpy()
+    _close(got, want_rows, grid)
+    _close(got, want_blk, grid)
+    attrs = np.zeros((N, 2), np.float32)
+    lo, hi = np.full((B, 2), -1.0, np.float32), np.ones((B, 2), np.float32)
+    filt = ref.gather_l2_filter_ref(*_t(idx, corpus, attrs, q, lo, hi))
+    np.testing.assert_array_equal(got, filt.numpy())
+    bad = idx.copy()
+    bad[0, 0], bad[-1, -1] = -1, N
+    out = ref.gather_l2_ref(*_t(bad, corpus, q)).numpy()
+    assert np.isinf(out[0, 0]) and np.isinf(out[-1, -1])
+    np.testing.assert_array_equal(out[1:-1], got[1:-1])
+
+
+@pytest.mark.parametrize("grid", [True, False])
+@pytest.mark.parametrize("shape", [(4, 40, 24), (2, 130, 300), (3, 9, 768)])
+def test_l2dist_qc_matches_pallas(grid, shape):
+    """Both plain forms of the per-candidate distance against
+    ``l2dist_qc_raw`` (interpret mode, at the reference engine's tiling:
+    one query a step, ``tc = min(128, ceil8(C))``, ``td = min(128,
+    ceil8(d))`` over zero padding) and the JAX package's direct oracle.
+    The expansion cancels: rtol 1e-4, atol 1e-3 on floats; bit-equal on
+    the grid, where every partial sum is exact."""
+    B, C, d = shape
+    rng = np.random.default_rng(C + d)
+    q = _vecs(rng, (B, d), grid)
+    c = _vecs(rng, (B, C, d), grid)
+    tc = min(128, -(-C // 8) * 8)
+    td = ref.qc_tile_width(d)
+    assert td == min(128, -(-d // 8) * 8)
+    Cp, dp = -(-C // tc) * tc, -(-d // td) * td
+    qp = np.zeros((B, dp), np.float32)
+    qp[:, :d] = q
+    cp = np.zeros((B, Cp, dp), np.float32)
+    cp[:, :C, :d] = c
+    want = np.stack([np.asarray(l2dist_qc_raw(
+        jnp.asarray(qp[b:b + 1]), jnp.asarray(cp[b:b + 1]), tb=1, tc=tc,
+        td=td, interpret=True))[0, :C] for b in range(B)])
+    oracle = np.asarray(jref.l2dist_qc_ref(jnp.asarray(q), jnp.asarray(c)))
+    tq, tcand = _t(q, c)
+    got = ref.l2dist_qc_ref(tq, tcand).numpy()
+    direct = ref.l2dist_qc_direct(tq, tcand).numpy()
+    tol = dict(rtol=1e-4, atol=1e-3)
+    _close(got, want, grid, **tol)
+    _close(got, oracle, grid, **tol)
+    _close(direct, want, grid, **tol)
+    _close(direct, oracle, grid)
+    # the public wrapper dispatches a 3-D c to it, at the same tiling
+    np.testing.assert_array_equal(ops.l2dist(tq, tcand).numpy(), got)
+
+
 @pytest.mark.parametrize("width", [50, 20000])
 def test_lex_smallest_is_lax_top_k(width):
     """Ties on a small integer range, narrow rows (keyed path) and wide
@@ -159,19 +230,24 @@ def test_cpu_tensors_run_the_plain_versions_and_count():
     idx = torch.arange(12).reshape(3, 4)
     ops.reset_launches()
     ref.reset_calls()
-    ops.gather_l2_filter(idx, corpus, attrs, q, lo, hi)
+    filt = ops.gather_l2_filter(idx, corpus, attrs, q, lo, hi)
     ids, _ = ops.scan_topk(corpus, attrs, q, lo, hi, k=5)
     ops.l2dist_qn(q, corpus)
     mids, _ = ops.scan_topk_mask(corpus, torch.ones(50), q, k=5)
     wids, _ = ops.scan_topk_windows(
         corpus, attrs, q, lo, hi, torch.zeros((3, 1), dtype=torch.int32),
         torch.full((3, 1), 50, dtype=torch.int32), k=5)
+    rows = ops.gather_l2(idx, corpus, q)
+    blk = ops.gather_l2(idx.to(torch.int32), corpus, q, c_blk=128)
+    qc = ops.l2dist(q, corpus[idx])
     assert ids[:, 0].tolist() == [0, 1, 2]
     assert torch.equal(mids, ids) and torch.equal(wids, ids)
+    assert torch.equal(rows, filt) and torch.equal(blk, filt)
+    torch.testing.assert_close(qc, filt, rtol=1e-4, atol=1e-4)
     assert {k: v["cpu"] for k, v in ref.CALLS.items()} == {
         "gather_l2_filter": 1, "scan_topk": 1, "l2dist_qn": 1,
         "gather_l2_filter_q8": 0, "scan_topk_q8": 0, "scan_topk_mask": 1,
-        "scan_topk_windows": 1}
+        "scan_topk_windows": 1, "gather_l2": 2, "l2dist_qc": 1}
     assert all(v["cuda"] == 0 for v in ref.CALLS.values())
     assert all(v == 0 for v in ops.LAUNCHES.values())
 
@@ -190,6 +266,12 @@ def test_wrappers_refuse_other_devices_without_fallback():
     with pytest.raises(ValueError, match="k must be"):
         ops.scan_topk(cpu, torch.zeros((4, 2)), cpu, torch.zeros((4, 2)),
                       torch.zeros((4, 2)), k=5)
+    with pytest.raises(ValueError, match="gather_l2 shape mismatch"):
+        ops.gather_l2(torch.zeros((3, 2), dtype=torch.int64), cpu, cpu)
+    with pytest.raises(ValueError, match="l2dist_qc takes"):
+        ops.l2dist_qc(cpu, torch.zeros((3, 2, 8)))
+    with pytest.raises(ValueError, match="bad candidate rank"):
+        ops.l2dist(cpu, torch.zeros(8))
 
 
 def test_nvcc_command_targets_sm90a(tmp_path, monkeypatch):

@@ -7,13 +7,16 @@ windowed scan, and the predicate pass's row masks and masked top-k. Ids
 and hops are equal; distances within rtol = atol = 1e-5 (reduce
 order)."""
 
+import dataclasses
 import os
 import sys
 
+import jax
 import numpy as np
 import pytest
 
 from repro.core import engine as jeng
+from repro.core import router as jr
 from repro.core import predicate as jpred
 from repro.core import query_ref as jref
 from repro.core.build_device import build_graphs_device as j_build
@@ -37,6 +40,30 @@ def test_dfs_entries_match_reference(tiny_index, tiny_queries, scan_budget):
                                scan_budget)
         assert got == want
     assert vecs.shape[0] == tiny_index.n
+
+
+@pytest.mark.parametrize("max_steps", [1, 3, 17, 60])
+def test_dfs_entries_pop_cap_matches_reference(tiny_index, tiny_queries,
+                                               max_steps):
+    """With a pop cap the numpy DFS stops where the reference's
+    ``route_dfs`` stops at the same ``max_steps``."""
+    _, preds = tiny_queries
+    di = jeng.device_put_index(tiny_index)
+    p = dataclasses.replace(jeng.derive_search_params(
+        jeng.SearchParams(c_e=10, router="dfs"), di), max_steps=max_steps)
+    lo = np.stack([pr.lo for pr in preds])
+    hi = np.stack([pr.hi for pr in preds])
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda a, b: jr.route_dfs(di, a, b, p)[0]))(lo, hi))
+    cut = 0
+    for i, pr in enumerate(preds):
+        got = sref.dfs_entries(tiny_index.tree, tiny_index.attrs, pr.lo,
+                               pr.hi, 10, p.scan_budget, max_steps)
+        assert got == want[i][want[i] >= 0].tolist()
+        cut += got != sref.dfs_entries(tiny_index.tree, tiny_index.attrs,
+                                       pr.lo, pr.hi, 10, p.scan_budget)
+    if max_steps < 60:
+        assert cut > 0
 
 
 @pytest.mark.parametrize("E", [1, 4])

@@ -1,8 +1,10 @@
-"""The port's compacted level router and chunked cardinality estimator
-against the reference's dense forms: equal entries (ids and order) and
-equal cards, at the derived frontier width and at undersized widths and
-windows (``on_undersized="ignore"``), where both must drop the same
-branches and miss the same entries."""
+"""The port's compacted level router, batched stack DFS and chunked
+cardinality estimator against the reference's dense forms: equal entries
+(ids and order) and equal cards, at the derived frontier width and stack
+depth and at undersized widths, depths, windows and pop budgets
+(``on_undersized="ignore"``), where both must drop the same branches and
+miss the same entries. The DFS is also held to the host twin
+``query_ref.range_filter``."""
 
 import dataclasses
 
@@ -15,6 +17,7 @@ import jax.numpy as jnp
 
 from repro.core import engine as jeng
 from repro.core import router as jr
+from repro.core.query_ref import Predicate as JPredicate, range_filter
 from repro.data import make_queries
 
 from repro_torch.core import engine as teng
@@ -111,3 +114,72 @@ def test_deleted_per_node_and_frontier_cap(tiny_index, both):
         jr.deleted_per_node(t.order, t.start, t.count, rows))
     assert tr.required_frontier_cap(both[1]) == \
         jr.required_frontier_cap(both[0])
+
+
+def _route_dfs(both, lo, hi, p_j, p_t):
+    dj, dt = both
+    fn = jax.jit(jax.vmap(lambda a, b: jr.route_dfs(dj, a, b, p_j)))
+    je, jc = fn(jnp.asarray(lo), jnp.asarray(hi))
+    te, tc, steps = tr.route_dfs(dt, torch.as_tensor(lo),
+                                 torch.as_tensor(hi), p_t, with_steps=True)
+    return (np.asarray(je), np.asarray(jc)), (te.numpy(), tc.numpy()), steps
+
+
+@pytest.mark.parametrize("seed", [0, 100])
+def test_route_dfs_equal_at_derived_params(tiny_index, tiny_data, both,
+                                           seed):
+    """At the derived stack depth and window the DFS gives the reference
+    DFS's entries and count sums, the host twin's entries, and the level
+    router's entries (the reference pins the two routers equal)."""
+    lo, hi = _boxes(tiny_data, seed)
+    p_j = jeng.derive_search_params(jeng.SearchParams(c_e=10,
+                                                      router="dfs"), both[0])
+    p_t = teng.derive_search_params(teng.SearchParams(c_e=10,
+                                                      router="dfs"), both[1])
+    assert (p_t.stack_cap, p_t.scan_budget) == (p_j.stack_cap,
+                                                p_j.scan_budget)
+    (je, jc), (te, tc), steps = _route_dfs(both, lo, hi, p_j, p_t)
+    np.testing.assert_array_equal(te, je)
+    np.testing.assert_array_equal(tc, jc)
+    assert (te[-2] == -1).all() and tc[-2] == 0          # empty box
+    assert (steps < p_t.max_steps).all()
+    for i in range(len(lo)):
+        want = range_filter(tiny_index, JPredicate(lo[i], hi[i]), 10,
+                            scan_budget=p_t.scan_budget)
+        assert te[i][te[i] >= 0].tolist() == want
+    p_lvl = teng.derive_search_params(teng.SearchParams(c_e=10), both[1])
+    le, _ = tr.route_level_sync(both[1], torch.as_tensor(lo),
+                                torch.as_tensor(hi), p_lvl)
+    np.testing.assert_array_equal(te, le.numpy())
+
+
+@pytest.mark.parametrize("stack,budget,steps,c_e",
+                         [(2, 64, 4096, 10), (6, 2, 4096, 10),
+                          (1, 1, 4096, 3), (40, 64, 3, 10),
+                          (3, 8, 17, 25)])
+def test_route_dfs_equal_when_undersized(tiny_data, both, stack, budget,
+                                         steps, c_e):
+    """Undersized stack (pushes past it drop and the pointer clamps),
+    window and pop budget: the same entries and count sums as the
+    reference."""
+    lo, hi = _boxes(tiny_data, 7)
+    kw = dict(c_e=c_e, ef=32, stack_cap=stack, scan_budget=budget,
+              max_steps=steps, router="dfs")
+    p_t = teng.SearchParams(**kw)
+    assert teng.validate_search_params(p_t, both[1],
+                                       on_undersized="ignore") is p_t
+    (je, jc), (te, tc), n_pops = _route_dfs(both, lo, hi,
+                                            jeng.SearchParams(**kw), p_t)
+    np.testing.assert_array_equal(te, je)
+    np.testing.assert_array_equal(tc, jc)
+    assert (n_pops <= steps).all()
+
+
+def test_resolve_router(both):
+    assert tr.resolve_router("level") is tr.route_level_sync
+    assert tr.resolve_router("dfs") is tr.route_dfs
+    with pytest.raises(ValueError, match="unknown router"):
+        tr.resolve_router("bfs")
+    with pytest.raises(ValueError, match="stack_cap >= 1"):
+        tr.route_dfs(both[1], torch.zeros((1, 3)), torch.ones((1, 3)),
+                     teng.SearchParams(stack_cap=0))
