@@ -34,6 +34,12 @@ f32 build + serve, the int8 pass, the bf16 pass, the hybrid pass, the
 predicate pass, each graph configuration) and read after it; the public
 wrappers' rescoring of the graph pass's answers is counted apart.
 
+l2dist_qn (3xTF32 on the tensor cores) is also held to float64 on 64
+sampled rows (its error at most twice the plain fp32 version's) and timed
+at the builder's level-0 block; its SASS must hold TF32 HGMMA; the build
+times each of its calls by CUDA events. The bitmask scan must also equal
+the f32 box scan bit for bit on the mask as a one-attribute box.
+
 Prints one line per phase, a {"kernels": [...]} line, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}. Exits
 non-zero, with no result line, on any failed check or without a GPU.
@@ -57,6 +63,7 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS = 495e12            # H100 SXM TF32 tensor cores, dense
 
 
 def fail(msg: str) -> None:
@@ -69,9 +76,9 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, flops: float = FP32_FLOPS):
     tb = n_bytes / HBM_BYTES_PER_S * 1e3
-    to = n_ops / FP32_FLOPS * 1e3
+    to = n_ops / flops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -269,11 +276,24 @@ def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev, *,
 
     ids, dd = kern_mask()
     rids, rdd = plain_mask()
+    # the unchanged f32 box scan with the mask as its one attribute: the box
+    # [1e-30, +inf] passes exactly the rows whose mask is > 0 (+1 here; -1,
+    # 0 and NaN fail), and both kernels sum each distance in the same order
+    bids, bdd = ops.scan_topk(corpus, mask, q,
+                              torch.full((B, 1), 1e-30, device=dev),
+                              torch.full((B, 1), float("inf"), device=dev),
+                              k=k)
     torch.cuda.synchronize()
+    check(torch.equal(ids, bids) and torch.equal(dd, bdd),
+          f"scan_topk_mask differs from the box scan on the mask as an "
+          f"attribute: ids on {int((ids != bids).sum())} slots, dists on "
+          f"{int((dd != bdd).sum())}")
     same, ties, err = topk_agree("scan_topk_mask", ids, dd, rids, rdd)
     # the mask is read for every row, a vector only for a passing row
     nbytes = n * 4 + n_rows * d * 4 + q.numel() * 4 + B * k * 8
     bms, by = bound_ms(nbytes, n_rows * B * d * 3)
+    # the direct form runs a sub and an fma per (pair, dimension)
+    instr_ms = 2.0 * n_rows * B * d / (FP32_FLOPS / 2) * 1e3
     r = rows["scan_topk_mask"] = dict(
         name="scan_topk_mask", route="cuda", launches=0, source=SCAN_CU,
         replaces=SCAN_TPU + ":241", max_abs_err=err,
@@ -282,10 +302,12 @@ def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev, *,
         bound_ms=bms, bound_by=by, library_ms=time_ms(lib_mask, reps=3))
     print(f"[kernels] scan_topk_mask B={B} N={n} d={d} k={k}: "
           f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, cdist+mask+topk "
-          f"{r['library_ms']:.3f}, bound {bms:.3f} by {by}, {n_rows} rows "
-          f"pass), ids equal on {same} of {ids.numel()} slots ({ties} "
-          f"near-ties), max abs err {err:.3g}", flush=True)
-    del mask, okr
+          f"{r['library_ms']:.3f}, bound {bms:.3f} by {by}, fp32 "
+          f"instruction ceiling {instr_ms:.3f}, {n_rows} rows pass), ids "
+          f"equal on {same} of {ids.numel()} slots ({ties} near-ties), max "
+          f"abs err {err:.3g}; ids and dists equal to the box scan's on the "
+          f"mask as an attribute", flush=True)
+    del mask, okr, bids, bdd
 
     if synthetic_windows:
         # windows as a hybrid planner builds them: per lane a few disjoint
@@ -307,7 +329,10 @@ def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev, *,
                       "synthetic windows")
     del corpus, attrs, qv, qs, cb
 
-    # -- l2dist_qn at (2048, d) x (65536, d)
+    # -- l2dist_qn at (2048, d) x (65536, d): against the plain version
+    # (rtol 1e-4, atol 1e-3: the expansion cancels) and, on 64 sampled
+    # rows against every column, against float64 on the card, where the
+    # kernel's 3xTF32 error must be at most twice the plain fp32 version's
     qa = torch.randn((2048, d), generator=g, device=dev)
     ca = torch.randn((65536, d), generator=g, device=dev)
     got = ops.l2dist_qn(qa, ca)
@@ -316,22 +341,51 @@ def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev, *,
     err = float((got - want).abs().max())
     check(torch.allclose(got, want, rtol=1e-4, atol=1e-3),
           f"l2dist_qn disagrees: max abs err {err}")
-    nbytes = (qa.numel() + ca.numel() + got.numel()) * 4
-    bms, by = bound_ms(nbytes, 2.0 * 2048 * 65536 * d + 2.0 * (2048 + 65536) * d)
-    rows["l2dist_qn"] = dict(
+    pick = torch.randperm(2048, generator=g, device=dev)[:64]
+    q64, c64 = qa[pick].double(), ca.double()
+    t64 = ((q64 * q64).sum(-1, keepdim=True) + (c64 * c64).sum(-1)[None]
+           - 2.0 * (q64 @ c64.T))
+    e64 = float((got[pick].double() - t64).abs().max())
+    p64 = float((want[pick].double() - t64).abs().max())
+    del got, want, q64, c64, t64
+    check(e64 <= 2.0 * p64, f"l2dist_qn's error against float64 {e64:.3g} "
+          f"exceeds twice the plain version's {p64:.3g}")
+    nbytes = (qa.numel() + ca.numel() + 2048 * 65536) * 4
+    mm = 2.0 * 2048 * 65536 * d
+    norms = 2.0 * (2048 + 65536) * d
+    # each product as three TF32 tensor-core products; the norms in fp32
+    bms, by = bound_ms(nbytes, 3 * mm, TF32_FLOPS)
+    bms += norms / FP32_FLOPS * 1e3
+    simt_ms = bound_ms(nbytes, mm + norms)[0]
+    r = rows["l2dist_qn"] = dict(
         name="l2dist_qn", route="cuda", launches=0,
         source="src/repro_torch/kernels/csrc/l2dist.cu",
         replaces="src/repro/kernels/l2dist.py:33",
-        max_abs_err=err,
+        max_abs_err=err, f64_err=e64, plain_f64_err=p64,
         ms=time_ms(lambda: ops.l2dist_qn(qa, ca), reps=10),
         plain_ms=time_ms(lambda: ref.l2dist_qn_ref(qa, ca), reps=10),
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(lambda: torch.cdist(qa, ca), reps=10))
-    print(f"[kernels] l2dist_qn (2048, {d}) x (65536, {d}): "
-          f"{rows['l2dist_qn']['ms']:.3f} ms (plain "
-          f"{rows['l2dist_qn']['plain_ms']:.3f}, cdist "
-          f"{rows['l2dist_qn']['library_ms']:.3f}, bound {bms:.3f} by {by}),"
-          f" max abs err {err:.3g}", flush=True)
+    print(f"[kernels] l2dist_qn (2048, {d}) x (65536, {d}): {r['ms']:.3f} ms "
+          f"(plain {r['plain_ms']:.3f}, cdist {r['library_ms']:.3f}, bound "
+          f"{bms:.3f} by {by} as 3xTF32, {simt_ms:.3f} in fp32 SIMT; "
+          f"{3 * mm / r['ms'] / 1e9:.1f} TFLOP/s of TF32 products), max abs "
+          f"err {err:.3g}; against float64 on 64 rows: {e64:.3g} (plain "
+          f"{p64:.3g})", flush=True)
+    del qa, ca
+    # the builder's level-0 block: (1, 2048, d) rows against the root's n
+    torch.cuda.empty_cache()
+    cl = torch.randn((1, n, d), generator=g, device=dev)
+    ql = cl[:, :2048].contiguous()
+    l0 = time_ms(lambda: ops.l2dist_qn(ql, cl), reps=3)
+    l0_lib = time_ms(lambda: torch.cdist(ql[0], cl[0]), reps=3)
+    l0_bms, l0_by = bound_ms((ql.numel() + cl.numel() + 2048 * n) * 4,
+                             3 * 2.0 * 2048 * n * d, TF32_FLOPS)
+    print(f"[kernels] l2dist_qn level-0 block (1, 2048, {d}) x (1, {n}, {d}):"
+          f" {l0:.3f} ms (cdist {l0_lib:.3f}, bound {l0_bms:.3f} by {l0_by} "
+          f"as 3xTF32)", flush=True)
+    del cl, ql
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -559,11 +613,37 @@ def main_path(n: int, n_full: int, dev, rows: dict) -> None:
     ops.reset_launches()
     ref.reset_calls()
     torch.cuda.synchronize()
+    # each l2dist_qn call of the build between two CUDA events, with its
+    # (G, B, N); one sync at the end
+    l2_calls = []
+    l2dist_qn = ops.l2dist_qn
+
+    def timed_l2dist_qn(q, c):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = l2dist_qn(q, c)
+        b.record()
+        l2_calls.append((q.shape[0] if q.dim() == 3 else 1, q.shape[-2],
+                         c.shape[-2], a, b))
+        return out
+
+    ops.l2dist_qn = timed_l2dist_qn
     t0 = time.perf_counter()
-    index = KHIIndex.build(vecs, attrs, KHIConfig(M=cfg.M, builder="device"),
-                           device=dev, verbose=True)
+    try:
+        index = KHIIndex.build(vecs, attrs,
+                               KHIConfig(M=cfg.M, builder="device"),
+                               device=dev, verbose=True)
+    finally:
+        ops.l2dist_qn = l2dist_qn
     build_s = time.perf_counter() - t0
     check(ops.LAUNCHES["l2dist_qn"] > 0, "the builder never launched l2dist")
+    check(len(l2_calls) == ops.LAUNCHES["l2dist_qn"],
+          "the build called l2dist_qn around the timing shim")
+    torch.cuda.synchronize()
+    print(f"[build] {build_l2dist_split(index.tree, l2_calls, build_s)}",
+          flush=True)
+    del l2_calls
     di = device_put_index(index, device=dev)
     index.nbrs = None
     torch.cuda.synchronize()
@@ -662,6 +742,32 @@ def main_path(n: int, n_full: int, dev, rows: dict) -> None:
     predicate_pass(index, di, params, cfg, Q, sizes, dev, rows)
     graph_pass(index, di, params, cfg, Q, lo, hi, perm >= nq, serve_bursts,
                t_ids, dev, rows)
+
+
+def build_l2dist_split(tree, calls, build_s: float) -> str:
+    """The build's l2dist_qn seconds (CUDA events per call) against its
+    wall seconds, by kind of call: the batched small nodes (every node of
+    a size class padded to C <= 4096 columns) and, per tree level, the
+    row blocks of the large nodes (N = the node's row count; a count that
+    two levels share is reported under both)."""
+    count = np.asarray(tree.count, np.int64)
+    level = np.asarray(tree.level, np.int64)
+    big = np.nonzero(count > 4096)[0]
+    levels = {}
+    for p in big:
+        levels.setdefault(int(count[p]), set()).add(int(level[p]))
+    by, total = {}, 0.0
+    for G, B, N, a, b in calls:
+        s = a.elapsed_time(b) / 1e3
+        total += s
+        key = "small nodes" if N <= 4096 else "L" + "/".join(
+            str(v) for v in sorted(levels.get(N, {-1})))
+        by[key] = by.get(key, 0.0) + s
+    parts = ", ".join(f"{k} {v:.2f}s" for k, v in sorted(
+        by.items(), key=lambda kv: (kv[0] != "small nodes", kv[0][1:].zfill(3))))
+    return (f"l2dist_qn {total:.1f}s of the build's {build_s:.1f}s "
+            f"({100 * total / build_s:.1f}%) over {len(calls)} launches; "
+            f"by kind: {parts}")
 
 
 RECALL_BAR = 0.85   # the bar examples/quickstart.py sets for the reference
@@ -1591,6 +1697,30 @@ def builder_check(index, di, M: int, seed: int = 0) -> None:
           "the builder's graph rows differ from the float64 recomputation")
 
 
+def sass_check(_build) -> None:
+    """The compiled l2dist_qn runs on the tensor cores: its SASS (cuobjdump)
+    holds HGMMA (wgmma) instructions with TF32 operands."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = _build._lib_path("l2dist")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-500:]}")
+    fn, counts, first = None, {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn and "l2dist_qn_kernel" in fn and "HGMMA" in line:
+            counts[fn] = counts.get(fn, 0) + 1
+            # "/*addr*/  HGMMA.64x128x8.F32.TF32 R24, ... ;  /* encoding */"
+            first = first or line.split("*/", 1)[1].split("/*")[0].strip()
+    print(f"[sass] l2dist_qn_kernel instances: HGMMA per instance "
+          f"{sorted(counts.values())}; e.g. {first!r}", flush=True)
+    check(len(counts) == 2 and all(v > 0 for v in counts.values())
+          and first is not None and "TF32" in first,
+          "l2dist_qn's SASS holds no TF32 HGMMA instruction")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -1613,6 +1743,7 @@ def main() -> None:
     print(f"[build] kernels built in {time.perf_counter() - t0:.1f}s "
           f"({json.dumps({k: round(v, 1) for k, v in built.items()})})",
           flush=True)
+    sass_check(_build)
 
     from repro_torch.configs.khi_serve import config
     cfg = config()

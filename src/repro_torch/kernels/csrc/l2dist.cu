@@ -17,22 +17,46 @@
 //
 // Bound on the H100. l2dist_qn: operations. The builder's candidate
 // distances total about 2 * sum_levels sum_nodes |O(p)|^2 * d ~ 4 n^2 d
-// flop (3.1e15 at n=1M, d=768): at least 46 s at the card's 67 TFLOP/s
-// fp32 SIMT rate. Each output element reads 2d inputs, so above a few dozen
-// rows per operand the tile reuse below makes memory irrelevant.
+// flop (3.1e15 at n=1M, d=768). In fp32 on the SIMT units (67 TFLOP/s)
+// that is at least 46 s; this kernel runs each product as three TF32
+// tensor-core products (below), 9.3e15 flop at 495 TFLOP/s, at least 19 s.
+// At chip_smoke.py's (2048, 768) x (65536, 768) block: 2.06e11 flop,
+// 3.079 ms in fp32 SIMT, 1.249 ms as 3xTF32. Each output element reads 2d
+// inputs, so with 128x128 tiles the bytes stay far below the operations
+// (the (1, 2048, 768) x (1, 1M, 768) level-0 block writes 8.4 GB, 2.5 ms
+// at 3.35 TB/s, against ~19.5 ms of 3xTF32 operations).
 // l2dist_qc: bytes. Each candidate row is read once and used once (4 flops
 // per element), so the (B, C, d) block dominates: at the graph strategy's
 // B=256, C=E*c_n=128, d=768 that is 100.7 MB, ~30 us at 3.35 TB/s.
 //
-// Design: l2dist_qn is a shared-memory tiled SIMT fp32 GEMM. A 256-thread
-// block owns a 64x64 output tile and walks d in 32-wide steps; each thread
-// keeps a 4x4 register tile (rows ty + 16i, columns tx + 16j, so the inner
-// loop reads shared memory without bank conflicts). Both operand slabs are
-// stored k-major with one pad column. The row norms come from the same
-// slabs: threads 0..63 accumulate |q_i|^2 and threads 64..127 |c_j|^2
-// while the tile is resident, so the norms cost no extra global traffic.
-// Tensor cores (TF32/bf16) would change the numbers and are left to a later
-// change; this kernel stays full fp32 to match the plain version.
+// Design: l2dist_qn is a 3xTF32 GEMM on the tensor cores by wgmma ("TN":
+// both operands K-contiguous, as wgmma wants TF32). A 256-thread block
+// owns a 128x128 output tile; each of its two warpgroups owns 64 rows and
+// runs wgmma.m64n128k8 with A (q) from registers and B (c) from shared
+// memory. d is walked in 32-wide slabs (one 128-byte row per operand row)
+// through a 5-stage ring fed by cp.async (16-byte copies, zero-filled past
+// the ragged edge of rows and of d; 4-byte copies when d is not a multiple
+// of 4 or a pointer is not 16-byte aligned). B lands in the 128-byte
+// swizzle a wgmma descriptor reads (chunk c of row r at c ^ (r & 7)); A in
+// rows padded to 36 floats, which ldmatrix reads without bank conflicts.
+// Each fp32 value is split hi = tf32_rna(x), lo = tf32_rna(x - hi): B once
+// per slab in shared memory (hi in place, lo beside it; 8 lanes a row, so
+// free of bank conflicts), A in registers after ldmatrix. Each k8 step
+// runs lo*hi, hi*lo, hi*hi (small terms first) into a per-slab partial
+// that the slab's first product starts; after the slab's products end the
+// partial is added to the running sum in fp32. The dropped lo*lo term is
+// 2^-22 of a product, and the promotion keeps the tensor cores' own fp32
+// accumulation (which need not round to nearest) to 12 products at the
+// partial's magnitude: chip_smoke.py holds the result within rtol 1e-4,
+// atol 1e-3 of the plain version and its error against float64 to at most
+// twice the plain version's. One TF32 pass would keep ~3 decimal digits
+// and change the builder's graph decisions. The row norms come from the
+// same slabs in fp32 (each slab's 32 squares, then a compensated running
+// sum), so they cost no extra global traffic; the epilogue writes
+// (|q|^2 + |c|^2) - 2 q.c with 8-byte stores when N is even. Blocks are
+// numbered row tile fastest, so the blocks in flight share one candidate
+// tile and a level-0 block reads the 1M candidates from memory about once.
+// A warpgroup whose 64 rows lie wholly past B skips its products.
 //
 // l2dist_qc gives one warp to each candidate row, 8 warps a block over
 // candidates of one query, the query row and its per-tile |q_t|^2 staged in
@@ -49,80 +73,374 @@
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 32;
+constexpr int QN_BM = 128, QN_BN = 128, QN_BK = 32, QN_ALD = QN_BK + 4;
 
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x = hi + lo with hi, lo TF32 (round to nearest, ties away from zero).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float r = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+}
+
+// Four 8x4 f32 matrices (8 rows of 16 bytes each, row addresses from lanes
+// 8i..8i+7 for matrix i); lane (g, t) gets row g, word t of each.
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const float* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// One 128-row x 32-wide slab of rows [r0, r0 + 128) of x (rows < nrows,
+// row length d) into dst (128 rows of QN_ALD floats: the padding puts the
+// 8 rows an ldmatrix reads in distinct banks), zero past either edge.
+template <bool VEC>
+__device__ __forceinline__ void qn_load(float* dst, const float* x, int r0,
+                                        int nrows, int k0, int d, int tid) {
+  if (VEC) {
+#pragma unroll
+    for (int i = 0; i < (QN_BM * QN_BK / 4) / 256; ++i) {
+      const int e = tid + i * 256;
+      const int r = e >> 3, c4 = (e & 7) * 4;
+      const int gr = r0 + r, gk = k0 + c4;
+      int bytes = (d - gk) * 4;
+      bytes = gr < nrows ? (bytes < 0 ? 0 : (bytes > 16 ? 16 : bytes)) : 0;
+      cp_async16(dst + r * QN_ALD + c4,
+                 bytes ? x + (size_t)gr * d + gk : x, bytes);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < (QN_BM * QN_BK) / 256; ++i) {
+      const int e = tid + i * 256;
+      const int r = e >> 5, c = e & 31;
+      const int gr = r0 + r, gk = k0 + c;
+      const bool in = gr < nrows && gk < d;
+      cp_async4(dst + r * QN_ALD + c, in ? x + (size_t)gr * d + gk : x,
+                in ? 4 : 0);
+    }
+  }
+}
+
+constexpr int QN_A = QN_BM * QN_ALD;               // floats
+constexpr int QN_B = QN_BN * QN_BK;                // floats, 128B-swizzled
+constexpr int QN_STAGE = QN_A + QN_B;              // 34816 bytes
+constexpr int QN_STAGES = 5, QN_AHEAD = QN_STAGES - 1;
+// the stages, B's lo tile, the norms, and room to align to 1024 bytes
+constexpr int QN_SMEM =
+    (QN_STAGES * QN_STAGE + QN_B + QN_BM + QN_BN) * (int)sizeof(float) + 1024;
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void reg_fence(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ void reg_fence(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// K-major, 128-byte swizzle, 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t qn_desc(const float* p) {
+  const uint64_t a = (uint64_t)__cvta_generic_to_shared(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// d (64 x 128 slice, f32) = [d +] a (64 x 8 TF32, registers) * b (8 x 128
+// TF32, K-major in shared memory).
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a,
+                                           uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+// Slab of 128 rows x 32 of x into dst, row r's 16-byte chunk c at chunk
+// c ^ (r & 7) of its 128-byte row (the wgmma operand layout).
+template <bool VEC>
+__device__ __forceinline__ void qn_load_sw(float* dst, const float* x,
+                                           int r0, int nrows, int k0, int d,
+                                           int tid) {
+  if (VEC) {
+#pragma unroll
+    for (int i = 0; i < (QN_BN * QN_BK / 4) / 256; ++i) {
+      const int e = tid + i * 256;
+      const int r = e >> 3, c = e & 7;
+      const int gr = r0 + r, gk = k0 + c * 4;
+      int bytes = (d - gk) * 4;
+      bytes = gr < nrows ? (bytes < 0 ? 0 : (bytes > 16 ? 16 : bytes)) : 0;
+      cp_async16(dst + r * QN_BK + ((c ^ (r & 7)) << 2),
+                 bytes ? x + (size_t)gr * d + gk : x, bytes);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < (QN_BN * QN_BK) / 256; ++i) {
+      const int e = tid + i * 256;
+      const int r = e >> 5, k = e & 31;
+      const int gr = r0 + r, gk = k0 + k;
+      const bool in = gr < nrows && gk < d;
+      cp_async4(dst + r * QN_BK + ((((k >> 2) ^ (r & 7)) << 2) | (k & 3)),
+                in ? x + (size_t)gr * d + gk : x, in ? 4 : 0);
+    }
+  }
+}
+
+__device__ __forceinline__ float4 as_float4(const uint32_t (&u)[4]) {
+  return make_float4(__uint_as_float(u[0]), __uint_as_float(u[1]),
+                     __uint_as_float(u[2]), __uint_as_float(u[3]));
+}
+
+__device__ __forceinline__ float sumsq(float4 v) {
+  return (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
+}
+
+// The sum of v over the 8 lanes of an aligned group.
+__device__ __forceinline__ float sum8(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v + __shfl_xor_sync(0xffffffffu, v, 4);
+}
+
+// Compensated running sum: nacc += v.
+__device__ __forceinline__ void kahan_add(float& nacc, float& ncomp,
+                                          float v) {
+  const float y = v - ncomp;
+  const float t = nacc + y;
+  ncomp = (t - nacc) - y;
+  nacc = t;
+}
+
+// Grid (row tiles * column tiles, 1, G), row tile fastest; 256 threads.
+template <bool VEC>
+__global__ void __launch_bounds__(256, 1)
 l2dist_qn_kernel(const float* __restrict__ q, const float* __restrict__ c,
-                 float* __restrict__ out, int B, int N, int d,
+                 float* __restrict__ out, int B, int N, int d, int mtiles,
                  long long q_bs, long long c_bs, long long o_bs) {
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN + 1];
-  __shared__ float qn[BM];
-  __shared__ float cn[BN];
+  extern __shared__ float4 qn_smem4[];
+  float* smem = reinterpret_cast<float*>(qn_smem4);
+  {  // the swizzled tiles need 1024-byte alignment
+    const unsigned a = (unsigned)__cvta_generic_to_shared(smem);
+    smem += ((1024u - (a & 1023u)) & 1023u) / 4;
+  }
+  float* blo = smem + QN_STAGES * QN_STAGE;        // B's lo tile
+  float* qn = blo + QN_B;
+  float* cn = qn + QN_BM;
 
   const int g = blockIdx.z;
   q += g * q_bs;
   c += g * c_bs;
   out += g * o_bs;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+  const int m0 = (int)(blockIdx.x % (unsigned)mtiles) * QN_BM;
+  const int n0 = (int)(blockIdx.x / (unsigned)mtiles) * QN_BN;
   const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wm = (warp >> 2) * 64 + (warp & 3) * 16;   // this warp's rows
+  const bool live = m0 + (warp >> 2) * 64 < B;         // the warpgroup's
+  // the split pass: chunk tid & 7 of rows (tid >> 3) + 32 i, i < 4
+  const int sc = tid & 7, sr = tid >> 3;
 
-  float acc[4][4];
+  float acc[64], part[64];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float qacc[4], qcomp[4], cacc[4], ccomp[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float nacc = 0.f;
+  for (int i = 0; i < 4; ++i) qacc[i] = qcomp[i] = cacc[i] = ccomp[i] = 0.f;
+  uint32_t ah[4][4], al[4][4];
 
-  for (int k0 = 0; k0 < d; k0 += BK) {
+  const int nk = (d + QN_BK - 1) / QN_BK;
 #pragma unroll
-    for (int s = 0; s < (BM * BK) / 256; ++s) {
-      const int e = tid + s * 256;
-      const int r = e / BK, col = e % BK;
-      const int gk = k0 + col;
-      const int gm = m0 + r, gn = n0 + r;
-      As[col][r] = (gm < B && gk < d) ? q[(size_t)gm * d + gk] : 0.f;
-      Bs[col][r] = (gn < N && gk < d) ? c[(size_t)gn * d + gk] : 0.f;
+  for (int s = 0; s < QN_AHEAD; ++s) {
+    if (s < nk) {
+      float* st = smem + s * QN_STAGE;
+      qn_load<VEC>(st, q, m0, B, s * QN_BK, d, tid);
+      qn_load_sw<VEC>(st + QN_A, c, n0, N, s * QN_BK, d, tid);
     }
-    __syncthreads();
-    if (tid < BM) {
-#pragma unroll 8
-      for (int k = 0; k < BK; ++k) nacc = fmaf(As[k][tid], As[k][tid], nacc);
-    } else if (tid < BM + BN) {
-      const int r = tid - BM;
-#pragma unroll 8
-      for (int k = 0; k < BK; ++k) nacc = fmaf(Bs[k][r], Bs[k][r], nacc);
-    }
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    cp_async_commit();
   }
-  if (tid < BM) qn[tid] = nacc;
-  else if (tid < BM + BN) cn[tid - BM] = nacc;
-  __syncthreads();
 
+  // Slab j lands (slab j - 1's products are done); slab j + QN_AHEAD is
+  // requested into the stage slab j - 1 used; B is split in place into hi
+  // with lo into blo, and the norms take the slab. Eight lanes read one
+  // 128-byte row, so the pass is free of bank conflicts.
+  auto prep = [&](int j) {
+    cp_async_wait<QN_AHEAD - 1>();
+    __syncthreads();
+    const int nx = j + QN_AHEAD;
+    if (nx < nk) {
+      float* st = smem + (nx % QN_STAGES) * QN_STAGE;
+      qn_load<VEC>(st, q, m0, B, nx * QN_BK, d, tid);
+      qn_load_sw<VEC>(st + QN_A, c, n0, N, nx * QN_BK, d, tid);
+    }
+    cp_async_commit();
+    const float* As = smem + (j % QN_STAGES) * QN_STAGE;
+    float4* Bs = reinterpret_cast<float4*>(smem + (j % QN_STAGES) * QN_STAGE +
+                                           QN_A);
+    float4* Bl = reinterpret_cast<float4*>(blo);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty + 16 * i;
+    for (int i = 0; i < 4; ++i) {
+      const int r = sr + 32 * i;
+      const float a = sum8(sumsq(
+          *reinterpret_cast<const float4*>(As + r * QN_ALD + sc * 4)));
+      const float4 v = Bs[r * 8 + sc];
+      const float b = sum8(sumsq(v));
+      uint32_t hi[4], lo[4];
+      split_tf32(v.x, hi[0], lo[0]);
+      split_tf32(v.y, hi[1], lo[1]);
+      split_tf32(v.z, hi[2], lo[2]);
+      split_tf32(v.w, hi[3], lo[3]);
+      Bs[r * 8 + sc] = as_float4(hi);
+      Bl[r * 8 + sc] = as_float4(lo);
+      kahan_add(qacc[i], qcomp[i], a);
+      kahan_add(cacc[i], ccomp[i], b);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+  };
+  // this warp's A fragments of slab j, split into TF32 hi + lo
+  auto afrag = [&](int j) {
+    const float* As = smem + (j % QN_STAGES) * QN_STAGE;
+    const int lr = lane & 7, li = lane >> 3;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t r[4];
+      ldsm_x4(r, As + (wm + (li & 1) * 8 + lr) * QN_ALD + ks * 8 +
+                     4 * (li >> 1));
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        split_tf32(__uint_as_float(r[x]), ah[ks][x], al[ks][x]);
+    }
+  };
+
+  if (nk > 0) {
+    prep(0);
+    if (live) afrag(0);
+  }
+  for (int j = 0; j < nk; ++j) {
+    if (live) {
+      const uint64_t dh = qn_desc(smem + (j % QN_STAGES) * QN_STAGE + QN_A);
+      const uint64_t dl = qn_desc(blo);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) reg_fence(part[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        // lo*hi + hi*lo + hi*hi, small terms first, into a partial that
+        // the slab's first product starts (scale-d 0); the descriptor's
+        // address field counts 16 bytes, so a k8 step is 2
+        wgmma_tf32(part, al[ks], dh + 2 * ks, ks);
+        wgmma_tf32(part, ah[ks], dl + 2 * ks, 1);
+        wgmma_tf32(part, ah[ks], dh + 2 * ks, 1);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) reg_fence(part[i]);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          reg_fence(ah[ks][x]);
+          reg_fence(al[ks][x]);
+        }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    }
+    if (j + 1 < nk) {
+      prep(j + 1);
+      if (live) afrag(j + 1);
+    }
+  }
+  cp_async_wait<0>();
+  if (sc == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qn[sr + 32 * i] = qacc[i];
+      cn[sr + 32 * i] = cacc[i];
+    }
+  }
+  __syncthreads();
+  if (!live) return;
+
+  // the accumulator layout: warp w of the warpgroup holds rows 16 w + g and
+  // 16 w + g + 8, columns 8 j + 2 t and 8 j + 2 t + 1 of each n8 block j
+  const int gq = lane >> 2, tq = lane & 3;
+  const bool pair = (N & 1) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int lrow = wm + gq + 8 * h;
+    const int gm = m0 + lrow;
     if (gm >= B) continue;
+    float* orow = out + (size_t)gm * N;
+    const float qv = qn[lrow];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < N)
-        out[(size_t)gm * N + gn] =
-            (qn[ty + 16 * i] + cn[tx + 16 * j]) - 2.f * acc[i][j];
+    for (int j = 0; j < 16; ++j) {
+      const int lc = j * 8 + 2 * tq;
+      const int gn = n0 + lc;
+      const float v0 = (qv + cn[lc]) - 2.f * acc[4 * j + 2 * h];
+      const float v1 = (qv + cn[lc + 1]) - 2.f * acc[4 * j + 2 * h + 1];
+      if (pair && gn + 1 < N) {
+        *reinterpret_cast<float2*>(orow + gn) = make_float2(v0, v1);
+      } else {
+        if (gn < N) orow[gn] = v0;
+        if (gn + 1 < N) orow[gn + 1] = v1;
+      }
     }
   }
 }
@@ -207,15 +525,25 @@ int launch_qc(const void* q, const void* c, void* out, int B, int C, int d,
 
 }  // namespace
 
+// q (G, B, d), c (G, N, d), out (G, B, N), batch strides in elements.
 extern "C" int l2dist_qn_f32(const void* q, const void* c, void* out, int G,
                              int B, int N, int d, long long q_bs,
                              long long c_bs, long long o_bs, void* stream) {
   if (G == 0 || B == 0 || N == 0) return 0;
-  if (G > 65535) return (int)cudaErrorInvalidConfiguration;
-  dim3 grid((N + BN - 1) / BN, (B + BM - 1) / BM, G);
-  l2dist_qn_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)c, (float*)out, B, N, d, q_bs, c_bs,
-      o_bs);
+  const long long mtiles = (B + QN_BM - 1) / QN_BM;
+  const long long tiles = mtiles * ((N + QN_BN - 1) / QN_BN);
+  if (G > 65535 || tiles > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  const bool vec = d % 4 == 0 && ((uintptr_t)q & 15) == 0 &&
+                   ((uintptr_t)c & 15) == 0;
+  auto kern = vec ? l2dist_qn_kernel<true> : l2dist_qn_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, QN_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((unsigned)tiles, 1, G);
+  kern<<<grid, 256, QN_SMEM, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)c, (float*)out, B, N, d, (int)mtiles,
+      q_bs, c_bs, o_bs);
   return (int)cudaGetLastError();
 }
 

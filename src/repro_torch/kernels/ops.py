@@ -11,7 +11,6 @@ kernel launches, one per wrapper call that reached the card.
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Optional, Tuple
 
 import torch
@@ -222,6 +221,24 @@ def _scan_chunking(B: int, N: int, sms: int) -> Tuple[int, int]:
     return rows, -(-N // rows)
 
 
+# the bitmask scan's first pass: queries and rows a block owns per tile
+# (scan_topk.cu MQ, MR); they set only how many chunks the grid has
+MASK_QUERY_TILE = 128
+MASK_ROW_TILE = 64
+
+
+def _mask_chunking(B: int, N: int, sms: int) -> int:
+    """Chunks of the bitmask scan's first pass: about eight blocks per SM
+    across all 128-query tiles, and no chunk without a row when all N rows
+    pass. The kernel splits the real passing count evenly over them, in
+    64-row tiles."""
+    qtiles = -(-B // MASK_QUERY_TILE)
+    want = max(1, min(-(-N // MASK_ROW_TILE), -(-8 * sms // qtiles)))
+    rows = -(-N // want)
+    rows = -(-rows // MASK_ROW_TILE) * MASK_ROW_TILE
+    return -(-N // rows)             # <= 8 * sms: grid y <= 65535
+
+
 def _check_scan(corpus, attrs, q, qlo, qhi, k) -> torch.device:
     dev = _device_of(corpus, attrs, q, qlo, qhi)
     N, d = corpus.shape
@@ -318,12 +335,15 @@ def scan_topk_mask(corpus: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"the scan kernel takes k <= 64, got {k}")
     B = q.shape[0]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows, nchunks = _scan_chunking(B, N, sms)
+    nchunks = _mask_chunking(B, N, sms)
     part_d, part_i, ids, dists = _scan_buffers(B, nchunks, k, dev)
-    f = _fn("scan_topk", "scan_topk_mask_f32", [_P] * 7 + [_I] * 6 + [_P])
+    # the compacted row list, the per-segment counts and the list's length
+    scratch = torch.empty(2 * N + 1, dtype=torch.int32, device=dev)
+    f = _fn("scan_topk", "scan_topk_mask_f32", [_P] * 8 + [_I] * 5 + [_P])
     rc = f(corpus.data_ptr(), mask.data_ptr(), q.data_ptr(),
-           part_d.data_ptr(), part_i.data_ptr(), ids.data_ptr(),
-           dists.data_ptr(), B, N, d, k, rows, nchunks, _stream(dev))
+           scratch.data_ptr(), part_d.data_ptr(), part_i.data_ptr(),
+           ids.data_ptr(), dists.data_ptr(), B, N, d, k, nchunks,
+           _stream(dev))
     _raise_on(rc, "scan_topk_mask")
     LAUNCHES["scan_topk_mask"] += 1
     return ids, dists
@@ -395,7 +415,9 @@ def scan_topk_windows(corpus: torch.Tensor, attrs: torch.Tensor,
 
 def l2dist_qn(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """All-pairs squared L2 by the expansion: q (B, d), c (N, d) ->
-    (B, N), or batched q (G, B, d), c (G, N, d) -> (G, B, N); f32."""
+    (B, N), or batched q (G, B, d), c (G, N, d) -> (G, B, N); f32. The
+    kernel runs each product as three TF32 tensor-core products (hi/lo
+    split), within rtol 1e-4, atol 1e-3 of the plain fp32 version."""
     dev = _device_of(q, c)
     if q.dim() != c.dim() or q.dim() not in (2, 3):
         raise ValueError(f"l2dist_qn takes (B, d) x (N, d) or batched "
@@ -412,8 +434,10 @@ def l2dist_qn(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     N = cb.shape[1]
     if dev.type == "cpu":
         return _ref.l2dist_qn_ref(q, c)
-    if G > 65535 or math.ceil(B / 64) > 65535:
-        raise ValueError("l2dist_qn grid too large: split the batch")
+    if G > 65535 or -(-B // 128) * -(-N // 128) > 2**31 - 1:
+        raise ValueError(f"l2dist_qn grid too large (G={G} batches of "
+                         f"{B} x {N}, at most 65535 batches of 2^31 - 1 "
+                         f"128 x 128 tiles): split the batch")
     out = torch.empty((G, B, N), dtype=torch.float32, device=dev)
     f = _fn("l2dist", "l2dist_qn_f32", [_P] * 3 + [_I] * 4 + [_L] * 3 + [_P])
     rc = f(qb.data_ptr(), cb.data_ptr(), out.data_ptr(), G, B, N, d,

@@ -176,3 +176,95 @@ def test_cuda_unfused_kernels_match_plain_versions():
         torch.testing.assert_close(ops.l2dist(q, cand),
                                    ref.l2dist_qc_direct(q, cand),
                                    rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_cuda_l2dist_qn_ragged_shapes():
+    """l2dist_qn (3xTF32 on the tensor cores) against its plain version at
+    shapes that fill no 128 x 128 tile and d that is not a multiple of 4 or
+    of the 32-wide slab: d in {1, 33, 96, 768}, B and N in {1, 7, 130,
+    5000}, G in {1, 3} (the builder's batched form; G = 1 as the 2-D form).
+    Tolerance rtol 1e-4, atol 1e-3 (the expansion cancels). For d in {33,
+    768} (4-byte loads with a partial last slab; 16-byte loads) and B, N in
+    {130, 5000}, also against float64 on the card: the kernel's max abs
+    error is at most twice the plain fp32 version's, which a lost lo term
+    or a missing per-slab promotion breaks. A grid of more than 65535
+    batches raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    for d in (1, 33, 96, 768):
+        for B in (1, 7, 130, 5000):
+            for N in (1, 7, 130, 5000):
+                for G in (1, 3):
+                    q = torch.randn((G, B, d), generator=g, device=dev)
+                    c = torch.randn((G, N, d), generator=g, device=dev)
+                    if G == 1:
+                        q, c = q[0], c[0]
+                    got = ops.l2dist_qn(q, c)
+                    want = ref.l2dist_qn_ref(q, c)
+                    torch.testing.assert_close(got, want, rtol=1e-4,
+                                               atol=1e-3)
+                    if d in (33, 768) and B >= 130 and N >= 130:
+                        q64, c64 = q.double(), c.double()
+                        t64 = ((q64 * q64).sum(-1)[..., :, None]
+                               + (c64 * c64).sum(-1)[..., None, :]
+                               - 2.0 * (q64 @ c64.transpose(-1, -2)))
+                        e64 = float((got.double() - t64).abs().max())
+                        p64 = float((want.double() - t64).abs().max())
+                        assert e64 <= 2.0 * p64, (d, B, N, G, e64, p64)
+    z = torch.zeros((65536, 1, 1), device=dev)
+    with pytest.raises(ValueError, match="grid too large"):
+        ops.l2dist_qn(z, z)
+
+
+@pytest.mark.gpu
+def test_cuda_mask_scan_compaction():
+    """The bitmask scan (compaction, then pass 1 over the passing rows)
+    against its plain version for k in {1, 10, 64}, with masks that are
+    empty, all-pass, dense in one region, sparser than k, and random (NaN,
+    zero and negative values fail), one and two 128-query tiles, at a d
+    that takes the 16-byte loads (96) and one that does not (33). Ids and
+    distances equal bit for bit to the f32 box scan's over the mask as its
+    one attribute with the box [1e-30, +inf]; against the plain version,
+    distances within rtol 1e-5, atol 1e-4 (reduce order) and ids equal
+    except on near-ties (distances within 1e-5 relative), as
+    chip_smoke.py's topk_agree."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    N = 20000
+    rows = torch.arange(N, device=dev)
+    for d in (96, 33):
+        corpus = torch.randn((N, d), generator=g, device=dev)
+        rand = torch.rand((N, 1), generator=g, device=dev) - 0.4
+        rand[::31] = float("nan")
+        rand[::37] = 0.0
+        few = torch.zeros((N, 1), device=dev)
+        few[[5, 77, 19999]] = 2.0
+        masks = {"empty": torch.full((N, 1), -1.0, device=dev),
+                 "all": torch.ones((N, 1), device=dev),
+                 "region": ((rows >= 12000) & (rows < 15000)).float()
+                 [:, None].contiguous(),
+                 "few": few, "random": rand}
+        for B in (9, 200):
+            q = torch.randn((B, d), generator=g, device=dev)
+            lo = torch.full((B, 1), 1e-30, device=dev)
+            hi = torch.full((B, 1), float("inf"), device=dev)
+            for name, mask in masks.items():
+                for k in (1, 10, 64):
+                    ids, dd = ops.scan_topk_mask(corpus, mask, q, k=k)
+                    bids, bdd = ops.scan_topk(corpus, mask, q, lo, hi, k=k)
+                    assert torch.equal(ids, bids) and torch.equal(dd, bdd), \
+                        (name, B, k)
+                    rids, rdd = ref.scan_topk_mask_ref(corpus, mask, q, k)
+                    torch.testing.assert_close(dd, rdd, rtol=1e-5,
+                                               atol=1e-4)
+                    # ids equal wherever the two distances are not a
+                    # near-tie that the two sum orders may break apart
+                    near = (dd - rdd).abs() <= 1e-5 * rdd.abs().clamp_min(1)
+                    assert bool(((ids == rids) | near).all()), (name, B, k)
+            assert bool((ops.scan_topk_mask(corpus, masks["empty"], q,
+                                            k=10)[0] == -1).all())
