@@ -243,6 +243,11 @@ def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev, *,
         # the int8 form also scales each row element once
         bms, by = bound_ms(nbytes, n_pairs * d * ops_per
                            + (n * d if name.endswith("q8") else 0))
+        empty, sparse, dense = ops.SCAN_TILES[name].tolist()
+        # the direct form runs a sub and an fma per (passing pair,
+        # dimension), the int8 form also a multiply per row element
+        instr_ms = (2.0 * n_pairs * d + (n * d if name.endswith("q8") else 0)
+                    ) / (FP32_FLOPS / 2) * 1e3
         r = rows[name] = dict(
             name=name, route="cuda", launches=0, source=SCAN_CU,
             replaces=SCAN_TPU + line, max_abs_err=err,
@@ -251,10 +256,13 @@ def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev, *,
             bound_ms=bms, bound_by=by, library_ms=time_ms(lib, reps=3))
         print(f"[kernels] {name} B={B} N={n} d={d} k={kk}: {r['ms']:.3f} ms "
               f"(plain {r['plain_ms']:.3f}, dequantize+cdist+mask+topk "
-              f"{r['library_ms']:.3f}, bound {bms:.3f} by {by}, {n_pairs} "
-              f"passing pairs), ids equal on {same} of {ids.numel()} "
-              f"slots ({ties} near-ties), max abs err {err:.3g}",
-              flush=True)
+              f"{r['library_ms']:.3f}, bound {bms:.3f} by {by}, fp32 "
+              f"instruction ceiling {instr_ms:.3f}, {n_pairs} passing "
+              f"pairs; tiles: {dense / (empty + sparse + dense):.4f} dense, "
+              f"{sparse} sparse, {empty} empty), ids equal on {same} of "
+              f"{ids.numel()} slots ({ties} near-ties), max abs err "
+              f"{err:.3g}", flush=True)
+    allpass_check(corpus, attrs, q, k, dev)
     # -- scan_topk_mask at B=256, N=n: one shared row mask (a filter
     # expression's rows: > 0 passes, NaN and 0 fail), k as the served path
     mask = torch.where(attrs[:, 0] < 0.55, 1.0, -1.0)[:, None].contiguous()
@@ -387,6 +395,45 @@ def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev, *,
     del cl, ql
     torch.cuda.empty_cache()
     return rows
+
+
+def allpass_check(corpus, attrs, q, k: int, dev) -> None:
+    """The f32 box scan where every pair passes (the attrs' NaNs replaced,
+    one box holding them all): every tile takes the dense path. Timed
+    beside cdist + topk, and held to the plain version on 16 sampled
+    lanes with topk_agree's tolerance."""
+    from repro_torch.kernels import ops, ref
+
+    B, n, d = q.shape[0], corpus.shape[0], corpus.shape[1]
+    a_all = torch.nan_to_num(attrs, nan=0.5)
+    lo = torch.full((B, a_all.shape[1]), -1.0, device=dev)
+    hi = torch.full((B, a_all.shape[1]), 2.0, device=dev)
+
+    def kern():
+        return ops.scan_topk(corpus, a_all, q, lo, hi, k=k)
+
+    ids, dd = kern()
+    lanes = torch.arange(0, B, B // 16, device=dev)
+    rids, rdd = ref.scan_topk_ref(corpus, a_all, q[lanes], lo[lanes],
+                                  hi[lanes], k)
+    torch.cuda.synchronize()
+    empty, sparse, dense = ops.SCAN_TILES["scan_topk"].tolist()
+    check(dense == empty + sparse + dense,
+          f"all-pass scan: {sparse} tiles sparse, {empty} empty")
+    same, ties, err = topk_agree("scan_topk all-pass", ids[lanes], dd[lanes],
+                                 rids, rdd)
+    ms = time_ms(kern, reps=3)
+    lib = time_ms(lambda: torch.topk(torch.cdist(q, corpus), k,
+                                     largest=False), reps=3)
+    bms, by = bound_ms(n * 4 * d + a_all.numel() * 4 + q.numel() * 4,
+                       B * n * d * 3.0)
+    instr_ms = 2.0 * B * n * d / (FP32_FLOPS / 2) * 1e3
+    print(f"[kernels] scan_topk all-pass B={B} N={n} d={d} k={k}: {ms:.3f} "
+          f"ms (cdist+topk {lib:.3f}, bound {bms:.3f} by {by}, fp32 "
+          f"instruction ceiling {instr_ms:.3f}; tiles: {dense} dense), ids "
+          f"equal on {same} of {ids[lanes].numel()} sampled slots ({ties} "
+          f"near-ties), max abs err {err:.3g}", flush=True)
+    del a_all
 
 
 GATHER_L2_TPU = "src/repro/kernels/gather_l2.py"
@@ -902,6 +949,23 @@ def split_lanes(use_scan):
             ("scan", np.nonzero(use_scan)[0]))
 
 
+# the kernel symbol behind each count in ops.LAUNCHES, and the ops wrapper
+# that launches it
+HAND_KERNELS = {
+    "gather_l2_filter": ("gather_l2_filter_kernel", "gather_l2_filter"),
+    "gather_l2_filter_bf16": ("gather_l2_filter_kernel", "gather_l2_filter"),
+    "gather_l2_filter_q8": ("gather_l2_filter_kernel", "gather_l2_filter_q8"),
+    "gather_l2": ("gather_l2_filter_kernel", "gather_l2"),
+    "gather_l2_rows": ("gather_l2_rows_kernel", "gather_l2"),
+    "scan_topk": ("box_scan_kernel", "scan_topk"),
+    "scan_topk_bf16": ("box_scan_kernel", "scan_topk"),
+    "scan_topk_q8": ("box_scan_kernel", "scan_topk_q8"),
+    "scan_topk_mask": ("mask_partial_kernel", "scan_topk_mask"),
+    "scan_topk_windows": ("windows_partial_kernel", "scan_topk_windows"),
+    "l2dist_qn": ("l2dist_qn_kernel", "l2dist_qn"),
+    "l2dist_qc": ("l2dist_qc_kernel", "l2dist_qc")}
+
+
 def trace_programs(tag, di, p, Q, lo, hi, parts, planner=None) -> None:
     """Where a served batch's time goes: for each (strategy, lanes) of
     ``parts``, that strategy's program over those lanes, run once to warm
@@ -909,38 +973,100 @@ def trace_programs(tag, di, p, Q, lo, hi, parts, planner=None) -> None:
     wall time, the summed device time of the device-side events (kernels
     and copies, so nothing counts twice), the device's idle share over
     the wall time and the top kernels. The profiler itself slows the
-    host, so the idle share is an upper bound of the untraced run's."""
+    host, so the idle share is an upper bound of the untraced run's.
+
+    The hand kernels the traced run launched (``ops.LAUNCHES``) are held
+    to the profiler's kernel records: where records are missing (the
+    served bf16 scan program loses its scan's), the line says so, and the
+    program runs once more with CUDA events around the wrappers of the
+    missing kernels, whose time is printed beside the profiler's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.engine import Planner
+    from repro_torch.kernels import ops
 
-    for strat, lanes in parts:
-        pl = planner or Planner(di, dataclasses.replace(p, strategy=strat))
-        pl.search(Q[lanes], lo[lanes], hi[lanes])
-        torch.cuda.synchronize()
+    def traced(pl, lanes):
+        saved = dict(ops.LAUNCHES)
+        ops.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             pl.search(Q[lanes], lo[lanes], hi[lanes])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+        ops.LAUNCHES.update(saved)
         # device-side events only: an operator's own entry repeats the
         # device time of the kernels it launched
         evs = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type != DeviceType.CPU
+               for e in prof.key_averages() if e.device_type != DeviceType.CPU
                and e.self_device_time_total > 0]
+        dev_names = [e.name for e in prof.events()
+                     if e.device_type != DeviceType.CPU]
+        return wall, evs, launched, dev_names
+
+    def timed_wrappers(pl, lanes, names):
+        marks = {nm: [] for nm in names}
+        saved, counts = {}, dict(ops.LAUNCHES)
+
+        def evented(fn, sink):
+            def call(*a, **kw):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                res = fn(*a, **kw)
+                ev[1].record()
+                sink.append(ev)
+                return res
+            return call
+
+        for nm in names:
+            saved[nm] = getattr(ops, nm)
+            setattr(ops, nm, evented(saved[nm], marks[nm]))
+        try:
+            pl.search(Q[lanes], lo[lanes], hi[lanes])
+            torch.cuda.synchronize()
+        finally:
+            for nm, fn in saved.items():
+                setattr(ops, nm, fn)
+            ops.LAUNCHES.update(counts)
+        return {nm: (sum(e[0].elapsed_time(e[1]) for e in m), len(m))
+                for nm, m in marks.items()}
+
+    for strat, lanes in parts:
+        pl = planner or Planner(di, dataclasses.replace(p, strategy=strat))
+        pl.search(Q[lanes], lo[lanes], hi[lanes])
+        torch.cuda.synchronize()
+        wall, evs, launched, dev_names = traced(pl, lanes)
         dev_ms = sum(t for _, t, _ in evs)
-        if dev_ms == 0:
-            print(f"[trace] {tag} {strat} program: the profiler saw no "
-                  f"device time, so the split is not measured", flush=True)
-            continue
         top = sorted(evs, key=lambda e: -e[1])[:5]
         print(f"[trace] {tag} {strat} program, {len(lanes)} lanes: wall "
               f"{wall * 1e3:.1f} ms, kernels {dev_ms:.1f} ms on the card "
               f"(idle {100 * max(0.0, 1 - dev_ms / (wall * 1e3)):.1f}%); "
               f"top: " + "; ".join(f"{k[:60]} {t:.2f} ms x{c}"
                                    for k, t, c in top), flush=True)
+        # launches of each hand kernel against the profiler's records
+        want, seen, wrapper = {}, {}, {}
+        for nm, n in launched.items():
+            sym, wrapper[nm] = HAND_KERNELS[nm]
+            want[sym] = want.get(sym, 0) + n
+            seen[sym] = sum(sym in dn for dn in dev_names)
+        missing = [sym for sym in want if seen[sym] < want[sym]]
+        if not missing:
+            continue
+        by_ev = timed_wrappers(pl, lanes, sorted(
+            {wrapper[nm] for nm in launched if HAND_KERNELS[nm][0] in missing}))
+        ev_ms = sum(t for t, _ in by_ev.values())
+        print(f"[trace] {tag} {strat} program: the profiler recorded "
+              + ", ".join(f"{seen[s]} of {want[s]} launches of {s}"
+                          for s in missing)
+              + "; by CUDA events around the wrappers of those kernels "
+              + ", ".join(f"{nm} {t:.2f} ms x{n}"
+                          for nm, (t, n) in by_ev.items())
+              + f"; the profiler's kernels and these together "
+              f"{dev_ms + ev_ms:.1f} ms (idle "
+              f"{100 * max(0.0, 1 - (dev_ms + ev_ms) / (wall * 1e3)):.1f}%), "
+              f"an upper bound: a wrapper's kernels the profiler did record "
+              f"count twice", flush=True)
 
 
 QUANT_KERNELS = {"int8": ("gather_l2_filter_q8", "scan_topk_q8"),

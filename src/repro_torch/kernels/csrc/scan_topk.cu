@@ -30,10 +30,17 @@
 // per dimension (sub + fma): with every pair passing that is 5.9e11 flop
 // at B=256, ~8.8 ms at 67 TFLOP/s fp32, but with the planner's scan
 // lanes (boxes under 10% of N) it is under 0.9 ms, so the bound is the
-// bytes. chip_smoke.py computes it from its own boxes. This design reads
-// the corpus once per 64-query tile, and computes every pair of a row
-// tile in which any pair passes. The bitmask form needs a distance only
-// for the rows its mask passes, for every query: 3 flops per (pair,
+// bytes. chip_smoke.py computes it from its own boxes. The direct form
+// needs two fp32 instructions (sub, fma) per (passing pair, dimension):
+// chip_smoke.py's 13.3M passing pairs x 768 are 2.0e10, ~0.61 ms at one
+// instruction a lane a cycle. This design reads the corpus about once per
+// batch of up to 256 queries and scores only the passing pairs, but feeds
+// each (pair, 4 dimensions) from two 16-byte shared-memory loads, a
+// quarter-warp's eight at a time, so a sparse tile is bound by
+// shared-memory wavefronts (128 bytes a cycle an SM), not by the fp32
+// pipes.
+// The bitmask form needs a distance only for the rows its mask passes,
+// for every query: 3 flops per (pair,
 // dimension) make 4.75 ms at 67 TFLOP/s for chip_smoke.py's 539,333
 // passing rows x 256 queries x 768, the bound; the direct form needs two
 // fp32 instructions (sub, fma) per (pair, dimension), 2.12e11 there: 6.3
@@ -46,21 +53,52 @@
 // Design: on the TPU the grid walks N in order and carries the running
 // top-k from step to step. H100 blocks run in no order, so this is two
 // passes:
-//   pass 1 (scan_partial_kernel): a block owns a tile of QT=64 queries and
-//     a chunk of rows. It walks the chunk in 64-row tiles: the tile's attrs
-//     are tested against the 64 boxes first (a tile with
-//     no passing pair skips its distance work), then distances come from a
-//     shared-memory tiled SIMT loop over 32-wide d slabs (a bf16 or int8
-//     slab is widened to f32, and an int8 one scaled, while it is staged
-//     into shared memory, so the inner loop is the f32 one) with a 4x4
-//     register tile per thread, and one thread per query folds the masked
-//     tile into that query's running top-k (insertion after equal
-//     distances, so ascending row order keeps the lowest id first). Each
-//     chunk writes its partial top-k.
-//   pass 2 (scan_merge_kernel): one block per query merges the chunk
+//   pass 1 (box_scan_kernel): a block of 512 threads owns BQ=256 queries
+//     (the largest bucket the service sends, so a batch reads the corpus
+//     once; a larger batch takes one block row per 256 queries) and pulls
+//     row tiles of TR rows (256, or 128 / 64 where a large k leaves less
+//     shared memory) from an atomic counter until none is left; the grid
+//     is one block an SM per query block, so a region of dense boxes does
+//     not leave other blocks idle. Per tile:
+//     - the tile's attrs are staged once and tested against the 256 boxes
+//       (two threads a query, a bit per row, no branch), and each query's
+//       passing rows counted by row class (row mod 8);
+//     - a tile with no passing pair reads no corpus row;
+//     - a sparse tile (under a quarter of BQ x TR pairs pass) computes only
+//       its passing pairs, in rounds of 8,192 slots, while the tile's rows
+//       and the queries stream through shared memory in 16-wide d slabs;
+//       each thread keeps the accumulators of its (up to 16) slots in
+//       registers. The slots are laid out so that a quarter-warp's eight
+//       lanes read rows of eight distinct classes and queries of one group
+//       of eight: the 16-byte loads of both then hit eight distinct bank
+//       groups (rows lie 80 bytes apart), where pairs in query-then-row
+//       order hit the row banks in no order (about 2.5 wavefronts a
+//       quarter, not 1). Each query's thread writes its pairs' slots;
+//     - a dense tile computes all BQ x 32 pairs of each 32-row sub-tile with
+//       a 4 x 4 register tile a thread, then masks them: at every pass this
+//       is the fp32 pipes' rate, about twice the sparse loop's;
+//     - the thread that computed a pair offers it to its query's buffer
+//       when it is below the query's k-th entry, then one thread per query
+//       inserts its buffer into that query's running top-k in shared
+//       memory (a query whose buffer overflows walks all its pairs), by
+//       (distance, id), so neither the tile order nor the pair order
+//       matters and a warp waits on few inserts.
+//     Slabs are double-buffered: queries (and f32 rows) by 16-byte cp.async
+//     copies; bf16 and int8 rows by 16-byte loads held in registers across
+//     the previous slab's arithmetic, widened (and an int8 one scaled,
+//     __fmul_rn as the reference's dequant_rows) as they are stored, so
+//     the inner loops are the f32 ones. Every distance, sparse or dense,
+//     is one chain acc = fmaf(q_j - row_j, q_j - row_j, acc) over ascending
+//     j (zero-padded past d, which adds exact zeros), so the path a tile
+//     takes never changes a bit and the bitmask form, which runs the same
+//     chain, equals this one on the mask as a one-attribute box. Each block
+//     writes its partial top-k; tile counts (empty, sparse, dense) go to
+//     the wrapper's scratch beside the tile counters.
+//   pass 2 (scan_merge_kernel): one block per query merges the block
 //     partials by (distance, id) in k rounds of a block-wide arg-min.
-// The wrapper picks the chunk count so pass 1 fills the card; it allocates
-// the partial buffers and the outputs.
+// The wrapper plans the tile height and the grid (ops._scan_plan, which
+// also sizes the shared memory this file checks) and allocates the partial
+// buffers, the scratch and the outputs.
 //
 // The bitmask form's mask is shared by the batch and scattered over the
 // corpus (a filter expression's rows), so nearly every 64-row tile has a
@@ -76,8 +114,8 @@
 // 32-wide slab (the query slab beside it), each thread holding 8 queries
 // x 4 rows in registers. Each distance is the box scan's one fmaf chain
 // of (q_j - row_j)^2 over ascending j, so the bitmask form's distances and
-// ties are the box scan's bit for bit on the same rows; the fold into the
-// per-query top-k and pass 2 are the box scan's.
+// ties are the box scan's bit for bit on the same rows; pass 2 is the box
+// scan's.
 //
 // The windowed form (windows_partial_kernel) has one block per (lane,
 // window, chunk of at most `chunk_rows` rows), so a 100k-row window is not
@@ -100,7 +138,7 @@
 
 namespace {
 
-constexpr int QT = 64, TR = 64, DS = 32, MMAX = 8, KMAX = 64;
+constexpr int DS = 32, MMAX = 8, KMAX = 64;
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                                            int src_bytes) {
@@ -125,159 +163,557 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ float widen(float v, const float*, int) {
-  return v;
+__device__ __forceinline__ bool lex_less(float ad, int ai, float bd, int bi) {
+  return ad < bd || (ad == bd && ai < bi);
 }
-__device__ __forceinline__ float widen(__nv_bfloat16 v, const float*, int) {
-  return __bfloat162float(v);
+
+// ---- the box scan (f32, bf16 and int8 corpora)
+
+constexpr int BT = 512;             // threads a block
+constexpr int BQ = 256;             // queries a block owns
+constexpr int SD = 16;              // d-slab width
+constexpr int SLD = SD + 4;         // staged row stride (80 bytes): the
+                                    // float4 loads of 8 consecutive rows
+                                    // hit 8 distinct bank groups
+constexpr int PPT = 16;             // slots a thread holds in a round
+constexpr int RP = BT * PPT;        // slots of a sparse round
+constexpr int TD = 32;              // rows of a dense sub-tile
+constexpr int DLD = TD + 1;         // the dense sub-tile's distance stride
+constexpr int CAP = 24;             // fold candidates a query buffers
+                                    // (in the idle stages: 2 CAP BQ words)
+constexpr unsigned NOPAIR = 0xffffffffu;
+
+// Shared memory of box_scan_kernel in 4-byte words, for row tiles of `tr`
+// rows (64, 128 or 256): two slab stages of BQ + tr rows, the top-k
+// dists and ids (k x BQ each), a round's slots and then their distances
+// (the larger of a sparse round and a dense sub-tile), the pass bits, the
+// tile's attrs
+// (rows of MMAX floats) and int8 scales, the class counts (8 x BQ
+// bytes) and group slot bases (BQ / 8 + 1), 16 ints of bookkeeping, and
+// each query's k-th entry and buffered pair count (3 x BQ).
+// ops._scan_plan computes the same number.
+__host__ __device__ constexpr int box_scan_smem_words(int tr, int k) {
+  return 2 * (BQ + tr) * SLD + 2 * k * BQ + (RP > BQ * DLD ? RP : BQ * DLD) +
+         (tr / 32) * BQ + tr * MMAX + tr + 2 * BQ + BQ / 8 + 1 + 16 + 3 * BQ;
 }
-__device__ __forceinline__ float widen(int8_t v, const float* scale, int r) {
-  return __fmul_rn(static_cast<float>(v), __ldg(scale + r));
-}
+
+template <typename T> struct Vec;        // elements a 16-byte load holds
+template <> struct Vec<float> { static constexpr int V = 4; };
+template <> struct Vec<__nv_bfloat16> { static constexpr int V = 8; };
+template <> struct Vec<int8_t> { static constexpr int V = 16; };
 
 template <typename T>
-__global__ void __launch_bounds__(256)
-scan_partial_kernel(const T* __restrict__ corpus,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ attrs,
-                    const float* __restrict__ q,
-                    const float* __restrict__ qlo,
-                    const float* __restrict__ qhi,
-                    float* __restrict__ part_d, int* __restrict__ part_i,
-                    int B, int N, int d, int m, int k, int chunk_rows,
-                    int nchunks) {
-  __shared__ float Qs[DS][QT + 1];
-  __shared__ float Rs[DS][TR + 1];
-  __shared__ float Dt[QT][TR + 1];
-  __shared__ float Ra[TR][MMAX];
-  __shared__ float QL[QT][MMAX];
-  __shared__ float QH[QT][MMAX];
-  extern __shared__ float topd[];          // QT*k dists, then QT*k ids
-  int* topi = reinterpret_cast<int*>(topd + QT * k);
+__device__ __forceinline__ T zero_of() { return static_cast<T>(0); }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
 
-  const int chunk = blockIdx.x;
-  const int q0 = blockIdx.y * QT;
-  const int r_begin = chunk * chunk_rows;
-  const int r_end = min(N, r_begin + chunk_rows);
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
+__device__ __forceinline__ float widen(__nv_bfloat16 v, float) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float widen(int8_t v, float s) {
+  return __fmul_rn(static_cast<float>(v), s);   // never fused into q - row
+}
 
-  for (int e = tid; e < QT * m; e += 256) {
-    const int qi = e / m, a = e % m;
-    const int gq = q0 + qi;
-    // queries past B get the empty box: no row ever passes
-    QL[qi][a] = gq < B ? qlo[(size_t)gq * m + a] : CUDART_INF_F;
-    QH[qi][a] = gq < B ? qhi[(size_t)gq * m + a] : -CUDART_INF_F;
+// One query's running top-k, column q of the (k, BQ) arrays td/ti, kept
+// ascending by (distance, id); (wd, wi) caches its last entry. The slot
+// comes by binary search, then the entries after it move down one.
+__device__ __forceinline__ void topk_insert(float* td, int* ti, int k,
+                                            float dv, int id, float& wd,
+                                            int& wi) {
+  if (!lex_less(dv, id, wd, wi)) return;
+  int lo = 0, hi = k - 1;              // the first entry above (dv, id)
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (lex_less(dv, id, td[mid * BQ], ti[mid * BQ])) hi = mid;
+    else lo = mid + 1;
   }
-  for (int e = tid; e < QT * k; e += 256) {
+#pragma unroll 4
+  for (int p = k - 1; p > lo; --p) {
+    td[p * BQ] = td[(p - 1) * BQ];
+    ti[p * BQ] = ti[(p - 1) * BQ];
+  }
+  td[lo * BQ] = dv;
+  ti[lo * BQ] = id;
+  wd = td[(k - 1) * BQ];
+  wi = ti[(k - 1) * BQ];
+}
+
+// Streams the d slabs of `qrows` queries (q0 + i, zeros past nq) and
+// `srows` rows (rbase + i, zeros past nrows) through the two stages and
+// calls compute(Qs, Rs) on each slab in ascending order. Queries, and f32
+// rows, come by cp.async; bf16 and int8 rows by 16-byte loads (VEC) or
+// scalar ones into registers, issued before the previous slab's compute
+// and widened into the stage after it. `sc` holds the rows' int8 scales.
+template <typename T, bool VEC, typename F>
+__device__ __forceinline__ void stream_slabs(
+    float* stage, int stage_words, const T* __restrict__ corpus,
+    const float* sc, const float* __restrict__ q, int q0, int nq, int qrows,
+    long long rbase, int nrows, int srows, int d, F&& compute) {
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int V = Vec<T>::V;
+  const int tid = threadIdx.x;
+  const int nslab = (d + SD - 1) / SD;
+  // the slab of rows, held in registers between its load and its store
+  uint4 raw4 = make_uint4(0u, 0u, 0u, 0u);
+  T raw1[SD * BQ / BT];
+
+  auto issue = [&](int s) {
+    float* Qs = stage + (s & 1) * stage_words;
+    float* Rs = Qs + BQ * SLD;
+    const int k0 = s * SD;
+    if (VEC) {
+      for (int e = tid; e < qrows * (SD / 4); e += BT) {
+        const int i = e / (SD / 4), c = (e % (SD / 4)) * 4, gk = k0 + c;
+        int bytes = min(16, max(0, (d - gk) * 4));
+        bytes = i < nq ? bytes : 0;
+        cp_async16(Qs + i * SLD + c,
+                   bytes ? q + (size_t)(q0 + i) * d + gk : q, bytes);
+      }
+    } else {
+      for (int e = tid; e < qrows * SD; e += BT) {
+        const int i = e / SD, c = e % SD, gk = k0 + c;
+        const bool in = i < nq && gk < d;
+        cp_async4(Qs + i * SLD + c, in ? q + (size_t)(q0 + i) * d + gk : q,
+                  in ? 4 : 0);
+      }
+    }
+    if constexpr (F32) {
+      const float* cf = reinterpret_cast<const float*>(corpus);
+      if (VEC) {
+        for (int e = tid; e < srows * (SD / 4); e += BT) {
+          const int i = e / (SD / 4), c = (e % (SD / 4)) * 4, gk = k0 + c;
+          int bytes = min(16, max(0, (d - gk) * 4));
+          bytes = i < nrows ? bytes : 0;
+          cp_async16(Rs + i * SLD + c,
+                     bytes ? cf + (size_t)(rbase + i) * d + gk : cf, bytes);
+        }
+      } else {
+        for (int e = tid; e < srows * SD; e += BT) {
+          const int i = e / SD, c = e % SD, gk = k0 + c;
+          const bool in = i < nrows && gk < d;
+          cp_async4(Rs + i * SLD + c,
+                    in ? cf + (size_t)(rbase + i) * d + gk : cf, in ? 4 : 0);
+        }
+      }
+    } else if (VEC) {                  // one 16-byte load a thread at most
+      const int e = tid;
+      const int i = e / (SD / V), c = (e % (SD / V)) * V, gk = k0 + c;
+      if (i < srows) {
+        raw4 = (i < nrows && gk < d)
+                   ? __ldg(reinterpret_cast<const uint4*>(
+                         corpus + (size_t)(rbase + i) * d + gk))
+                   : make_uint4(0u, 0u, 0u, 0u);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < SD * BQ / BT; ++u) {
+        const int e = tid + u * BT;
+        const int i = e / SD, c = e % SD, gk = k0 + c;
+        raw1[u] = (i < nrows && gk < d)
+                      ? corpus[(size_t)(rbase + i) * d + gk]
+                      : zero_of<T>();
+      }
+    }
+  };
+  auto put = [&](int s) {              // bf16 / int8 rows into stage s
+    if constexpr (!F32) {
+      float* Rs = stage + (s & 1) * stage_words + BQ * SLD;
+      if (VEC) {
+        const int e = tid;
+        const int i = e / (SD / V), c = (e % (SD / V)) * V;
+        if (i < srows) {
+          const T* v = reinterpret_cast<const T*>(&raw4);
+          const float s8 = i < nrows ? sc[i] : 0.f;
+#pragma unroll
+          for (int u = 0; u < V; u += 4)
+            *reinterpret_cast<float4*>(Rs + i * SLD + c + u) =
+                make_float4(widen(v[u], s8), widen(v[u + 1], s8),
+                            widen(v[u + 2], s8), widen(v[u + 3], s8));
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < SD * BQ / BT; ++u) {
+          const int e = tid + u * BT;
+          const int i = e / SD, c = e % SD;
+          if (i < srows)
+            Rs[i * SLD + c] = widen(raw1[u], i < nrows ? sc[i] : 0.f);
+        }
+      }
+    }
+  };
+
+  issue(0);
+  cp_async_commit();
+  put(0);
+  for (int s = 0; s < nslab; ++s) {
+    if (s + 1 < nslab) issue(s + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Qs = stage + (s & 1) * stage_words;
+    compute(Qs, Qs + BQ * SLD);
+    if (s + 1 < nslab) put(s + 1);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+}
+
+// Pass 1 of the box scan. Grid (blocks, ceil(B / BQ)); block (x, y) owns
+// queries [y * BQ, y * BQ + BQ) and takes row tiles from sched[y] until
+// they run out; sched[gridDim.y + 0..2] count empty, sparse and dense
+// tiles. Writes its top-k to part_d/part_i[(b * gridDim.x + x) * k + j].
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(BT, 1)
+box_scan_kernel(const T* __restrict__ corpus, const float* __restrict__ scale,
+                const float* __restrict__ attrs, const float* __restrict__ q,
+                const float* __restrict__ qlo, const float* __restrict__ qhi,
+                float* __restrict__ part_d, int* __restrict__ part_i,
+                int* __restrict__ sched, int B, int N, int d, int m, int k,
+                int tr) {
+  extern __shared__ float4 bsm4[];
+  float* stage = reinterpret_cast<float*>(bsm4);
+  const int stage_words = (BQ + tr) * SLD;
+  float* topd = stage + 2 * stage_words;           // (k, BQ)
+  int* topi = reinterpret_cast<int*>(topd + k * BQ);
+  float* rd = reinterpret_cast<float*>(topi + k * BQ);
+  unsigned* bits = reinterpret_cast<unsigned*>(
+      rd + (RP > BQ * DLD ? RP : BQ * DLD));       // (tr / 32, BQ)
+  float* at = reinterpret_cast<float*>(bits + (tr / 32) * BQ);  // (tr, 8)
+  float* sc = at + tr * MMAX;                      // (tr)
+  unsigned char* cc = reinterpret_cast<unsigned char*>(sc + tr);  // (8, BQ)
+  int* gofs = reinterpret_cast<int*>(cc + 8 * BQ);  // (BQ / 8 + 1)
+  int* misc = gofs + BQ / 8 + 1;                   // tile, pair count
+  float* wqd = reinterpret_cast<float*>(misc + 16);  // (BQ) k-th entries
+  int* wqi = reinterpret_cast<int*>(wqd + BQ);      // (BQ)
+  int* ncand = wqi + BQ;                           // (BQ) buffered pairs
+  // the fold's candidates, in the stages (idle then): (CAP, BQ) each
+  float* cdd = stage;
+  int* cdi = reinterpret_cast<int*>(stage + CAP * BQ);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.y * BQ;
+  const int nq = min(BQ, B - q0);
+  const int ntiles = (N + tr - 1) / tr;
+  const int nw = tr / 32;
+  int* stats = sched + gridDim.y;
+
+  for (int e = tid; e < k * BQ; e += BT) {
     topd[e] = CUDART_INF_F;
     topi[e] = -1;
   }
-  __syncthreads();
+  for (int e = tid; e < BQ; e += BT) {
+    wqd[e] = CUDART_INF_F;
+    wqi[e] = -1;
+    ncand[e] = 0;
+  }
+  float wd = CUDART_INF_F;             // the fold thread's k-th entry
+  int wi = -1;
 
-  for (int r0 = r_begin; r0 < r_end; r0 += TR) {
-    for (int e = tid; e < TR * m; e += 256) {
-      const int r = e / m, a = e % m;
-      const int gr = r0 + r;
-      Ra[r][a] = gr < r_end ? attrs[(size_t)gr * m + a] : CUDART_NAN_F;
+  for (;;) {
+    __syncthreads();
+    if (tid == 0) misc[0] = atomicAdd(sched + blockIdx.y, 1);
+    __syncthreads();
+    const int tile = misc[0];
+    if (tile >= ntiles) break;
+    const long long r0 = (long long)tile * tr;
+    const int nr = (int)min((long long)tr, N - r0);
+    // attrs rows of MMAX floats: 0 past m (the box is open there), NaN past
+    // the tile's last row (it fails every box)
+    for (int e = tid; e < tr * MMAX; e += BT) {
+      const int r = e / MMAX, a = e % MMAX;
+      at[e] = r < nr ? (a < m ? attrs[(r0 + r) * m + a] : 0.f) : CUDART_NAN_F;
     }
+    if constexpr (sizeof(T) == 1)
+      for (int e = tid; e < nr; e += BT) sc[e] = scale[r0 + e];
     __syncthreads();
 
-    unsigned pass = 0u;
+    // the boxes: thread (half, qi) tests the rows of its half of the 32-row
+    // words, a bit per row, without a branch
+    const int qi = tid & (BQ - 1), half = tid / BQ;
+    {
+      float lo[MMAX], hi[MMAX];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qi = ty + 16 * i, rj = tx + 16 * j;
-        bool ok = true;
-        for (int a = 0; a < m; ++a) {
-          const float v = Ra[rj][a];
-          ok = ok && (v >= QL[qi][a]) && (v <= QH[qi][a]);
-        }
-        pass |= (ok ? 1u : 0u) << (i * 4 + j);
+      for (int a = 0; a < MMAX; ++a) {
+        // queries past B get the empty box: no row ever passes
+        lo[a] = a >= m ? -CUDART_INF_F
+                : qi < nq ? qlo[(size_t)(q0 + qi) * m + a] : CUDART_INF_F;
+        hi[a] = a >= m ? CUDART_INF_F
+                : qi < nq ? qhi[(size_t)(q0 + qi) * m + a] : -CUDART_INF_F;
       }
-    const int any = __syncthreads_or(pass != 0u);
-
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    if (any) {
-      for (int k0 = 0; k0 < d; k0 += DS) {
-#pragma unroll
-        for (int s = 0; s < (QT * DS) / 256; ++s) {
-          const int e = tid + s * 256;
-          const int r = e / DS, col = e % DS;
-          const int gk = k0 + col;
-          const int gq = q0 + r, gr = r0 + r;
-          Qs[col][r] = (gq < B && gk < d) ? q[(size_t)gq * d + gk] : 0.f;
-          Rs[col][r] = (gr < r_end && gk < d)
-                           ? widen(corpus[(size_t)gr * d + gk], scale, gr)
-                           : 0.f;
-        }
-        __syncthreads();
+      const float4* a4 = reinterpret_cast<const float4*>(at);
+      for (int w = half * (nw / 2); w < (half + 1) * (nw / 2); ++w) {
+        unsigned b = 0u;
 #pragma unroll 8
-        for (int kk = 0; kk < DS; ++kk) {
-          float a[4], b[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = Qs[kk][ty + 16 * i];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) b[j] = Rs[kk][tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const float t = a[i] - b[j];
-              acc[i][j] = fmaf(t, t, acc[i][j]);
-            }
+        for (int rr = 0; rr < 32; ++rr) {
+          const float4 x = a4[(w * 32 + rr) * (MMAX / 4)];
+          bool ok = (x.x >= lo[0]) & (x.x <= hi[0]) & (x.y >= lo[1]) &
+                    (x.y <= hi[1]) & (x.z >= lo[2]) & (x.z <= hi[2]) &
+                    (x.w >= lo[3]) & (x.w <= hi[3]);
+          if (m > 4) {                 // the same branch in every thread
+            const float4 y = a4[(w * 32 + rr) * (MMAX / 4) + 1];
+            ok = ok & (y.x >= lo[4]) & (y.x <= hi[4]) & (y.y >= lo[5]) &
+                 (y.y <= hi[5]) & (y.z >= lo[6]) & (y.z <= hi[6]) &
+                 (y.w >= lo[7]) & (y.w <= hi[7]);
+          }
+          b |= (unsigned)ok << rr;
         }
+        bits[w * BQ + qi] = b;
+      }
+    }
+    __syncthreads();
+    if (tid < BQ) {                    // cc[c][q]: q's rows = c (mod 8)
+      int n[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+      for (int w = 0; w < nw; ++w) {
+        const unsigned x = bits[w * BQ + tid];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) n[c] += __popc(x & (0x01010101u << c));
+      }
+#pragma unroll
+      for (int c = 0; c < 8; ++c) cc[c * BQ + tid] = (unsigned char)n[c];
+    }
+    __syncthreads();
+    if (warp == 0) {                   // group g = lane: queries 8g .. 8g+7
+      int steps = 0, np = 0;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        int n = 0;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) n += cc[c * BQ + 8 * lane + i];
+        steps = max(steps, n);
+        np += n;
+      }
+      int inc = steps;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, inc, o);
+        if (lane >= o) inc += v;
+      }
+      gofs[lane] = 8 * (inc - steps);
+      np = __reduce_add_sync(0xffffffffu, np);
+      if (lane == 31) {
+        gofs[BQ / 8] = 8 * inc;
+        misc[1] = np;
+      }
+    }
+    __syncthreads();
+    const int npairs = misc[1], nslots = gofs[BQ / 8];
+    if (npairs == 0) {                 // no row of the tile is read
+      if (tid == 0) atomicAdd(stats + 0, 1);
+      continue;
+    }
+    float* tdq = topd + tid;           // the fold thread's column
+    int* tiq = topi + tid;
+    // the fold: the thread that computed a pair offers it to its query's
+    // buffer when it is below the query's k-th entry as the round began;
+    // then one thread per query inserts its buffer, so a warp waits on a
+    // few inserts, not on one per pair that any of its queries takes. A
+    // buffer that overflows (a query's first tiles) makes its thread walk
+    // all the query's pairs instead.
+    auto offer = [&](float dv, int id, int b) {
+      if (!lex_less(dv, id, wqd[b], wqi[b])) return;
+      const int p = atomicAdd(ncand + b, 1);
+      if (p < CAP) {
+        cdd[p * BQ + b] = dv;
+        cdi[p * BQ + b] = id;
+      }
+    };
+    auto fold = [&](auto&& walk) {     // run by thread tid < nq
+      const int n = ncand[tid];
+      if (n <= CAP) {
+        for (int e = 0; e < n; ++e)
+          topk_insert(tdq, tiq, k, cdd[e * BQ + tid], cdi[e * BQ + tid], wd,
+                      wi);
+      } else {
+        walk();
+      }
+      ncand[tid] = 0;
+      wqd[tid] = wd;
+      wqi[tid] = wi;
+    };
+
+    if ((long long)npairs * 4 >= (long long)BQ * nr) {
+      // dense: every pair of each 32-row sub-tile, 4 queries x 4 rows a
+      // thread (queries ty + 64 i, rows tx + 8 j), then masked
+      if (tid == 0) atomicAdd(stats + 2, 1);
+      const int ty = tid >> 3, tx = tid & 7;
+      for (int sub = 0; sub < nr; sub += TD) {
+        const int ns = min(TD, nr - sub);
+        float acc[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+        stream_slabs<T, VEC>(
+            stage, stage_words, corpus, sc + sub, q, q0, nq, BQ, r0 + sub,
+            ns, TD, d, [&](const float* Qs, const float* Rs) {
+#pragma unroll
+              for (int kk = 0; kk < SD; kk += 4) {
+                float4 a[4], b[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                  a[i] = *reinterpret_cast<const float4*>(
+                      Qs + (ty + 64 * i) * SLD + kk);
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                  b[j] = *reinterpret_cast<const float4*>(
+                      Rs + (tx + 8 * j) * SLD + kk);
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+#pragma unroll
+                  for (int j = 0; j < 4; ++j) {
+                    float t = a[i].x - b[j].x;
+                    acc[i][j] = fmaf(t, t, acc[i][j]);
+                    t = a[i].y - b[j].y;
+                    acc[i][j] = fmaf(t, t, acc[i][j]);
+                    t = a[i].z - b[j].z;
+                    acc[i][j] = fmaf(t, t, acc[i][j]);
+                    t = a[i].w - b[j].w;
+                    acc[i][j] = fmaf(t, t, acc[i][j]);
+                  }
+              }
+            });
+        const int w = sub >> 5;        // sub is a multiple of 32
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int qq = ty + 64 * i, r = tx + 8 * j;
+            const bool ok = (bits[w * BQ + qq] >> r) & 1u;
+            rd[qq * DLD + r] = ok ? acc[i][j] : CUDART_INF_F;
+            if (ok) offer(acc[i][j], (int)(r0 + sub + r), qq);
+          }
+        __syncthreads();
+        if (tid < nq)
+          fold([&]() {
+            for (int r = 0; r < ns; ++r)
+              topk_insert(tdq, tiq, k, rd[tid * DLD + r], (int)(r0 + sub + r),
+                          wd, wi);
+          });
         __syncthreads();
       }
+      continue;
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Dt[ty + 16 * i][tx + 16 * j] =
-            ((pass >> (i * 4 + j)) & 1u) ? acc[i][j] : CUDART_INF_F;
-    __syncthreads();
 
-    if (tid < QT && q0 + tid < B) {
-      float* td = topd + tid * k;
-      int* ti = topi + tid * k;
-      float worst = td[k - 1];
-      const int nr = min(TR, r_end - r0);
-      for (int r = 0; r < nr; ++r) {
-        const float dv = Dt[tid][r];
-        if (dv < worst) {
-          int p = k - 1;
-          while (p > 0 && td[p - 1] > dv) {
-            td[p] = td[p - 1];
-            ti[p] = ti[p - 1];
-            --p;
+    // sparse: the passing pairs in slots. Group g (queries 8g .. 8g+7) owns
+    // slots [gofs[g], gofs[g + 1]): slot gofs[g] + 8 j + c holds entry j of
+    // the group's class-c list (its pairs with row = c mod 8, by query, then
+    // row), or nothing past the list's end. An aligned 8 slots, one
+    // quarter-warp, then reads 8 rows of distinct classes and queries of one
+    // group: both 16-byte loads hit 8 distinct bank groups. Slot s of a
+    // round runs on thread s % BT, in register slot s / BT.
+    if (tid == 0) atomicAdd(stats + 1, 1);
+    for (int S0 = 0; S0 < nslots; S0 += RP) {
+      // the slots of the round, written by their queries' threads into rd
+      // (which takes the distances later): NOPAIR where a list ends
+      unsigned* slot = reinterpret_cast<unsigned*>(rd);
+      const int nround = min(RP, nslots - S0);
+      for (int e = tid; e < nround; e += BT) slot[e] = NOPAIR;
+      __syncthreads();
+      if (tid < BQ) {                  // whole warps: the prefix shuffles
+        const int g = tid >> 3;
+        unsigned bw[8];                // the query's pass bits, tr <= 256
+#pragma unroll
+        for (int w = 0; w < 8; ++w) bw[w] = w < nw ? bits[w * BQ + tid] : 0u;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          // q's first entry in its group's class-c list: the counts of the
+          // group's earlier queries (the 8 lanes before it, in its warp)
+          const int n = cc[c * BQ + tid];
+          int j = n;
+#pragma unroll
+          for (int o = 1; o < 8; o <<= 1) {
+            const int v = __shfl_up_sync(0xffffffffu, j, o, 8);
+            if ((lane & 7) >= o) j += v;
           }
-          td[p] = dv;
-          ti[p] = r0 + r;
-          worst = td[k - 1];
+          j -= n;
+          const unsigned mc = 0x01010101u << c;
+#pragma unroll
+          for (int w = 0; w < 8; ++w) {
+            unsigned x = bw[w] & mc;
+            while (x) {
+              const int r = w * 32 + __ffs(x) - 1;
+              x &= x - 1u;
+              const int sl = gofs[g] + 8 * j++ + c - S0;
+              if (sl >= 0 && sl < RP)
+                slot[sl] = (unsigned)(tid * SLD) << 16 | (unsigned)(r * SLD);
+            }
+          }
         }
       }
+      __syncthreads();
+      // register slots in use: the same in every thread
+      const int nreg = (nround + BT - 1) / BT;
+      unsigned pk[PPT];                // (query * SLD) << 16 | row * SLD
+      float acc[PPT];
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) {
+        acc[i] = 0.f;
+        pk[i] = tid + i * BT < nround ? slot[tid + i * BT] : NOPAIR;
+      }
+      stream_slabs<T, VEC>(
+          stage, stage_words, corpus, sc, q, q0, nq, nq, r0, nr, nr, d,
+          [&](const float* Qs, const float* Rs) {
+#pragma unroll
+            for (int i = 0; i < PPT; ++i) {
+              if (i < nreg && pk[i] != NOPAIR) {
+                const float* qp = Qs + (pk[i] >> 16);
+                const float* rp = Rs + (pk[i] & 0xffffu);
+#pragma unroll
+                for (int kk = 0; kk < SD; kk += 4) {
+                  const float4 a = *reinterpret_cast<const float4*>(qp + kk);
+                  const float4 b = *reinterpret_cast<const float4*>(rp + kk);
+                  float t = a.x - b.x;
+                  acc[i] = fmaf(t, t, acc[i]);
+                  t = a.y - b.y;
+                  acc[i] = fmaf(t, t, acc[i]);
+                  t = a.z - b.z;
+                  acc[i] = fmaf(t, t, acc[i]);
+                  t = a.w - b.w;
+                  acc[i] = fmaf(t, t, acc[i]);
+                }
+              }
+            }
+          });
+#pragma unroll
+      for (int i = 0; i < PPT; ++i)
+        if (i < nreg && pk[i] != NOPAIR) {
+          rd[tid + i * BT] = acc[i];
+          offer(acc[i], (int)(r0 + (pk[i] & 0xffffu) / SLD),
+                (int)(pk[i] >> 16) / SLD);
+        }
+      __syncthreads();
+      if (tid < nq)                    // this query's pairs in the round
+        fold([&]() {
+          const int g = tid >> 3;
+          for (int c = 0; c < 8; ++c) {
+            int j = 0;                 // q's first entry in class list c
+            for (int u = 8 * g; u < tid; ++u) j += cc[c * BQ + u];
+            const unsigned mc = 0x01010101u << c;
+            for (int w = 0; w < nw; ++w) {
+              unsigned x = bits[w * BQ + tid] & mc;
+              while (x) {
+                const int r = w * 32 + __ffs(x) - 1;
+                x &= x - 1u;
+                const int sl = gofs[g] + 8 * j++ + c;
+                if (sl >= S0 && sl < S0 + RP)
+                  topk_insert(tdq, tiq, k, rd[sl - S0], (int)(r0 + r), wd,
+                              wi);
+              }
+            }
+          }
+        });
+      __syncthreads();                 // the buffers are the next stages
     }
-    __syncthreads();
   }
 
-  for (int e = tid; e < QT * k; e += 256) {
-    const int gq = q0 + e / k;
-    if (gq < B) {
-      const size_t o = ((size_t)gq * nchunks + chunk) * k + (e % k);
-      part_d[o] = topd[e];
-      part_i[o] = topi[e];
-    }
+  for (int e = tid; e < nq * k; e += BT) {
+    const int qq = e / k, j = e % k;
+    const size_t o = ((size_t)(q0 + qq) * gridDim.x + blockIdx.x) * k + j;
+    part_d[o] = topd[j * BQ + qq];
+    part_i[o] = topi[j * BQ + qq];
   }
-}
-
-__device__ __forceinline__ bool lex_less(float ad, int ai, float bd, int bi) {
-  return ad < bd || (ad == bd && ai < bi);
 }
 
 // Block-wide arg-min of (bd, bi) by (distance, id); every thread returns
@@ -681,43 +1117,52 @@ mask_partial_kernel(const float* __restrict__ corpus,
 template <typename T>
 int launch(const void* corpus, const void* scale, const void* attrs,
            const void* q, const void* qlo, const void* qhi, void* part_d,
-           void* part_i, void* out_i, void* out_d, int B, int N, int d,
-           int m, int k, int chunk_rows, int nchunks, void* stream) {
+           void* part_i, void* sched, void* out_i, void* out_d, int B, int N,
+           int d, int m, int k, int tr, int blocks, int smem, void* stream) {
   if (B == 0) return 0;
-  if (k < 1 || k > KMAX || m < 1 || m > MMAX || N < 1)
+  if (k < 1 || k > KMAX || m < 1 || m > MMAX || N < 1 || blocks < 1 ||
+      (tr != 64 && tr != 128 && tr != 256) ||
+      smem != box_scan_smem_words(tr, k) * (int)sizeof(float))
     return (int)cudaErrorInvalidValue;
-  const int smem = QT * k * (int)(sizeof(float) + sizeof(int));
-  cudaError_t e = cudaFuncSetAttribute(
-      scan_partial_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
+  const int qblocks = (B + BQ - 1) / BQ;
+  if (qblocks > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid1(nchunks, (B + QT - 1) / QT);
-  scan_partial_kernel<T><<<grid1, 256, smem, s>>>(
+  // the tile counters and the (empty, sparse, dense) tile counts
+  cudaError_t e = cudaMemsetAsync(sched, 0, (qblocks + 3) * sizeof(int), s);
+  if (e != cudaSuccess) return (int)e;
+  const bool vec = d % Vec<T>::V == 0 && ((uintptr_t)corpus & 15) == 0 &&
+                   ((uintptr_t)q & 15) == 0;
+  auto kern = vec ? box_scan_kernel<T, true> : box_scan_kernel<T, false>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(blocks, qblocks), BT, smem, s>>>(
       (const T*)corpus, (const float*)scale, (const float*)attrs,
       (const float*)q, (const float*)qlo, (const float*)qhi, (float*)part_d,
-      (int*)part_i, B, N, d, m, k, chunk_rows, nchunks);
+      (int*)part_i, (int*)sched, B, N, d, m, k, tr);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   scan_merge_kernel<<<B, 256, 0, s>>>((const float*)part_d,
                                       (const int*)part_i, nullptr,
-                                      (int*)out_i, (float*)out_d, nchunks,
-                                      k);
+                                      (int*)out_i, (float*)out_d, blocks, k);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // One entry per corpus kind. `scale` is read only by the int8 (q8) entry;
-// the others take a null pointer.
+// the others take a null pointer. part_d/part_i hold B * blocks * k
+// entries, sched ceil(B / 256) + 3 ints; smem is ops._scan_plan's, which
+// must equal box_scan_smem_words(tr, k) * 4.
 #define SCAN_ENTRY(NAME, T)                                                  \
   extern "C" int NAME(const void* corpus, const void* scale,                 \
                       const void* attrs, const void* q, const void* qlo,     \
                       const void* qhi, void* part_d, void* part_i,           \
-                      void* out_i, void* out_d, int B, int N, int d, int m,  \
-                      int k, int chunk_rows, int nchunks, void* stream) {    \
+                      void* sched, void* out_i, void* out_d, int B, int N,   \
+                      int d, int m, int k, int tr, int blocks, int smem,     \
+                      void* stream) {                                        \
     return launch<T>(corpus, scale, attrs, q, qlo, qhi, part_d, part_i,      \
-                     out_i, out_d, B, N, d, m, k, chunk_rows, nchunks,       \
+                     sched, out_i, out_d, B, N, d, m, k, tr, blocks, smem,   \
                      stream);                                                \
   }
 

@@ -11,7 +11,7 @@ kernel launches, one per wrapper call that reached the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -21,7 +21,7 @@ from . import ref as _ref
 __all__ = ["LAUNCHES", "reset_launches", "gather_l2_filter",
            "gather_l2_filter_q8", "gather_l2", "scan_topk", "scan_topk_q8",
            "scan_topk_mask", "scan_topk_windows", "l2dist", "l2dist_qn",
-           "l2dist_qc"]
+           "l2dist_qc", "SCAN_TILES"]
 
 # one count per kernel form: the bf16 forms of gather_l2_filter and
 # scan_topk are the same sources instantiated for a bf16 corpus, counted
@@ -33,6 +33,10 @@ LAUNCHES = {"gather_l2_filter": 0, "gather_l2_filter_bf16": 0,
             "scan_topk": 0, "scan_topk_bf16": 0, "scan_topk_q8": 0,
             "scan_topk_mask": 0, "scan_topk_windows": 0, "l2dist_qn": 0,
             "l2dist_qc": 0}
+
+# the box scan's last launch per form: a device tensor of its (empty,
+# sparse, dense) tile counts, summed over query blocks
+SCAN_TILES = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -211,14 +215,54 @@ def gather_l2(idx: torch.Tensor, corpus: torch.Tensor, q: torch.Tensor, *,
     return out
 
 
-def _scan_chunking(B: int, N: int, sms: int) -> Tuple[int, int]:
-    """(chunk_rows, nchunks) for the scan's first pass: about four blocks
-    per SM across all 64-query tiles, each chunk a multiple of 64 rows."""
-    qtiles = -(-B // 64)
-    want = max(1, min(-(-N // 64), -(-4 * sms // qtiles)))
-    rows = -(-N // want)
-    rows = -(-rows // 64) * 64
-    return rows, -(-N // rows)
+# the box scan's pass 1 (scan_topk.cu box_scan_kernel): queries a block
+# owns, row tiles it may take, and the shared memory a block may have
+SCAN_QUERY_BLOCK = 256
+SCAN_TILE_ROWS = (256, 128, 64)
+SMEM_LIMIT = 232_448
+
+
+class ScanPlan(NamedTuple):
+    tile_rows: int       # rows of a tile, the unit a block takes at a time
+    tiles: int           # tiles covering [0, N)
+    blocks: int          # blocks a query block runs (grid x): one an SM
+    query_blocks: int    # grid y, one per SCAN_QUERY_BLOCK queries
+    smem: int            # dynamic shared memory of a block, in bytes
+
+
+def _scan_smem_bytes(tile_rows: int, k: int) -> int:
+    """scan_topk.cu box_scan_smem_words * 4: two 16-wide slab stages of
+    256 queries + tile_rows rows (stride 20 floats), the top-k (k x 256
+    dists and ids), a round's slots, then distances (max(8192, 256 x 33)),
+    the pass bits, the tile's attrs (rows of 8 floats) and int8 scales,
+    the class counts (8 x 256 bytes), 33 group slot bases, 16 ints, and
+    each query's k-th entry and buffered pair count (3 x 256)."""
+    bq = SCAN_QUERY_BLOCK
+    words = (2 * (bq + tile_rows) * 20 + 2 * k * bq + max(8192, bq * 33)
+             + (tile_rows // 32) * bq + tile_rows * 8 + tile_rows + 2 * bq
+             + bq // 8 + 1 + 16 + 3 * bq)
+    return 4 * words
+
+
+def _scan_plan(B: int, N: int, k: int, sms: int) -> ScanPlan:
+    """The box scan's launch: the tallest row tile whose shared memory fits
+    a block (the queries are staged once per tile, so a taller tile reads
+    them fewer times), and one block an SM per 256-query block, each
+    pulling tiles until none is left. Neither d (streamed in slabs) nor m
+    (attrs padded to 8) changes it. Raises where the grid cannot hold the
+    batch."""
+    for tr in SCAN_TILE_ROWS:
+        smem = _scan_smem_bytes(tr, k)
+        if smem <= SMEM_LIMIT:
+            break
+    else:
+        raise ValueError(f"the scan kernel has no tile for k={k}")
+    tiles = -(-N // tr)
+    qblocks = -(-B // SCAN_QUERY_BLOCK)
+    if qblocks > 65535:
+        raise ValueError(f"the scan kernel takes at most "
+                         f"{65535 * SCAN_QUERY_BLOCK} queries, got {B}")
+    return ScanPlan(tr, tiles, max(1, min(tiles, sms)), qblocks, smem)
 
 
 # the bitmask scan's first pass: queries and rows a block owns per tile
@@ -271,16 +315,20 @@ def _launch_scan(kind: str, corpus, scale, attrs, q, qlo, qhi, k: int):
         raise ValueError(f"the scan kernel takes m <= 8 attributes, got {m}")
     dev = corpus.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows, nchunks = _scan_chunking(B, N, sms)
-    part_d, part_i, ids, dists = _scan_buffers(B, nchunks, k, dev)
-    f = _fn("scan_topk", f"scan_topk_{kind}", [_P] * 10 + [_I] * 7 + [_P])
+    plan = _scan_plan(B, N, k, sms)
+    part_d, part_i, ids, dists = _scan_buffers(B, plan.blocks, k, dev)
+    # the tile counters, then the (empty, sparse, dense) tile counts
+    sched = torch.empty(plan.query_blocks + 3, dtype=torch.int32, device=dev)
+    f = _fn("scan_topk", f"scan_topk_{kind}", [_P] * 11 + [_I] * 8 + [_P])
     rc = f(corpus.data_ptr(), None if scale is None else scale.data_ptr(),
            attrs.data_ptr(), q.data_ptr(), qlo.data_ptr(), qhi.data_ptr(),
-           part_d.data_ptr(), part_i.data_ptr(), ids.data_ptr(),
-           dists.data_ptr(), B, N, d, m, k, rows, nchunks, _stream(dev))
+           part_d.data_ptr(), part_i.data_ptr(), sched.data_ptr(),
+           ids.data_ptr(), dists.data_ptr(), B, N, d, m, k, plan.tile_rows,
+           plan.blocks, plan.smem, _stream(dev))
     name = "scan_topk" if kind == "f32" else f"scan_topk_{kind}"
     _raise_on(rc, name)
     LAUNCHES[name] += 1
+    SCAN_TILES[name] = sched[plan.query_blocks:]
     return ids, dists
 
 

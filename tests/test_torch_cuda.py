@@ -6,6 +6,7 @@ needed, so on a machine without it run:
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -268,3 +269,123 @@ def test_cuda_mask_scan_compaction():
                     assert bool(((ids == rids) | near).all()), (name, B, k)
             assert bool((ops.scan_topk_mask(corpus, masks["empty"], q,
                                             k=10)[0] == -1).all())
+
+
+def _grid(rng, shape, lim=64):
+    """k/32 values with |k| <= lim: with lim = 64 every squared difference
+    is a multiple of 1/1024 below 16 and every partial sum over d <= 768
+    stays below 2^14, so each f32 sum is exact in any order (and each
+    value is exact in bf16 and TF32)."""
+    return (rng.integers(-lim, lim + 1, size=shape) / 32).astype(np.float32)
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_bit_equal_on_grid_corpus():
+    """Every kernel form bit-equal to its plain version on a 1/32-grid
+    corpus, where every f32 partial sum is exact in any order, so ids and
+    distances must be ``torch.equal`` (ties to the lowest id included):
+    the fused gather (f32, bf16, int8), the unfused gather in both forms
+    (f32, bf16), l2dist_qc (f32, bf16), l2dist_qn (2-D and batched; its
+    3xTF32 split of a grid value has a zero lo part), and the scan in
+    f32, bf16 and int8 (int8 rows built with power-of-two scales, so the
+    dequantized rows lie on the grid) plus its bitmask and windowed forms.
+    The box scan's edges: N = 3001 (no multiple of any row tile), d in
+    {33, 768}, B in {1, 37, 300} (300: two query blocks), k in {1, 10,
+    40, 64}, and lanes with an empty box, an all-pass box, a one-row box
+    and boxes of about 5%, 30% and 60% of the rows (sparse tiles, sparse
+    tiles of two rounds, dense tiles); then every lane all-pass (every
+    tile of the first query block dense)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0xF4)
+    N, m = 3001, 3
+    for d in (33, 768):
+        corpus = torch.as_tensor(_grid(rng, (N, d)), device=dev)
+        cb = corpus.to(torch.bfloat16)
+        qv = torch.as_tensor(rng.integers(-32, 33, size=(N, d)),
+                             dtype=torch.int8, device=dev)
+        qs = torch.as_tensor(rng.choice([1 / 16, 1 / 32], size=(N, 1)),
+                             dtype=torch.float32, device=dev)
+        qv[qs[:, 0] == 1 / 32] *= 2                  # |row| <= 2 either way
+        attrs = rng.random((N, m)).astype(np.float32)
+        attrs[:, 0] = rng.permutation(N)             # unique: one-row boxes
+        attrs[5::41, 1] = np.nan
+        attrs = torch.as_tensor(attrs, device=dev)
+
+        # gathers and l2dist_qc at B = 37 lanes of C = 70 ids
+        B, C = 37, 70
+        q = torch.as_tensor(_grid(rng, (B, d)), device=dev)
+        lo = torch.full((B, m), -1.0, device=dev)
+        hi = torch.full((B, m), 2.0 * N, device=dev)
+        lo[::3, 2], hi[::3, 2] = 0.3, 0.6
+        idx = torch.as_tensor(rng.integers(0, N, size=(B, C)), device=dev)
+        idx[:, ::9] = -1
+        idx[:, 4::11] = N + 3
+        for cx in (corpus, cb):
+            assert torch.equal(
+                ops.gather_l2_filter(idx, cx, attrs, q, lo, hi),
+                ref.gather_l2_filter_ref(idx, cx, attrs, q, lo, hi))
+            for ids in (idx, idx.to(torch.int32)):
+                want = ref.gather_l2_ref(ids, cx, q)
+                assert torch.equal(ops.gather_l2(ids, cx, q), want)
+                assert torch.equal(ops.gather_l2(ids, cx, q, c_blk=128), want)
+            cand = cx[idx.clamp(0, N - 1)]
+            assert torch.equal(ops.l2dist_qc(q, cand), ref.l2dist_qc_ref(q, cand))
+        assert torch.equal(
+            ops.gather_l2_filter_q8(idx, qv, qs, attrs, q, lo, hi),
+            ref.gather_l2_filter_q8_ref(idx, qv, qs, attrs, q, lo, hi))
+        for G in (1, 3):
+            qq = torch.as_tensor(_grid(rng, (G, 130, d)), device=dev)
+            cc = torch.as_tensor(_grid(rng, (G, 700, d)), device=dev)
+            if G == 1:
+                qq, cc = qq[0], cc[0]
+            assert torch.equal(ops.l2dist_qn(qq, cc), ref.l2dist_qn_ref(qq, cc))
+
+        # the box scan in its three forms, and the bitmask and windowed scans
+        for B in (1, 37, 300):
+            q = torch.as_tensor(_grid(rng, (B, d)), device=dev)
+            frac = rng.choice([0.05, 0.3, 0.6], size=(B, 1)) ** (1 / 2)
+            lo_np = (rng.random((B, m)) * (1 - frac)).astype(np.float32)
+            hi_np = (lo_np + frac).astype(np.float32)
+            lo_np[:, 0], hi_np[:, 0] = -1.0, N
+            lo_np[0], hi_np[0] = np.inf, -np.inf     # empty
+            if B > 2:
+                lo_np[1], hi_np[1] = -1.0, N         # all-pass (NaN rows fail)
+                r = int(rng.choice(np.nonzero(
+                    torch.isfinite(attrs).all(1).cpu().numpy())[0]))
+                lo_np[2], hi_np[2] = -1.0, 2.0
+                lo_np[2, 0] = hi_np[2, 0] = attrs[r, 0].item()   # one row
+            boxes = [(torch.as_tensor(lo_np, device=dev),
+                      torch.as_tensor(hi_np, device=dev)),
+                     (torch.full((B, m), -1.0, device=dev),
+                      torch.full((B, m), float(N), device=dev))]
+            for (blo, bhi) in boxes:
+                for k in (1, 10, 40, 64):
+                    for cx in (corpus, cb):
+                        got = ops.scan_topk(cx, attrs, q, blo, bhi, k=k)
+                        want = ref.scan_topk_ref(cx, attrs, q, blo, bhi, k)
+                        assert torch.equal(got[0], want[0]), (d, B, k)
+                        assert torch.equal(got[1], want[1]), (d, B, k)
+                    got = ops.scan_topk_q8(qv, qs, attrs, q, blo, bhi, k=k)
+                    want = ref.scan_topk_q8_ref(qv, qs, attrs, q, blo, bhi, k)
+                    assert torch.equal(got[0], want[0]), (d, B, k)
+                    assert torch.equal(got[1], want[1]), (d, B, k)
+            mask = attrs[:, 1:2] - 0.4                     # NaN fails
+            for k in (1, 10, 64):
+                got = ops.scan_topk_mask(corpus, mask.contiguous(), q, k=k)
+                want = ref.scan_topk_mask_ref(corpus, mask, q, k)
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                    want[1])
+            st = torch.as_tensor(rng.integers(-1, N, size=(B, 3)),
+                                 dtype=torch.int32, device=dev)
+            ct = torch.as_tensor(rng.integers(0, 1500, size=(B, 3)),
+                                 dtype=torch.int32, device=dev)
+            blo, bhi = boxes[0]
+            for k in (1, 10, 64):
+                got = ops.scan_topk_windows(corpus, attrs, q, blo, bhi, st,
+                                            ct, k=k)
+                want = ref.scan_topk_windows_ref(corpus, attrs, q, blo, bhi,
+                                                 st, ct, k)
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                    want[1])
