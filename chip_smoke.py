@@ -2,7 +2,8 @@
 holds each against its plain PyTorch version on the card (the gather and
 scan kernels in their f32, bf16 and int8 forms, the unfused gathers in
 both forms, l2dist_qc, the bitmask scan, and the windowed scan at the
-windows of the served 1/64 boxes), then builds a KHI index at the
+windows of the served 1/64 boxes and of every served lane, its
+coverage pre-pass timed apart), then builds a KHI index at the
 khi-serve shard's widths on the card and serves mixed-selectivity bursts
 through the auto planner, checking the answers; then serves the same
 bursts again on the quantized score path, quant="int8" and then
@@ -51,6 +52,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -331,10 +333,9 @@ def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev, *,
             st[b, :nw] = cut * slot
             ct[b, :nw] = gen.integers(1, slot + 1, size=nw)
         st[-1, 0], ct[-1, 0] = n - 100, 100      # ends at N
-        windows_check(corpus, attrs, q, qlo_s, qhi_s,
-                      torch.as_tensor(st).to(dev),
-                      torch.as_tensor(ct).to(dev), k, rows,
-                      "synthetic windows")
+        rows["scan_topk_windows"] = windows_check(
+            corpus, attrs, q, qlo_s, qhi_s, torch.as_tensor(st).to(dev),
+            torch.as_tensor(ct).to(dev), k, "synthetic windows")
     del corpus, attrs, qv, qs, cb
 
     # -- l2dist_qn at (2048, d) x (65536, d): against the plain version
@@ -529,14 +530,16 @@ def unfused_checks(corpus, cb, q, rows) -> None:
 
 
 def windows_check(pos_vecs, pos_attrs, q, qlo, qhi, starts, counts, k,
-                  rows, what: str) -> None:
+                  what: str) -> dict:
     """The windowed scan against its plain version at (B, W) windows of a
     position-ordered corpus, with the rule of ``topk_agree``; its bound
     (the attrs of every row some lane's windows cover and the vector of
     every row that passes the box of some lane covering it, each read
-    once, and 3 flops per dimension of each passing (lane, row) pair)
-    and a library yardstick (per lane: ``index_select`` of the window
-    rows, then ``cdist`` + mask + ``topk``)."""
+    once, and 3 flops per dimension of each passing (lane, row) pair),
+    a library yardstick (per lane: ``index_select`` of the window rows,
+    then ``cdist`` + mask + ``topk``), its tiles (``ops.SCAN_TILES``:
+    uncovered, empty, sparse, dense), its coverage pre-pass alone and the
+    whole call with every box empty. Returns the kernels-line row."""
     from repro_torch.kernels import ops, ref
 
     dev = pos_vecs.device
@@ -584,26 +587,43 @@ def windows_check(pos_vecs, pos_attrs, q, qlo, qhi, starts, counts, k,
         return out
 
     ids, dd = kern()
+    tiles = ops.SCAN_TILES["scan_topk_windows"].tolist()
     rids, rdd = plain()
     torch.cuda.synchronize()
     same, ties, err = topk_agree("scan_topk_windows", ids, dd, rids, rdd)
+    # where the time goes: the pre-pass alone (the bitmap's memset and
+    # the cover kernel), and the same windows with every box empty, where
+    # no pair passes and a covered tile costs only its attrs and box test
+    plan = ops._scan_plan(B, N, k, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    cover_ms = time_ms(lambda: ops._window_cover(starts, counts, N, plan),
+                       reps=5)
+    inf = torch.full_like(qlo, float("inf"))
+    empty_ms = time_ms(lambda: ops.scan_topk_windows(
+        pos_vecs, pos_attrs, q, inf, -inf, starts, counts, k=k), reps=5)
     nbytes = (rows_cov * m * 4 + rows_pass * d * 4 + q.numel() * 4
               + 2 * qlo.numel() * 4 + 2 * starts.numel() * 4 + B * k * 8)
     bms, by = bound_ms(nbytes, n_pass * d * 3)
-    r = rows["scan_topk_windows"] = dict(
+    r = dict(
         name="scan_topk_windows", route="cuda", launches=0, source=SCAN_CU,
         replaces=SCAN_TPU + ":305", max_abs_err=err,
         ms=time_ms(kern, reps=5),
         plain_ms=time_ms(plain, reps=1, warmup=0),
-        bound_ms=bms, bound_by=by, library_ms=time_ms(lib, reps=2))
+        bound_ms=bms, bound_by=by, library_ms=time_ms(lib, reps=2),
+        tiles=dict(zip(("uncovered", "empty", "sparse", "dense"), tiles)),
+        pre_pass_ms=cover_ms, empty_boxes_ms=empty_ms)
     print(f"[kernels] scan_topk_windows at {what}: B={B} W={W} k={k}, "
           f"{covered} covered (lane, row) pairs ({n_pass} pass) over "
           f"{rows_cov} distinct rows ({rows_pass} pass some lane), d={d}: "
           f"{r['ms']:.3f} ms "
           f"(plain {r['plain_ms']:.3f}, per-lane index_select+cdist+mask+"
-          f"topk {r['library_ms']:.3f}, bound {bms:.3f} by {by}), ids equal "
-          f"on {same} of {ids.numel()} slots ({ties} near-ties), max abs "
-          f"err {err:.3g}", flush=True)
+          f"topk {r['library_ms']:.3f}, bound {bms:.3f} by {by}; tiles: "
+          f"{tiles[0]} uncovered, {tiles[1]} empty, {tiles[2]} sparse, "
+          f"{tiles[3]} dense; coverage bitmap {B * -(-N // 32) * 4 / 1e6:.1f}"
+          f" MB, its pre-pass {cover_ms:.3f} ms; every box empty "
+          f"{empty_ms:.3f} ms), ids equal on {same} of {ids.numel()} slots "
+          f"({ties} near-ties), max abs err {err:.3g}", flush=True)
+    return r
 
 
 def lanes_exact(ids, dists, t_ids, t_d):
@@ -949,7 +969,9 @@ def split_lanes(use_scan):
             ("scan", np.nonzero(use_scan)[0]))
 
 
-# the kernel symbol behind each count in ops.LAUNCHES, and the ops wrapper
+# a pattern of the kernel symbol behind each count in ops.LAUNCHES (matched
+# in the profiler's demangled names: the box scan's forms differ in their
+# template arguments, <element, vectorized, windowed>), and the ops wrapper
 # that launches it
 HAND_KERNELS = {
     "gather_l2_filter": ("gather_l2_filter_kernel", "gather_l2_filter"),
@@ -957,11 +979,14 @@ HAND_KERNELS = {
     "gather_l2_filter_q8": ("gather_l2_filter_kernel", "gather_l2_filter_q8"),
     "gather_l2": ("gather_l2_filter_kernel", "gather_l2"),
     "gather_l2_rows": ("gather_l2_rows_kernel", "gather_l2"),
-    "scan_topk": ("box_scan_kernel", "scan_topk"),
-    "scan_topk_bf16": ("box_scan_kernel", "scan_topk"),
-    "scan_topk_q8": ("box_scan_kernel", "scan_topk_q8"),
+    "scan_topk": (r"box_scan_kernel<float, \w+, false>", "scan_topk"),
+    "scan_topk_bf16": (r"box_scan_kernel<__nv_bfloat16, \w+, false>",
+                       "scan_topk"),
+    "scan_topk_q8": (r"box_scan_kernel<signed char, \w+, false>",
+                     "scan_topk_q8"),
     "scan_topk_mask": ("mask_partial_kernel", "scan_topk_mask"),
-    "scan_topk_windows": ("windows_partial_kernel", "scan_topk_windows"),
+    "scan_topk_windows": (r"box_scan_kernel<float, \w+, true>",
+                          "scan_topk_windows"),
     "l2dist_qn": ("l2dist_qn_kernel", "l2dist_qn"),
     "l2dist_qc": ("l2dist_qc_kernel", "l2dist_qc")}
 
@@ -1049,7 +1074,7 @@ def trace_programs(tag, di, p, Q, lo, hi, parts, planner=None) -> None:
         for nm, n in launched.items():
             sym, wrapper[nm] = HAND_KERNELS[nm]
             want[sym] = want.get(sym, 0) + n
-            seen[sym] = sum(sym in dn for dn in dev_names)
+            seen[sym] = sum(bool(re.search(sym, dn)) for dn in dev_names)
         missing = [sym for sym in want if seen[sym] < want[sym]]
         if not missing:
             continue
@@ -1205,7 +1230,8 @@ def hybrid_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts,
     with a walk (the served boxes' antichains hold nodes of up to ~8k
     rows). At the cell's threshold the
     windowed kernel is first held to its plain version at the windows of
-    the served 1/64 boxes. Each threshold serves the same warm-up pass
+    the served 1/64 boxes, then at those of every pure-window lane (the
+    traced program's one windowed call). Each threshold serves the same warm-up pass
     and bursts through KHIService. Every pure-window lane must give the
     f32 truth's ids; on the 1/64 lanes the numpy antichain + windowed
     scan over the DFS order (smoke_reference.py) must agree; every mixed
@@ -1238,17 +1264,30 @@ def hybrid_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts,
         mode = plan.mode
         if node_thr == 0:
             # the windowed kernel at the served 1/64 boxes' windows (every
-            # 1/64 lane that takes windows, padded as the planner pads)
-            idx = np.nonzero(is_s & (mode >= 1))[0]
-            qs, ql, qh = pl._pad_pow2(Q[idx], lo[idx], hi[idx])
-            starts, counts, w_cap = pl._build_windows(plan.small_nodes, idx,
-                                                      qs.shape[0])
-            windows_check(pl._pos_vecs, pl._pos_attrs,
-                          *(torch.as_tensor(a).to(dev) for a in (qs, ql, qh)),
-                          starts[0].contiguous(), counts[0].contiguous(),
-                          cfg.k, rows, f"the windows of {len(idx)} served "
-                                       f"1/64 lanes (w_cap {w_cap})")
-            del starts, counts
+            # 1/64 lane that takes windows, padded as the planner pads),
+            # then at the windows of every pure-window lane (all of them
+            # here), the shape of the traced hybrid program's windowed call
+            for part, sel in (("1/64", is_s & (mode >= 1)),
+                              ("all", mode == 1)):
+                idx = np.nonzero(sel)[0]
+                qs, ql, qh = pl._pad_pow2(Q[idx], lo[idx], hi[idx])
+                starts, counts, w_cap = pl._build_windows(
+                    plan.small_nodes, idx, qs.shape[0])
+                r = windows_check(
+                    pl._pos_vecs, pl._pos_attrs,
+                    *(torch.as_tensor(a).to(dev) for a in (qs, ql, qh)),
+                    starts[0].contiguous(), counts[0].contiguous(), cfg.k,
+                    f"the windows of {len(idx)} served {part} lanes (w_cap "
+                    f"{w_cap})")
+                if part == "1/64":
+                    rows["scan_topk_windows"] = r
+                else:
+                    rows["scan_topk_windows"]["all_lanes"] = {
+                        key: r[key] for key in (
+                            "ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "max_abs_err", "tiles",
+                            "pre_pass_ms", "empty_boxes_ms")}
+                del starts, counts
 
         # serve, recording each window batch's (lanes, W, w_cap)
         shapes = []

@@ -23,8 +23,8 @@
 // mask[r] > 0 (NaN fails) instead of the box; the windowed form only looks
 // at rows inside the lane's windows and returns their positions.
 //
-// Bound on the H100: it depends on the boxes. Reading the corpus and
-// attrs once is ~3.1 GB at N=1M, d=768 in f32 (~0.92 ms at 3.35 TB/s),
+// Bound on the H100 (the windowed form's comes with its design below): it
+// depends on the boxes. Reading the corpus and attrs once is ~3.1 GB at N=1M, d=768 in f32 (~0.92 ms at 3.35 TB/s),
 // ~1.55 GB in bf16 (~0.46 ms) and ~0.79 GB in int8 (~0.24 ms). Only
 // (query, row) pairs whose row passes the box need a distance, 3 flops
 // per dimension (sub + fma): with every pair passing that is 5.9e11 flop
@@ -44,11 +44,7 @@
 // dimension) make 4.75 ms at 67 TFLOP/s for chip_smoke.py's 539,333
 // passing rows x 256 queries x 768, the bound; the direct form needs two
 // fp32 instructions (sub, fma) per (pair, dimension), 2.12e11 there: 6.3
-// ms at one instruction a lane a cycle is its ceiling. The windowed form
-// reads, per lane, the attrs of every row its windows cover and the
-// vector of each such row that passes the box (the TPU kernel reads every
-// covered vector): its bound is covered rows x m x 4 + passing rows x d x
-// 4 bytes, each row a one-query dot product, so it is bound by bytes.
+// ms at one instruction a lane a cycle is its ceiling.
 //
 // Design: on the TPU the grid walks N in order and carries the running
 // top-k from step to step. H100 blocks run in no order, so this is two
@@ -117,18 +113,27 @@
 // ties are the box scan's bit for bit on the same rows; pass 2 is the box
 // scan's.
 //
-// The windowed form (windows_partial_kernel) has one block per (lane,
-// window, chunk of at most `chunk_rows` rows), so a 100k-row window is not
-// serialised: the wrapper lays the items out by an inclusive prefix sum of
-// each window's chunk count, and a block finds its window by binary search
-// in it. A block reads only the rows of its chunk that lie inside the
-// window (no padding past a window's count, unlike the TPU kernel's fixed
-// (w_cap, d) DMA), one warp per row: the attrs first, then the distance
-// with the lanes striding over d and a shuffle sum. The block keeps its
-// chunk's top-k by (distance, position) in k rounds of a block arg-min,
-// and pass 2 merges each lane's items, whose range the wrapper gives as
-// per-lane offsets. Positions are unique, so the (distance, position)
-// order is the reference's tie order whatever order the blocks ran in.
+// The windowed form is the f32 box scan with a coverage mask. Windows are
+// DFS extents of tree nodes, so across lanes they nest or do not meet, and
+// a row that many lanes cover would be read once per lane by a block per
+// (lane, window). Instead a pre-pass (window_cover_kernel, a thread per
+// window, a warp per long one) sets each window's rows, clipped to [0,
+// N), in a zeroed (B, ceil(N / 32)) bitmap -- whole words stored, the two
+// edge words atomicOr'ed, since two windows of a lane may share a word
+// (and overlapping windows then give their union) -- and marks, per
+// (query block, row tile), whether any lane of the block covers the
+// tile. Pass 1
+// is box_scan_kernel<float, VEC, true>: a tile that no lane of its block
+// covers is skipped before its attrs are staged, and each box-test word
+// is ANDed with the lane's coverage word, so everything after (class
+// counts, sparse and dense rounds, fold) is the box scan's and each
+// covered row tile is read once per query block. Pass 2 is the box scan's
+// merge. The ids are positions, unique, so the (distance, position) order
+// is the reference's tie order, and a lane whose windows cover [0, N)
+// gets the box scan's answer bit for bit. Its bound: the attrs of every
+// covered row and the vector of every row that passes a covering lane's
+// box, each read once, and 3 flops per dimension of each passing (lane,
+// row) pair.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -364,14 +369,18 @@ __device__ __forceinline__ void stream_slabs(
 // queries [y * BQ, y * BQ + BQ) and takes row tiles from sched[y] until
 // they run out; sched[gridDim.y + 0..2] count empty, sparse and dense
 // tiles. Writes its top-k to part_d/part_i[(b * gridDim.x + x) * k + j].
-template <typename T, bool VEC>
+// The windowed form (WIN) also reads `cov`: the (B, ceil(N / 32)) coverage
+// bitmap, then the (gridDim.y, ntiles) byte flags of the tiles some lane
+// of a query block covers; sched[gridDim.y] counts the tiles it skips
+// uncovered, and the empty, sparse and dense counts follow.
+template <typename T, bool VEC, bool WIN>
 __global__ void __launch_bounds__(BT, 1)
 box_scan_kernel(const T* __restrict__ corpus, const float* __restrict__ scale,
                 const float* __restrict__ attrs, const float* __restrict__ q,
                 const float* __restrict__ qlo, const float* __restrict__ qhi,
-                float* __restrict__ part_d, int* __restrict__ part_i,
-                int* __restrict__ sched, int B, int N, int d, int m, int k,
-                int tr) {
+                const unsigned* __restrict__ cov, float* __restrict__ part_d,
+                int* __restrict__ part_i, int* __restrict__ sched, int B,
+                int N, int d, int m, int k, int tr) {
   extern __shared__ float4 bsm4[];
   float* stage = reinterpret_cast<float*>(bsm4);
   const int stage_words = (BQ + tr) * SLD;
@@ -397,7 +406,7 @@ box_scan_kernel(const T* __restrict__ corpus, const float* __restrict__ scale,
   const int nq = min(BQ, B - q0);
   const int ntiles = (N + tr - 1) / tr;
   const int nw = tr / 32;
-  int* stats = sched + gridDim.y;
+  int* stats = sched + gridDim.y + (WIN ? 1 : 0);
 
   for (int e = tid; e < k * BQ; e += BT) {
     topd[e] = CUDART_INF_F;
@@ -417,6 +426,14 @@ box_scan_kernel(const T* __restrict__ corpus, const float* __restrict__ scale,
     __syncthreads();
     const int tile = misc[0];
     if (tile >= ntiles) break;
+    if constexpr (WIN) {               // no lane of the block covers it
+      const unsigned char* tflag = reinterpret_cast<const unsigned char*>(
+          cov + (size_t)B * ((N + 31) >> 5));
+      if (!tflag[(size_t)blockIdx.y * ntiles + tile]) {
+        if (tid == 0) atomicAdd(stats - 1, 1);
+        continue;
+      }
+    }
     const long long r0 = (long long)tile * tr;
     const int nr = (int)min((long long)tr, N - r0);
     // attrs rows of MMAX floats: 0 past m (the box is open there), NaN past
@@ -458,6 +475,11 @@ box_scan_kernel(const T* __restrict__ corpus, const float* __restrict__ scale,
                  (y.w >= lo[7]) & (y.w <= hi[7]);
           }
           b |= (unsigned)ok << rr;
+        }
+        if constexpr (WIN) {           // only the rows the lane covers
+          const int nwords = (N + 31) >> 5, wg = (int)(r0 >> 5) + w;
+          b &= qi < nq && wg < nwords
+                   ? cov[(size_t)(q0 + qi) * nwords + wg] : 0u;
         }
         bits[w * BQ + qi] = b;
       }
@@ -748,10 +770,8 @@ __device__ __forceinline__ void block_lex_min(float& bd, int& bi, float* sd,
 // The k smallest finite (d[e], id[e]) of e in [0, total) by (distance, id),
 // ids unique, written to out_d/out_i[0..k) with (+inf, -1) past the finite
 // count: k rounds of a block arg-min, each above the previous round's pick.
-// `id` null means id[e] = id0 + e.
-__device__ void block_topk(const float* d, const int* id, int id0, int total,
-                           int k, float* out_d, int* out_i, float* sd,
-                           int* si) {
+__device__ void block_topk(const float* d, const int* id, int total, int k,
+                           float* out_d, int* out_i, float* sd, int* si) {
   const int tid = threadIdx.x;
   float prev_d = -CUDART_INF_F;
   int prev_i = -1;
@@ -763,7 +783,7 @@ __device__ void block_topk(const float* d, const int* id, int id0, int total,
       for (int e = tid; e < total; e += blockDim.x) {
         const float dv = d[e];
         if (!(dv < CUDART_INF_F)) continue;
-        const int iv = id ? id[e] : id0 + e;
+        const int iv = id[e];
         if (lex_less(prev_d, prev_i, dv, iv) && lex_less(dv, iv, bd, bi)) {
           bd = dv;
           bi = iv;
@@ -781,94 +801,76 @@ __device__ void block_topk(const float* d, const int* id, int id0, int total,
   }
 }
 
-// Pass 2: one block per query merges its partials. With lane_off null
-// query b owns nchunks partials of k; else it owns partials
-// [lane_off[b], lane_off[b + 1]).
+// Pass 2: one block per query merges its nchunks partials of k.
 __global__ void __launch_bounds__(256)
 scan_merge_kernel(const float* __restrict__ part_d,
-                  const int* __restrict__ part_i,
-                  const int* __restrict__ lane_off, int* __restrict__ out_i,
+                  const int* __restrict__ part_i, int* __restrict__ out_i,
                   float* __restrict__ out_d, int nchunks, int k) {
   __shared__ float sd[32];
   __shared__ int si[32];
-  const int b = blockIdx.x;
-  const size_t begin = lane_off ? (size_t)lane_off[b] : (size_t)b * nchunks;
-  const int total =
-      (lane_off ? lane_off[b + 1] - lane_off[b] : nchunks) * k;
-  block_topk(part_d + begin * k, part_i + begin * k, 0, total, k,
-             out_d + (size_t)b * k, out_i + (size_t)b * k, sd, si);
+  const size_t b = blockIdx.x;
+  block_topk(part_d + b * nchunks * k, part_i + b * nchunks * k, nchunks * k,
+             k, out_d + b * k, out_i + b * k, sd, si);
 }
 
-// Windowed pass 1: block `item` owns chunk c of window j = (lane b, w),
-// where offs (B*W, inclusive prefix sum of each live window's chunk count)
-// gives offs[j-1] <= item < offs[j]. Writes that chunk's top-k positions.
-__global__ void __launch_bounds__(256)
-windows_partial_kernel(const float* __restrict__ corpus,
-                       const float* __restrict__ attrs,
-                       const float* __restrict__ q,
-                       const float* __restrict__ qlo,
-                       const float* __restrict__ qhi,
-                       const int* __restrict__ starts,
-                       const int* __restrict__ counts,
-                       const int* __restrict__ offs,
-                       float* __restrict__ part_d, int* __restrict__ part_i,
-                       int BW, int W, int N, int d, int m, int k,
-                       int chunk_rows) {
-  extern __shared__ float wsm[];
-  float* qs = wsm;                          // the lane's query, d floats
-  float* Dt = wsm + d;                      // chunk_rows distances
-  __shared__ float QL[MMAX], QH[MMAX];
-  __shared__ float sd[32];
-  __shared__ int si[32];
-  const int item = blockIdx.x;
-  int lo = 0, hi = BW - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (offs[mid] > item) hi = mid; else lo = mid + 1;
+// Sets rows [s, e) of one lane's bitmap row in words w0, w0 + step, ...:
+// whole words stored, the two edge words atomicOr'ed (two windows of a
+// lane may share them), and flags their tiles t0, t0 + step, ... in tf
+// (tiles of 1 << tsh rows; a flag is read before it is stored, since many
+// windows meet one tile).
+__device__ __forceinline__ void cover_rows(unsigned* row, unsigned char* tf,
+                                           int s, int e, int tsh, int w0,
+                                           int t0, int step) {
+  for (int w = w0; w <= (e - 1) >> 5; w += step) {
+    const int lo = max(s, w << 5), hi = min(e, (w + 1) << 5);
+    const int n = hi - lo, sh = lo - (w << 5);
+    if (n == 32) row[w] = 0xffffffffu;
+    else atomicOr(row + w, ((1u << n) - 1u) << sh);
   }
-  const int j = lo, b = j / W;
-  const int cnt = counts[j];
-  const int nch = (cnt + chunk_rows - 1) / chunk_rows;
-  const long long r0 = (long long)starts[j] +
-                       (long long)(item - (offs[j] - nch)) * chunk_rows;
-  long long r1 = (long long)starts[j] + cnt;
-  if (r1 > N) r1 = N;                       // rows past N do not exist
-  if (r1 > r0 + chunk_rows) r1 = r0 + chunk_rows;
-  const int nr = r1 > r0 ? (int)(r1 - r0) : 0;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
+  for (int t = t0; t <= (e - 1) >> tsh; t += step)
+    if (!tf[t]) tf[t] = 1;
+}
 
-  for (int e = tid; e < d; e += blockDim.x) qs[e] = q[(size_t)b * d + e];
-  if (tid < m) {
-    QL[tid] = qlo[(size_t)b * m + tid];
-    QH[tid] = qhi[(size_t)b * m + tid];
+// The windowed form's pre-pass: thread j reads window j = b * W + w of the
+// (B, W) starts/counts and sets its rows [start, start + count), clipped
+// to [0, N), in cov[b * nwords + r / 32] (bit r % 32) -- a pad window
+// (start < 0 or count <= 0) sets none -- and flags each tile of 1 << tsh
+// rows it meets in tflag[(b / BQ) * ntiles + t]. The planner pads each
+// lane to W windows, a power of two that reaches 65,536 in served
+// batches, and most live windows are a few words long, so a thread sets a
+// window of up to 32 words alone, and the warp's lanes share each longer
+// one. All in 32-bit arithmetic, tiles by shifts: a 64-bit division is a
+// routine of tens of instructions.
+__global__ void __launch_bounds__(256)
+window_cover_kernel(const int* __restrict__ starts,
+                    const int* __restrict__ counts, unsigned* __restrict__ cov,
+                    unsigned char* __restrict__ tflag, int BW, int W, int N,
+                    int nwords, int ntiles, int tsh) {
+  const int lane = threadIdx.x & 31;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  int s = 0, e = 0;                                // e = 0: nothing to set
+  if (j < BW) {
+    s = starts[j];
+    const int c = counts[j];
+    if (s >= 0 && c > 0 && s < N)
+      e = (int)min((long long)s + c, (long long)N);
   }
-  __syncthreads();
-  for (int r = warp; r < nr; r += nwarps) {
-    const size_t row = (size_t)(r0 + r);
-    bool ok = true;
-    for (int a = 0; a < m; ++a) {
-      const float v = __ldg(attrs + row * m + a);
-      ok = ok && (v >= QL[a]) && (v <= QH[a]);
-    }
-    float dv = CUDART_INF_F;
-    if (ok) {                               // the same in every lane
-      const float* x = corpus + row * d;
-      float acc = 0.f;
-#pragma unroll 4
-      for (int e = lane; e < d; e += 32) {
-        const float t = qs[e] - __ldg(x + e);
-        acc = fmaf(t, t, acc);
-      }
-      for (int o = 16; o > 0; o >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      dv = acc;
-    }
-    if (lane == 0) Dt[r] = dv;
+  const int b = j / W;
+  const bool big = e > 0 && ((e - 1) >> 5) - (s >> 5) >= 32;
+  if (e > 0 && !big)
+    cover_rows(cov + (size_t)b * nwords, tflag + (size_t)(b / BQ) * ntiles,
+               s, e, tsh, s >> 5, s >> tsh, 1);
+  unsigned live = __ballot_sync(0xffffffffu, big);
+  while (live) {
+    const int src = __ffs(live) - 1;
+    live &= live - 1u;
+    const int ws = __shfl_sync(0xffffffffu, s, src);
+    const int we = __shfl_sync(0xffffffffu, e, src);
+    const int wb = __shfl_sync(0xffffffffu, b, src);
+    cover_rows(cov + (size_t)wb * nwords,
+               tflag + (size_t)(wb / BQ) * ntiles, ws, we, tsh,
+               (ws >> 5) + lane, (ws >> tsh) + lane, 32);
   }
-  __syncthreads();
-  block_topk(Dt, nullptr, (int)r0, nr, k, part_d + (size_t)item * k,
-             part_i + (size_t)item * k, sd, si);
 }
 
 // ---- the bitmask scan: compaction, then pass 1 over the passing rows
@@ -1114,11 +1116,12 @@ mask_partial_kernel(const float* __restrict__ corpus,
   }
 }
 
-template <typename T>
+template <typename T, bool WIN>
 int launch(const void* corpus, const void* scale, const void* attrs,
-           const void* q, const void* qlo, const void* qhi, void* part_d,
-           void* part_i, void* sched, void* out_i, void* out_d, int B, int N,
-           int d, int m, int k, int tr, int blocks, int smem, void* stream) {
+           const void* q, const void* qlo, const void* qhi, const void* cov,
+           void* part_d, void* part_i, void* sched, void* out_i, void* out_d,
+           int B, int N, int d, int m, int k, int tr, int blocks, int smem,
+           void* stream) {
   if (B == 0) return 0;
   if (k < 1 || k > KMAX || m < 1 || m > MMAX || N < 1 || blocks < 1 ||
       (tr != 64 && tr != 128 && tr != 256) ||
@@ -1127,48 +1130,56 @@ int launch(const void* corpus, const void* scale, const void* attrs,
   const int qblocks = (B + BQ - 1) / BQ;
   if (qblocks > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = (cudaStream_t)stream;
-  // the tile counters and the (empty, sparse, dense) tile counts
-  cudaError_t e = cudaMemsetAsync(sched, 0, (qblocks + 3) * sizeof(int), s);
+  // the tile counters, the windowed form's uncovered count and the
+  // (empty, sparse, dense) tile counts
+  cudaError_t e = cudaMemsetAsync(sched, 0, (qblocks + 3 + WIN) * sizeof(int),
+                                  s);
   if (e != cudaSuccess) return (int)e;
   const bool vec = d % Vec<T>::V == 0 && ((uintptr_t)corpus & 15) == 0 &&
                    ((uintptr_t)q & 15) == 0;
-  auto kern = vec ? box_scan_kernel<T, true> : box_scan_kernel<T, false>;
+  auto kern = vec ? box_scan_kernel<T, true, WIN>
+                  : box_scan_kernel<T, false, WIN>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<dim3(blocks, qblocks), BT, smem, s>>>(
       (const T*)corpus, (const float*)scale, (const float*)attrs,
-      (const float*)q, (const float*)qlo, (const float*)qhi, (float*)part_d,
-      (int*)part_i, (int*)sched, B, N, d, m, k, tr);
+      (const float*)q, (const float*)qlo, (const float*)qhi,
+      (const unsigned*)cov, (float*)part_d, (int*)part_i, (int*)sched, B, N,
+      d, m, k, tr);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   scan_merge_kernel<<<B, 256, 0, s>>>((const float*)part_d,
-                                      (const int*)part_i, nullptr,
-                                      (int*)out_i, (float*)out_d, blocks, k);
+                                      (const int*)part_i, (int*)out_i,
+                                      (float*)out_d, blocks, k);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One entry per corpus kind. `scale` is read only by the int8 (q8) entry;
-// the others take a null pointer. part_d/part_i hold B * blocks * k
-// entries, sched ceil(B / 256) + 3 ints; smem is ops._scan_plan's, which
-// must equal box_scan_smem_words(tr, k) * 4.
-#define SCAN_ENTRY(NAME, T)                                                  \
-  extern "C" int NAME(const void* corpus, const void* scale,                 \
+// One entry per form. `side` is the int8 (q8) entry's per-row scale, the
+// windowed entry's coverage (window_cover's, at the same B, N and tr:
+// the scan reads only the rows it marks, and returns positions), null
+// for the others. part_d/part_i hold B * blocks * k entries, sched
+// ceil(B / 256) + 3 ints (+ 4 for the windowed form); smem is
+// ops._scan_plan's, which must equal box_scan_smem_words(tr, k) * 4.
+#define SCAN_ENTRY(NAME, T, WIN)                                             \
+  extern "C" int NAME(const void* corpus, const void* side,                  \
                       const void* attrs, const void* q, const void* qlo,     \
                       const void* qhi, void* part_d, void* part_i,           \
                       void* sched, void* out_i, void* out_d, int B, int N,   \
                       int d, int m, int k, int tr, int blocks, int smem,     \
                       void* stream) {                                        \
-    return launch<T>(corpus, scale, attrs, q, qlo, qhi, part_d, part_i,      \
-                     sched, out_i, out_d, B, N, d, m, k, tr, blocks, smem,   \
-                     stream);                                                \
+    return launch<T, WIN>(corpus, WIN ? nullptr : side, attrs, q, qlo, qhi,  \
+                          WIN ? side : nullptr, part_d, part_i, sched,       \
+                          out_i, out_d, B, N, d, m, k, tr, blocks, smem,     \
+                          stream);                                           \
   }
 
-SCAN_ENTRY(scan_topk_f32, float)
-SCAN_ENTRY(scan_topk_bf16, __nv_bfloat16)
-SCAN_ENTRY(scan_topk_q8, int8_t)
+SCAN_ENTRY(scan_topk_f32, float, false)
+SCAN_ENTRY(scan_topk_bf16, __nv_bfloat16, false)
+SCAN_ENTRY(scan_topk_q8, int8_t, false)
+SCAN_ENTRY(scan_topk_windows_f32, float, true)
 
 // The bitmask scan over an f32 corpus: mask (N) f32, > 0 passes (NaN
 // fails). scratch holds 2 * N + 1 ints, enough for any SEG: the compacted
@@ -1210,45 +1221,34 @@ extern "C" int scan_topk_mask_f32(const void* corpus, const void* mask,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   scan_merge_kernel<<<B, 256, 0, s>>>((const float*)part_d,
-                                      (const int*)part_i, nullptr,
-                                      (int*)out_i, (float*)out_d, nchunks,
-                                      k);
+                                      (const int*)part_i, (int*)out_i,
+                                      (float*)out_d, nchunks, k);
   return (int)cudaGetLastError();
 }
 
-// The windowed scan over a position-ordered f32 corpus. starts/counts are
-// (B, W); offs (B*W) is the inclusive prefix sum of each window's chunk
-// count (0 for a pad window: start < 0 or count <= 0), lane_off (B+1) the
-// items each lane starts at, `items` = offs[B*W-1]; part_d/part_i hold
-// items * k entries. Outputs are positions.
-extern "C" int scan_topk_windows_f32(
-    const void* corpus, const void* attrs, const void* q, const void* qlo,
-    const void* qhi, const void* starts, const void* counts, const void* offs,
-    const void* lane_off, void* part_d, void* part_i, void* out_i,
-    void* out_d, int B, int W, int N, int d, int m, int k, int chunk_rows,
-    int items, void* stream) {
+// The windowed scan's coverage over N rows and tr-row tiles: starts/counts
+// (B, W) int32; cover holds B * ceil(N / 32) words of bitmap, then
+// ceil(B / 256) * ceil(N / tr) bytes of tile flags. Zeroes it, then sets
+// each live window's rows and tiles.
+extern "C" int window_cover(const void* starts, const void* counts,
+                            void* cover, int B, int W, int N, int tr,
+                            void* stream) {
   if (B == 0) return 0;
-  if (k < 1 || k > KMAX || m < 1 || m > MMAX || N < 1 || W < 1 ||
-      chunk_rows < 1)
+  if (W < 1 || N < 1 || N > INT_MAX - 32 || tr < 1 || (tr & (tr - 1)))
     return (int)cudaErrorInvalidValue;
+  if ((long long)B * W > INT_MAX - 255)
+    return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = (cudaStream_t)stream;
-  if (items > 0) {
-    const int smem = (d + chunk_rows) * (int)sizeof(float);
-    cudaError_t e = cudaFuncSetAttribute(
-        windows_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return (int)e;
-    windows_partial_kernel<<<items, 256, smem, s>>>(
-        (const float*)corpus, (const float*)attrs, (const float*)q,
-        (const float*)qlo, (const float*)qhi, (const int*)starts,
-        (const int*)counts, (const int*)offs, (float*)part_d, (int*)part_i,
-        B * W, W, N, d, m, k, chunk_rows);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  scan_merge_kernel<<<B, 256, 0, s>>>((const float*)part_d,
-                                      (const int*)part_i,
-                                      (const int*)lane_off, (int*)out_i,
-                                      (float*)out_d, 0, k);
+  const int nwords = (N + 31) / 32, ntiles = (N + tr - 1) / tr;
+  const size_t qblocks = (B + BQ - 1) / BQ;
+  unsigned* cov = (unsigned*)cover;
+  unsigned char* tflag = (unsigned char*)(cov + (size_t)B * nwords);
+  cudaError_t e = cudaMemsetAsync(
+      cover, 0, (size_t)B * nwords * sizeof(unsigned) + qblocks * ntiles, s);
+  if (e != cudaSuccess) return (int)e;
+  const int BW = B * W;
+  window_cover_kernel<<<(BW + 255) / 256, 256, 0, s>>>(
+      (const int*)starts, (const int*)counts, cov, tflag, BW, W, N, nwords,
+      ntiles, __builtin_ctz(tr));
   return (int)cudaGetLastError();
 }

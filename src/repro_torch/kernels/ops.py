@@ -35,7 +35,8 @@ LAUNCHES = {"gather_l2_filter": 0, "gather_l2_filter_bf16": 0,
             "l2dist_qc": 0}
 
 # the box scan's last launch per form: a device tensor of its (empty,
-# sparse, dense) tile counts, summed over query blocks
+# sparse, dense) tile counts, summed over query blocks; the windowed form's
+# leads with the tiles no lane of a query block covers
 SCAN_TILES = {}
 
 _P = ctypes.c_void_p
@@ -306,7 +307,10 @@ def _scan_buffers(B: int, nchunks: int, k: int, dev):
     return part_d, part_i, ids, dists
 
 
-def _launch_scan(kind: str, corpus, scale, attrs, q, qlo, qhi, k: int):
+def _launch_scan(kind: str, corpus, scale, attrs, q, qlo, qhi, k: int,
+                 windows=None):
+    """The box scan's launch; with ``windows`` = (starts, counts) its
+    windowed form, which takes the coverage in the scale's place."""
     N, d = corpus.shape
     B, m = qlo.shape
     if k > 64:
@@ -316,16 +320,22 @@ def _launch_scan(kind: str, corpus, scale, attrs, q, qlo, qhi, k: int):
     dev = corpus.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = _scan_plan(B, N, k, sms)
+    name = "scan_topk" if kind == "f32" else f"scan_topk_{kind}"
+    sym = f"scan_topk_{kind}"
+    if windows is not None:
+        scale = _window_cover(*windows, N, plan)
+        name, sym = "scan_topk_windows", "scan_topk_windows_f32"
     part_d, part_i, ids, dists = _scan_buffers(B, plan.blocks, k, dev)
-    # the tile counters, then the (empty, sparse, dense) tile counts
-    sched = torch.empty(plan.query_blocks + 3, dtype=torch.int32, device=dev)
-    f = _fn("scan_topk", f"scan_topk_{kind}", [_P] * 11 + [_I] * 8 + [_P])
+    # the tile counters, the windowed form's uncovered count, then the
+    # (empty, sparse, dense) tile counts
+    sched = torch.empty(plan.query_blocks + 3 + (windows is not None),
+                        dtype=torch.int32, device=dev)
+    f = _fn("scan_topk", sym, [_P] * 11 + [_I] * 8 + [_P])
     rc = f(corpus.data_ptr(), None if scale is None else scale.data_ptr(),
            attrs.data_ptr(), q.data_ptr(), qlo.data_ptr(), qhi.data_ptr(),
            part_d.data_ptr(), part_i.data_ptr(), sched.data_ptr(),
            ids.data_ptr(), dists.data_ptr(), B, N, d, m, k, plan.tile_rows,
            plan.blocks, plan.smem, _stream(dev))
-    name = "scan_topk" if kind == "f32" else f"scan_topk_{kind}"
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     SCAN_TILES[name] = sched[plan.query_blocks:]
@@ -397,9 +407,23 @@ def scan_topk_mask(corpus: torch.Tensor, mask: torch.Tensor,
     return ids, dists
 
 
-# rows a block of the windowed scan reads at most: a window of more rows
-# spreads over several blocks
-WINDOW_CHUNK_ROWS = 1024
+def _window_cover(starts: torch.Tensor, counts: torch.Tensor, N: int,
+                  plan: ScanPlan) -> torch.Tensor:
+    """The windowed scan's pre-pass on the card: starts/counts (B, W) int32
+    -> an int32 buffer holding the (B, ceil(N / 32)) coverage bitmap (bit
+    r % 32 of word r // 32 set iff row r lies in one of the lane's windows,
+    as ``ref.window_cover_ref``), then one byte per (query block, row tile
+    of ``plan``), 1 where some lane of the block covers the tile."""
+    B, W = starts.shape
+    nwords = -(-N // 32)
+    flag_words = -(-plan.query_blocks * plan.tiles // 4)
+    cover = torch.empty(B * nwords + flag_words, dtype=torch.int32,
+                        device=starts.device)
+    f = _fn("scan_topk", "window_cover", [_P] * 3 + [_I] * 4 + [_P])
+    rc = f(starts.data_ptr(), counts.data_ptr(), cover.data_ptr(), B, W, N,
+           plan.tile_rows, _stream(starts.device))
+    _raise_on(rc, "window_cover")
+    return cover
 
 
 def scan_topk_windows(corpus: torch.Tensor, attrs: torch.Tensor,
@@ -410,8 +434,9 @@ def scan_topk_windows(corpus: torch.Tensor, attrs: torch.Tensor,
     q (B, d), qlo/qhi (B, m) f32, starts/counts (B, W) int32 (start < 0
     pads a window) -> (positions (B, k) int32, dists (B, k) f32),
     ascending by (distance, position), (-1, +inf) past the passing count.
-    The kernel reads only the rows inside each window (no row past a
-    window's count or past N) and takes k <= 64 and m <= 8."""
+    The kernel is the f32 box scan over the rows the windows cover (a
+    (B, ceil(N / 32)) bitmap, B * N / 8 bytes of scratch) and takes
+    k <= 64 and m <= 8."""
     dev = _device_of(corpus, attrs, q, qlo, qhi, starts, counts)
     _check(corpus, "corpus", torch.float32, 2)
     for t, nm in ((attrs, "attrs"), (q, "q"), (qlo, "qlo"), (qhi, "qhi")):
@@ -433,32 +458,11 @@ def scan_topk_windows(corpus: torch.Tensor, attrs: torch.Tensor,
         raise ValueError(f"the scan kernel takes k <= 64, got {k}")
     if m > 8:
         raise ValueError(f"the scan kernel takes m <= 8 attributes, got {m}")
-    W = starts.shape[1]
-    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
-    dists = torch.empty((B, k), dtype=torch.float32, device=dev)
-    if B == 0:
-        return ids, dists
-    if W == 0:
-        return ids.fill_(-1), dists.fill_(_ref._INF)
-    ch = WINDOW_CHUNK_ROWS
-    live = (starts >= 0) & (counts > 0)
-    nch = torch.where(live, (counts + (ch - 1)) // ch,
-                      torch.zeros_like(counts))
-    offs = torch.cumsum(nch.reshape(-1), 0, dtype=torch.int32)
-    lane_off = torch.zeros(B + 1, dtype=torch.int32, device=dev)
-    lane_off[1:] = offs.view(B, W)[:, -1]
-    items = int(lane_off[-1])
-    part_d = torch.empty((max(items, 1), k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((max(items, 1), k), dtype=torch.int32, device=dev)
-    f = _fn("scan_topk", "scan_topk_windows_f32", [_P] * 13 + [_I] * 8 + [_P])
-    rc = f(corpus.data_ptr(), attrs.data_ptr(), q.data_ptr(),
-           qlo.data_ptr(), qhi.data_ptr(), starts.data_ptr(),
-           counts.data_ptr(), offs.data_ptr(), lane_off.data_ptr(),
-           part_d.data_ptr(), part_i.data_ptr(), ids.data_ptr(),
-           dists.data_ptr(), B, W, N, d, m, k, ch, items, _stream(dev))
-    _raise_on(rc, "scan_topk_windows")
-    LAUNCHES["scan_topk_windows"] += 1
-    return ids, dists
+    if B == 0 or starts.shape[1] == 0:
+        ids = torch.full((B, k), -1, dtype=torch.int32, device=dev)
+        return ids, torch.full((B, k), _ref._INF, device=dev)
+    return _launch_scan("f32", corpus, None, attrs, q, qlo, qhi, k,
+                        windows=(starts, counts))
 
 
 def l2dist_qn(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

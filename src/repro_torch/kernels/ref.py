@@ -20,7 +20,8 @@ __all__ = ["CALLS", "reset_calls", "lex_smallest", "l2dist_qn_ref",
            "l2dist_qc_ref", "l2dist_qc_direct", "qc_tile_width",
            "gather_l2_ref", "gather_l2_filter_ref", "scan_topk_ref",
            "gather_l2_filter_q8_ref", "scan_topk_q8_ref",
-           "scan_topk_mask_ref", "scan_topk_windows_ref"]
+           "scan_topk_mask_ref", "scan_topk_windows_ref",
+           "window_cover_ref"]
 
 CALLS = {name: {"cpu": 0, "cuda": 0}
          for name in ("gather_l2_filter", "scan_topk", "l2dist_qn",
@@ -355,3 +356,28 @@ def scan_topk_windows_ref(corpus: torch.Tensor, attrs: torch.Tensor,
             dists[lane[sel], rank[sel]] = dist[sel]
         b0 = b1
     return ids, dists
+
+
+def window_cover_ref(starts: torch.Tensor, counts: torch.Tensor,
+                     N: int) -> torch.Tensor:
+    """The rows each lane's windows cover, packed as the windowed kernel's
+    pre-pass packs them: starts/counts (B, W) int32 (a window with start
+    < 0 or count <= 0 is a pad) -> (B, ceil(N / 32)) int32 whose word
+    r // 32 has bit r % 32 set iff row r of [0, N) lies in one of the
+    lane's windows (their union: order and overlap do not matter)."""
+    B = starts.shape[0]
+    nwords = -(-N // 32)
+    dev = starts.device
+    st = starts.to(torch.int64)
+    live = (st >= 0) & (counts > 0)
+    s = torch.where(live, st.clamp(max=N), N)
+    e = torch.where(live, (st + counts.to(torch.int64)).clamp(max=N), N)
+    # +1 where a window starts, -1 where it ends: a row is covered where
+    # the running sum is positive
+    edge = torch.zeros((B, nwords * 32 + 1), dtype=torch.int64, device=dev)
+    edge.scatter_add_(1, s, torch.ones_like(s))
+    edge.scatter_add_(1, e, -torch.ones_like(e))
+    cov = edge.cumsum(1)[:, :nwords * 32] > 0
+    shift = torch.arange(32, device=dev, dtype=torch.int64)
+    words = (cov.view(B, nwords, 32).to(torch.int64) << shift).sum(-1)
+    return (words - ((words >> 31) << 32)).to(torch.int32)

@@ -86,11 +86,13 @@ def test_cuda_replica_kernels_match_plain_versions():
 
 @pytest.mark.gpu
 def test_cuda_windows_and_mask_kernels_match_plain_versions():
-    """The windowed scan (windows longer than one block's chunk, an empty
-    lane, windows that end at N and one that runs past it) and the
-    bitmask scan (NaN, zero and negative mask values) against their plain
-    versions. Ids are equal; distances within rtol 1e-5, atol 1e-4
-    (reduce order)."""
+    """The windowed scan (windows of thousands of rows, an empty lane,
+    windows that end at N and one that runs past it; then the windows of
+    ``_windows``: nesting across lanes, adjacent ones sharing a 32-row
+    word, one-row ones, W = 64, at B in {1, 37, 300}) and the bitmask scan
+    (NaN, zero and negative mask values) against their plain versions.
+    Ids are equal; distances within rtol 1e-5, atol 1e-4 (reduce
+    order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     dev = torch.device("cuda")
@@ -131,6 +133,60 @@ def test_cuda_windows_and_mask_kernels_match_plain_versions():
             rids, rdd = ref.scan_topk_mask_ref(corpus, mask, q, k)
             assert torch.equal(ids, rids)
             torch.testing.assert_close(dd, rdd, rtol=1e-5, atol=1e-4)
+        rng = np.random.default_rng(d)
+        for nb in (1, 37, 300):
+            qb = torch.randn((nb, d), generator=g, device=dev)
+            lob = torch.rand((nb, m), generator=g, device=dev) * 0.3
+            hib = lob + 0.7
+            st, ct = _windows(rng, nb, N, 64, dev)
+            for k in (1, 10, 64):
+                ids, dd = ops.scan_topk_windows(corpus, attrs, qb, lob, hib,
+                                                st, ct, k=k)
+                rids, rdd = ref.scan_topk_windows_ref(corpus, attrs, qb, lob,
+                                                      hib, st, ct, k)
+                assert torch.equal(ids, rids), (d, nb, k)
+                torch.testing.assert_close(dd, rdd, rtol=1e-5, atol=1e-4)
+
+
+def _windows(rng, B, N, W, dev):
+    """(B, W) int32 starts/counts as the hybrid planner builds them, and
+    harder: lane b takes, by b % 6, up to W random disjoint windows
+    ascending by start; lane b - 1's windows shrunk inside them (nesting
+    across lanes); windows that tile a random span back to back (adjacent
+    windows sharing 32-row words); one-row windows, rows 0 and N - 1
+    among them; a window ending exactly at N; one running past N. Lane
+    B // 2 of a batch of more than one has no window."""
+    st = np.full((B, W), -1, np.int64)
+    ct = np.zeros((B, W), np.int64)
+    for b in range(B):
+        kind = b % 6
+        if kind == 0 or (kind == 1 and b == 0):
+            nw = int(rng.integers(1, W + 1))
+            cut = np.sort(rng.choice(N, size=2 * nw, replace=False))
+            s, c = cut[0::2], cut[1::2] - cut[0::2]
+        elif kind == 1:
+            live = st[b - 1] >= 0
+            s = st[b - 1][live] + ct[b - 1][live] // 4
+            c = np.maximum(1, ct[b - 1][live] // 2)
+        elif kind == 2:
+            cut = np.sort(rng.choice(N, size=int(rng.integers(2, W + 2)),
+                                     replace=False))
+            s, c = cut[:-1], np.diff(cut)
+        elif kind == 3:
+            s = np.sort(rng.choice(N, size=int(rng.integers(1, W + 1)),
+                                   replace=False))
+            s[0], s[-1] = 0, N - 1
+            s = np.unique(s)
+            c = np.ones_like(s)
+        elif kind == 4:
+            s, c = np.array([10, N - 700]), np.array([300, 700])
+        else:
+            s, c = np.array([N - 45]), np.array([N])
+        st[b, :len(s)], ct[b, :len(s)] = s, c
+    if B > 1:
+        st[B // 2], ct[B // 2] = -1, 0
+    return (torch.as_tensor(st, dtype=torch.int32, device=dev),
+            torch.as_tensor(ct, dtype=torch.int32, device=dev))
 
 
 @pytest.mark.gpu
@@ -294,7 +350,10 @@ def test_cuda_kernels_bit_equal_on_grid_corpus():
     40, 64}, and lanes with an empty box, an all-pass box, a one-row box
     and boxes of about 5%, 30% and 60% of the rows (sparse tiles, sparse
     tiles of two rounds, dense tiles); then every lane all-pass (every
-    tile of the first query block dense)."""
+    tile of the first query block dense). The windowed scan at random
+    overlapping windows, at ``_windows``'s (nesting across lanes, shared
+    32-row words, one-row windows, a window ending at N and one past it,
+    an empty lane, W = 64) and at a batch with no window, k up to 64."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     dev = torch.device("cuda")
@@ -377,15 +436,119 @@ def test_cuda_kernels_bit_equal_on_grid_corpus():
                 want = ref.scan_topk_mask_ref(corpus, mask, q, k)
                 assert torch.equal(got[0], want[0]) and torch.equal(got[1],
                                                                     want[1])
-            st = torch.as_tensor(rng.integers(-1, N, size=(B, 3)),
-                                 dtype=torch.int32, device=dev)
-            ct = torch.as_tensor(rng.integers(0, 1500, size=(B, 3)),
-                                 dtype=torch.int32, device=dev)
+            # windows: random and overlapping (W = 3), the planner's kinds
+            # and harder ones (W = 64), and none at all
+            wins = [(torch.as_tensor(rng.integers(-1, N, size=(B, 3)),
+                                     dtype=torch.int32, device=dev),
+                     torch.as_tensor(rng.integers(0, 1500, size=(B, 3)),
+                                     dtype=torch.int32, device=dev)),
+                    _windows(rng, B, N, 64, dev),
+                    (torch.full((B, 2), -1, dtype=torch.int32, device=dev),
+                     torch.zeros((B, 2), dtype=torch.int32, device=dev))]
             blo, bhi = boxes[0]
+            for st, ct in wins:
+                for k in (1, 10, 40, 64):
+                    got = ops.scan_topk_windows(corpus, attrs, q, blo, bhi,
+                                                st, ct, k=k)
+                    want = ref.scan_topk_windows_ref(corpus, attrs, q, blo,
+                                                     bhi, st, ct, k)
+                    assert torch.equal(got[0], want[0]), (d, B, k)
+                    assert torch.equal(got[1], want[1]), (d, B, k)
+            assert bool((got[0] == -1).all())            # nothing covered
+
+
+@pytest.mark.gpu
+def test_cuda_window_cover_matches_plain_version():
+    """The windowed scan's pre-pass: its bitmap equal to
+    ``ref.window_cover_ref`` and its tile flags to the tiles some lane of
+    each 256-lane block covers, at ``_windows``'s windows, random
+    overlapping ones and one window per lane running far past N (N =
+    3001 and 4096, B in {1, 37, 300}, the tile heights of k = 10 and 64);
+    W = 1 with B = 1 included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    for N in (3001, 4096):
+        for B in (1, 37, 300):
+            wins = [_windows(rng, B, N, 64, dev),
+                    (torch.as_tensor(rng.integers(-1, N, size=(B, 5)),
+                                     dtype=torch.int32, device=dev),
+                     torch.as_tensor(rng.integers(-2, 900, size=(B, 5)),
+                                     dtype=torch.int32, device=dev)),
+                    (torch.as_tensor(rng.integers(0, N, size=(B, 1)),
+                                     dtype=torch.int32, device=dev),
+                     torch.full((B, 1), 2**31 - N, dtype=torch.int32,
+                                device=dev))]
+            for st, ct in wins:
+                want = ref.window_cover_ref(st, ct, N)
+                nwords = want.shape[1]
+                cov = want.cpu().numpy().view(np.uint32)
+                rows = ((cov[:, :, None] >> np.arange(32, dtype=np.uint32))
+                        & 1).reshape(B, -1)[:, :N].astype(bool)
+                for k in (10, 64):
+                    plan = ops._scan_plan(B, N, k, 132)
+                    got = ops._window_cover(st, ct, N, plan)
+                    assert torch.equal(got[:B * nwords].view(B, nwords),
+                                       want), (N, B, k)
+                    tr, nt = plan.tile_rows, plan.tiles
+                    pad = np.zeros((B, nt * tr), bool)
+                    pad[:, :N] = rows
+                    lanes = pad.reshape(B, nt, tr).any(-1)
+                    flags = np.zeros((plan.query_blocks, nt), np.uint8)
+                    for y in range(plan.query_blocks):
+                        flags[y] = lanes[256 * y:256 * (y + 1)].any(0)
+                    got_f = got[B * nwords:].cpu().numpy().view(np.uint8)
+                    np.testing.assert_array_equal(
+                        got_f[:plan.query_blocks * nt].reshape(flags.shape),
+                        flags)
+
+
+@pytest.mark.gpu
+def test_cuda_windows_covering_all_rows_equal_box_scan():
+    """On a float corpus, a windowed scan whose every lane's windows cover
+    [0, N) -- one window, windows tiling it back to back at random cuts
+    (edges inside 32-row words), overlapping windows, pads among them, a
+    window running past N -- is ``torch.equal`` to the f32 box scan on the
+    same rows: the same tiles, pass bits and fmaf chain, and positions
+    are row ids. d in {33, 96}, B in {1, 37, 300}, k in {1, 10, 64}, boxes
+    of about 5-60% of the rows, NaN attrs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    rng = np.random.default_rng(8)
+    N, m = 5000, 3
+    for d in (33, 96):
+        corpus = torch.randn((N, d), generator=g, device=dev)
+        attrs = torch.rand((N, m), generator=g, device=dev)
+        attrs[5::41, 1] = float("nan")
+        for B in (1, 37, 300):
+            q = torch.randn((B, d), generator=g, device=dev)
+            lo = torch.rand((B, m), generator=g, device=dev) * 0.3
+            hi = lo + torch.rand((B, m), generator=g, device=dev) * 0.5 + 0.3
+            W = 12
+            st = np.full((B, W), -1, np.int64)
+            ct = np.zeros((B, W), np.int64)
+            for b in range(B):
+                kind = b % 4
+                if kind == 0:
+                    st[b, 0], ct[b, 0] = 0, N
+                elif kind == 1:
+                    cut = np.concatenate([[0], np.sort(rng.choice(
+                        np.arange(1, N), size=W - 1, replace=False)), [N]])
+                    st[b], ct[b] = cut[:-1], np.diff(cut)
+                elif kind == 2:
+                    st[b, :3], ct[b, :3] = [0, 1000, 2500], [1500, 2000, 2500]
+                else:
+                    st[b, 2:4], ct[b, 2:4] = [0, 2999], [3000, 10 * N]
+            st = torch.as_tensor(st, dtype=torch.int32, device=dev)
+            ct = torch.as_tensor(ct, dtype=torch.int32, device=dev)
             for k in (1, 10, 64):
-                got = ops.scan_topk_windows(corpus, attrs, q, blo, bhi, st,
-                                            ct, k=k)
-                want = ref.scan_topk_windows_ref(corpus, attrs, q, blo, bhi,
-                                                 st, ct, k)
-                assert torch.equal(got[0], want[0]) and torch.equal(got[1],
-                                                                    want[1])
+                got = ops.scan_topk_windows(corpus, attrs, q, lo, hi, st, ct,
+                                            k=k)
+                want = ops.scan_topk(corpus, attrs, q, lo, hi, k=k)
+                assert torch.equal(got[0], want[0]), (d, B, k)
+                assert torch.equal(got[1], want[1]), (d, B, k)
+                uncovered = int(ops.SCAN_TILES["scan_topk_windows"][0])
+                assert uncovered == 0, (d, B, k)
