@@ -49,6 +49,7 @@ non-zero, with no result line, on any failed check or without a GPU.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import os
@@ -84,18 +85,86 @@ def bound_ms(n_bytes: float, n_ops: float, flops: float = FP32_FLOPS):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
+def time_ms(fn, reps: int = 5, warmup: int = 1, queued: bool = False):
+    """Mean ms of ``fn`` over ``reps`` calls back to back, by CUDA events.
+    A call's host work (the wrapper's checks, allocation and launch) runs
+    while the card runs the previous call, so a kernel shorter than its
+    wrapper's host time reads as the host's time. ``queued`` keeps the
+    card asleep (``torch.cuda._sleep``) until every call is enqueued, so
+    the events time the card alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(40_000_000)           # ~20 ms at 1.98 GHz
     a.record()
     for _ in range(reps):
         fn()
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def time_cold_ms(fns, rounds: int = 6) -> float:
+    """Mean ms a launch on the card alone (``time_ms(queued=True)``) over
+    ``rounds`` passes through ``fns``, closures whose inputs together
+    exceed the 50 MB L2, so each launch finds its rows in device memory,
+    as the hop loop does (its ids are fresh every hop)."""
+    def rotation():
+        for fn in fns:
+            fn()
+    return time_ms(rotation, reps=rounds, queued=True) / len(fns)
+
+
+def host_ms(fn, reps: int = 50) -> float:
+    """Mean ms of host time a call of ``fn`` takes to return (the
+    wrapper's checks, allocation and launch), the card kept asleep so no
+    call waits on it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def probe_fn(lib: str, sym: str, argtypes):
+    """The probe entry ``sym`` of the kernel library ``lib``, or None
+    (said on a line) where the library has none, as a tree from before
+    the probes."""
+    from repro_torch.kernels import _build, ops
+
+    if not hasattr(_build.library(lib), sym):
+        print(f"[kernels] {lib} has no {sym}: no clock64 split", flush=True)
+        return None
+    return ops._fn(lib, sym, argtypes)
+
+
+def probe_split(name: str, launch, blocks: int, dev, phases) -> None:
+    """A kernel's probe instance (``launch(probe_ptr)``, the same kernel
+    with clock64() stamps: per block [entry, staged, listed, cycles thread
+    0 waited on row loads, cycles of its row arithmetic, exit]) run once;
+    prints the mean cycles of each phase a block and its share."""
+    probe = torch.zeros(6 * blocks, dtype=torch.int64, device=dev)
+    launch(probe.data_ptr())
+    torch.cuda.synchronize()
+    p = probe.view(blocks, 6).double()
+    total = max((p[:, 5] - p[:, 0]).mean().item(), 1.0)
+    parts = [("staging", (p[:, 1] - p[:, 0]).mean().item()),
+             ("predicate and list", (p[:, 2] - p[:, 1]).mean().item()),
+             ("rows", (p[:, 5] - p[:, 2]).mean().item())]
+    print(f"[kernels] {name} clock64 split, mean of {blocks} blocks: "
+          + ", ".join(f"{nm} {c:.0f} cycles ({100 * c / total:.1f}%)"
+                      for nm, c in parts if nm in phases)
+          + f"; of the rows, thread 0 waiting on its row loads "
+          f"{p[:, 3].mean().item():.0f} and in row arithmetic and reduction "
+          f"{p[:, 4].mean().item():.0f}; a block {total:.0f} cycles",
+          flush=True)
 
 
 def topk_agree(name, ids, dd, rids, rdd):
@@ -192,11 +261,15 @@ def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev, *,
             name=name, route="cuda", launches=0, source=GATHER_CU,
             replaces=GATHER_TPU + line, max_abs_err=err,
             ms=time_ms(kern, reps=50), plain_ms=time_ms(plain, reps=20),
-            bound_ms=bms, bound_by=by, library_ms=None)
+            bound_ms=bms, bound_by=by, library_ms=None,
+            device_ms=time_ms(kern, reps=50, queued=True))
         print(f"[kernels] {name} B={B} C={C} d={d}: {r['ms']:.4f} ms "
-              f"(plain {r['plain_ms']:.4f}, bound {bms:.4f} by {by}, "
+              f"(the card alone {r['device_ms']:.4f}; "
+              f"plain {r['plain_ms']:.4f}, bound {bms:.4f} by {by}, "
               f"{n_pass} of {B * C} lanes pass, {nbytes / 1e6:.1f} MB), "
               f"max abs err {err:.3g}", flush=True)
+    q8_gather_phases(idx, qv, qs, attrs, q, qlo, qhi,
+                     rows["gather_l2_filter_q8"])
     del idx, valid
     unfused_checks(corpus, cb, q, rows)
 
@@ -437,6 +510,105 @@ def allpass_check(corpus, attrs, q, k: int, dev) -> None:
     del a_all
 
 
+def q8_gather_phases(idx, qv, qs, attrs, q, qlo, qhi, row) -> None:
+    """The int8 fused gather beyond the table's timing (the same ids back
+    to back, so its ~23 MB of rows can stay in the 50 MB L2): cold,
+    rotating over 8 id sets made as the table's (from a generator of
+    their own, so the later phases' inputs do not change), with its ratio
+    to the table's bound; with every lane failing the predicate (ids and
+    attrs only); and the clock64() split of its probe instance at the
+    table's inputs, whose output must equal the kernel's."""
+    from repro_torch.kernels import ops
+
+    dev = idx.device
+    g = torch.Generator(device=dev).manual_seed(19)
+    n, d = qv.shape
+    B, C = idx.shape
+    m = attrs.shape[1]
+    sets = []
+    for _ in range(8):
+        ids = torch.randint(0, n, (B, C), generator=g, device=dev)
+        ids[:, ::29], ids[:, 5::37], ids[3, :] = -1, n + 3, -1
+        sets.append(ids)
+    in_range = sum(int(((s >= 0) & (s < n)).sum()) for s in sets)
+    row["cold_ms"] = cold = time_cold_ms(
+        [lambda s=s: ops.gather_l2_filter_q8(s, qv, qs, attrs, q, qlo, qhi)
+         for s in sets])
+    none_lo, none_hi = torch.ones_like(qlo), torch.zeros_like(qhi)
+    fail = ops.gather_l2_filter_q8(idx, qv, qs, attrs, q, none_lo, none_hi)
+    check(bool(torch.isinf(fail).all()),
+          "gather_l2_filter_q8: an empty box let a lane pass")
+    fail_ms = time_ms(lambda: ops.gather_l2_filter_q8(
+        idx, qv, qs, attrs, q, none_lo, none_hi), reps=50, queued=True)
+    hms = host_ms(lambda: ops.gather_l2_filter_q8(idx, qv, qs, attrs, q,
+                                                  qlo, qhi))
+    bms, dms = row["bound_ms"], row["device_ms"]
+    print(f"[kernels] gather_l2_filter_q8 on the card alone: cold (8 id "
+          f"sets, {in_range * (d + 4) / 1e6:.0f} MB of in-range rows) "
+          f"{cold:.4f} ms, {cold / bms:.2f}x its bound {bms:.4f}; warm "
+          f"{dms:.4f} ms, {dms / bms:.2f}x; every lane failing the "
+          f"predicate (ids + attrs only) {fail_ms:.4f} ms. Back to back "
+          f"with the host (the table's way) {row['ms']:.4f} ms; the "
+          f"wrapper's host time {hms:.4f} ms a call", flush=True)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    f = probe_fn("gather_l2_filter", "gather_l2_filter_q8_i64_probe",
+                 [P] * 8 + [I] * 5 + [P] * 2)
+    if f is None:
+        return
+    out = torch.empty((B, C), device=dev)
+
+    def launch(probe):
+        check(f(idx.data_ptr(), qv.data_ptr(), qs.data_ptr(),
+                attrs.data_ptr(), q.data_ptr(), qlo.data_ptr(),
+                qhi.data_ptr(), out.data_ptr(), B, C, n, d, m, probe,
+                ops._stream(dev)) == 0, "gather_l2_filter_q8 probe launch")
+
+    # the kernel's grid: a block per 32 lanes of a query
+    probe_split("gather_l2_filter_q8", launch, min(-(-C // 32), 65535) * B,
+                dev, ("staging", "predicate and list", "rows"))
+    check(torch.equal(out, ops.gather_l2_filter_q8(idx, qv, qs, attrs, q,
+                                                   qlo, qhi)),
+          "gather_l2_filter_q8: the probe instance differs from the kernel")
+
+
+def l2dist_qc_phases(q, cand, cand2, row) -> None:
+    """l2dist_qc beyond the table's timing: cold, rotating over two
+    (B, C, d) blocks (200 MB, each already past the 50 MB L2), with its
+    ratio to the table's bound, and the clock64() split of its probe
+    instance, whose output must equal the kernel's."""
+    from repro_torch.kernels import ops, ref
+
+    dev = q.device
+    B, C, d = cand.shape
+    row["cold_ms"] = cold = time_cold_ms(
+        [lambda: ops.l2dist_qc(q, cand), lambda: ops.l2dist_qc(q, cand2)])
+    hms = host_ms(lambda: ops.l2dist_qc(q, cand))
+    bms, dms = row["bound_ms"], row["device_ms"]
+    print(f"[kernels] l2dist_qc on the card alone: cold (two blocks, "
+          f"{2 * cand.numel() * 4 / 1e6:.0f} MB) {cold:.4f} ms, "
+          f"{cold / bms:.2f}x its bound {bms:.4f}; warm {dms:.4f} ms, "
+          f"{dms / bms:.2f}x. Back to back with the host (the table's way) "
+          f"{row['ms']:.4f} ms; the wrapper's host time {hms:.4f} ms a "
+          f"call", flush=True)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    f = probe_fn("l2dist", "l2dist_qc_f32_probe",
+                 [P] * 3 + [I] * 4 + [P] * 2)
+    if f is None:
+        return
+    out = torch.empty((B, C), device=dev)
+
+    def launch(probe):
+        check(f(q.data_ptr(), cand.data_ptr(), out.data_ptr(), B, C, d,
+                ref.qc_tile_width(d), probe, ops._stream(dev)) == 0,
+              "l2dist_qc probe launch")
+
+    # the vector path's grid: 8 warps of 8 rows a block
+    probe_split("l2dist_qc", launch, min(-(-C // 64), 65535) * B, dev,
+                ("staging", "rows"))
+    check(torch.equal(out, ops.l2dist_qc(q, cand)),
+          "l2dist_qc: the probe instance differs from the kernel")
+
+
 GATHER_L2_TPU = "src/repro/kernels/gather_l2.py"
 L2DIST_CU = "src/repro_torch/kernels/csrc/l2dist.cu"
 
@@ -490,8 +662,10 @@ def unfused_checks(corpus, cb, q, rows) -> None:
                 + n_rows * row_bytes
             bms, by = bound_ms(nbytes, idx.numel() * d * 3)
             ms = time_ms(kern, reps=50)
+            dms = time_ms(kern, reps=50, queued=True)
             print(f"[kernels] {name} ({kind}) B={B} C={C} d={d}: {ms:.4f} "
-                  f"ms (bound {bms:.4f} by {by}, {n_rows} distinct rows, "
+                  f"ms (the card alone {dms:.4f}; "
+                  f"bound {bms:.4f} by {by}, {n_rows} distinct rows, "
                   f"{nbytes / 1e6:.1f} MB), "
                   f"max abs err {err:.3g}; bitwise equal to the other form "
                   f"and to gather_l2_filter's lanes", flush=True)
@@ -501,7 +675,7 @@ def unfused_checks(corpus, cb, q, rows) -> None:
                     replaces=GATHER_L2_TPU + (":67" if c_blk else ":36"),
                     max_abs_err=err, ms=ms,
                     plain_ms=time_ms(plain, reps=20), bound_ms=bms,
-                    bound_by=by, library_ms=None)
+                    bound_by=by, library_ms=None, device_ms=dms)
 
     cand = corpus[idx]                               # the (B, C, d) gather
     got, want = ops.l2dist_qc(q, cand), ref.l2dist_qc_ref(q, cand)
@@ -519,14 +693,19 @@ def unfused_checks(corpus, cb, q, rows) -> None:
         plain_ms=time_ms(lambda: ref.l2dist_qc_ref(q, cand), reps=20),
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(lambda: torch.cdist(q[:, None], cand)
-                           .square(), reps=50))
+                           .square(), reps=50),
+        device_ms=time_ms(lambda: ops.l2dist_qc(q, cand), reps=50,
+                          queued=True))
     gms = time_ms(lambda: corpus[idx], reps=50)
-    print(f"[kernels] l2dist_qc B={B} C={C} d={d}: {r['ms']:.4f} ms (plain "
+    print(f"[kernels] l2dist_qc B={B} C={C} d={d}: {r['ms']:.4f} ms (the "
+          f"card alone {r['device_ms']:.4f}; plain "
           f"{r['plain_ms']:.4f}, cdist squared {r['library_ms']:.4f}, bound "
           f"{bms:.4f} by {by}, {nbytes / 1e6:.1f} MB); the materialized "
           f"gather before it {gms:.4f} ms; max abs err {err:.3g} against "
           f"the plain version, {float((got.double() - exact).abs().max()):.3g}"
           f" against float64", flush=True)
+    idx2 = torch.randint(0, n, (B, C), generator=g, device=dev)
+    l2dist_qc_phases(q, cand, corpus[idx2], r)
 
 
 def windows_check(pos_vecs, pos_attrs, q, qlo, qhi, starts, counts, k,
@@ -976,7 +1155,8 @@ def split_lanes(use_scan):
 HAND_KERNELS = {
     "gather_l2_filter": ("gather_l2_filter_kernel", "gather_l2_filter"),
     "gather_l2_filter_bf16": ("gather_l2_filter_kernel", "gather_l2_filter"),
-    "gather_l2_filter_q8": ("gather_l2_filter_kernel", "gather_l2_filter_q8"),
+    "gather_l2_filter_q8": ("gather_l2_filter_q8_kernel",
+                            "gather_l2_filter_q8"),
     "gather_l2": ("gather_l2_filter_kernel", "gather_l2"),
     "gather_l2_rows": ("gather_l2_rows_kernel", "gather_l2"),
     "scan_topk": (r"box_scan_kernel<float, \w+, false>", "scan_topk"),

@@ -58,14 +58,24 @@
 // tile and a level-0 block reads the 1M candidates from memory about once.
 // A warpgroup whose 64 rows lie wholly past B skips its products.
 //
-// l2dist_qc gives one warp to each candidate row, 8 warps a block over
-// candidates of one query, the query row and its per-tile |q_t|^2 staged in
-// shared memory once per block. For each d-tile the warp reads the row's
-// slice with lane-strided coalesced loads, accumulates |c_t|^2 and q_t.c_t
-// in f32 registers (fmaf), reduces both with an xor-shuffle tree and adds
-// the tile's (qs + cs) - 2 qc to the row's sum. Full fp32, no tensor cores
-// and no library call: the same arithmetic as the plain version, in
-// another summation order within a tile.
+// l2dist_qc streams each candidate row once, so it needs many bytes in
+// flight and little else: a warp takes 8 rows of one query, one at a
+// time, the query row and its per-tile |q_t|^2 staged in shared memory
+// once per block. On the vector path (d a multiple of 4 f32 or 8 bf16
+// values, the block 16-byte aligned, td = 128 or one tile) lane l reads
+// 16-byte chunk l of each 128-wide tile (in bf16, where a chunk holds 8
+// values, lanes 0-15 and 16-31 read two neighbouring tiles), issues all of
+// a row's loads (6 at d = 768)
+// before any arithmetic, keeps each tile's |c_t|^2 and q_t.c_t in f32
+// registers (fmaf), reduces up to 8 tiles' 16 sums in one transposing
+// butterfly (16 shuffles, where a tree per sum took 60 at d = 768) and
+// adds each tile's (|q_t|^2 + |c_t|^2) - 2 q_t.c_t in ascending t. A d
+// that is not a multiple of the chunk, or a misaligned view, takes the
+// scalar path: a warp a row, tile by tile, a shuffle tree per sum, in
+// the same per-tile order. Full fp32, no tensor cores and no library
+// call: the same arithmetic as the plain version, in another summation
+// order within a tile. Its probe instance (l2dist_qc_f32_probe) adds
+// clock64() phase stamps for chip_smoke.py; no wrapper launches it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -446,6 +456,7 @@ l2dist_qn_kernel(const float* __restrict__ q, const float* __restrict__ c,
 }
 
 constexpr int kQcWarps = 8;
+constexpr int kQcRows = 8;          // rows a warp takes in the vector path
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
@@ -457,16 +468,83 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Grid (ceil(C / 8) capped, B); shared memory: q (d floats), then |q_t|^2
-// of each of the ceil(d / td) tiles.
-template <typename T>
+__device__ __forceinline__ long long stamp() {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+  return t;
+}
+
+// One step of butterfly16 and the steps after it: lanes with bit 2H set
+// keep v[H..2H) and send v[0..H), the others the reverse, so the H sums
+// kept now hold their partner's half too.
+template <int H>
+__device__ __forceinline__ void butterfly_step(float (&v)[16], int lane) {
+  const bool up = lane & (2 * H);
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float keep = up ? v[i + H] : v[i];
+    const float send = up ? v[i] : v[i + H];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * H);
+  }
+  if constexpr (H > 1) butterfly_step<H / 2>(v, lane);
+}
+
+// Sums each of 16 per-lane values over the warp in one transposing
+// butterfly (8 + 4 + 2 + 1 shuffles, then one plain step): on return lane
+// l holds the warp's sum of v[(l >> 1) & 15].
+__device__ __forceinline__ float butterfly16(float (&v)[16], int lane) {
+  butterfly_step<8>(v, lane);
+  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
+}
+
+// One 16-byte load of T widened: 4 f32 or 8 bf16 values.
+template <typename T> struct QcLoad;
+template <> struct QcLoad<float> {
+  static constexpr int V = 4;
+  __device__ static void widen(const float4& r, float (&x)[4]) {
+    x[0] = r.x; x[1] = r.y; x[2] = r.z; x[3] = r.w;
+  }
+};
+template <> struct QcLoad<__nv_bfloat16> {
+  static constexpr int V = 8;
+  __device__ static void widen(const float4& r, float (&x)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      x[2 * i] = f.x; x[2 * i + 1] = f.y;
+    }
+  }
+};
+
+// Grid (ceil(C / rows a block) capped, B); shared memory: q (d floats),
+// then |q_t|^2 of each of the ceil(d / td) tiles.
+//
+// Vec (d a multiple of the 16-byte load's V, c 16-byte aligned, and td ==
+// 128 or a single tile): a warp takes kQcRows rows one at a time. A round
+// covers 8 tiles (1024 values): lane l loads the V values at 32 V g + V l
+// of each load group g of the round (8 groups of one tile in f32, 4 of two
+// tiles in bf16), all the round's loads issued before any arithmetic,
+// keeps |c_t|^2 and q_t.c_t of each tile in registers (0 for tiles it has
+// no values of), reduces the round's 16 sums in one butterfly16, and adds
+// the tiles' (|q_t|^2 + |c_t|^2) - 2 q_t.c_t in ascending t. Else (the
+// scalar path) a warp takes one row at a time, tile by tile, over 4-byte
+// loads, with the same per-tile sums in the same order.
+//
+// Probe: thread 0 writes per block [entry, staged, 0, cycles waiting on
+// row loads, cycles of row arithmetic and reduction, exit] as clock64()
+// values to probe[6 * block] (warp 0's rows).
+template <typename T, bool Vec, bool Probe>
 __global__ void __launch_bounds__(kQcWarps * 32)
 l2dist_qc_kernel(const float* __restrict__ q, const T* __restrict__ c,
-                 float* __restrict__ out, int C, int d, int td) {
+                 float* __restrict__ out, int C, int d, int td,
+                 long long* __restrict__ probe) {
   extern __shared__ float qsh[];
   const int ntiles = (d + td - 1) / td;
   float* qtile = qsh + d;
   const int b = blockIdx.y;
+  long long t_entry = 0, t_staged = 0, t_wait = 0, t_math = 0;
+  if (Probe && threadIdx.x == 0) t_entry = stamp();
   const float* qrow = q + (size_t)b * d;
   for (int j = threadIdx.x; j < d; j += blockDim.x) qsh[j] = qrow[j];
   __syncthreads();
@@ -480,46 +558,138 @@ l2dist_qc_kernel(const float* __restrict__ q, const T* __restrict__ c,
     if (lane == 0) qtile[t] = qs;
   }
   __syncthreads();
+  if (Probe && threadIdx.x == 0) t_staged = stamp();
 
-  for (int j0 = blockIdx.x * kQcWarps + warp; j0 < C;
-       j0 += gridDim.x * kQcWarps) {
-    const T* row = c + ((size_t)b * C + j0) * (size_t)d;
-    float acc = 0.f;
-    for (int t = 0; t < ntiles; ++t) {
-      const int te = min(d, (t + 1) * td);
-      float cs = 0.f, qc = 0.f;
-#pragma unroll 4
-      for (int j = t * td + lane; j < te; j += 32) {
-        const float v = widen(row[j]);
-        cs = fmaf(v, v, cs);
-        qc = fmaf(qsh[j], v, qc);
+  if constexpr (Vec) {
+    constexpr int V = QcLoad<T>::V;
+    constexpr int G = 32 / V;                  // load groups a round
+    const float4* q4 = reinterpret_cast<const float4*>(qsh);
+    const int two = V == 8 && ntiles > 1 ? lane >> 4 : 0;  // bf16: tile parity
+    const int rows = kQcWarps * kQcRows;
+    for (int r0 = blockIdx.x * rows; r0 < C; r0 += gridDim.x * rows) {
+      const int jend = min(C, r0 + (warp + 1) * kQcRows);
+      for (int j0 = r0 + warp * kQcRows; j0 < jend; ++j0) {
+        const float4* row = reinterpret_cast<const float4*>(
+            c + ((size_t)b * C + j0) * (size_t)d);
+        float acc = 0.f;
+        for (int t0 = 0; t0 < ntiles; t0 += 8) {
+          const int e0 = t0 * td;             // first value of the round
+          long long s0 = 0;
+          if (Probe && threadIdx.x == 0) s0 = stamp();
+          float4 raw[G];
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const int e = e0 + (g * 32 + lane) * V;
+            raw[g] = e < d ? __ldg(row + e / V) : make_float4(0, 0, 0, 0);
+          }
+          if (Probe && threadIdx.x == 0) {
+            uint32_t z = 0;
+#pragma unroll
+            for (int g = 0; g < G; ++g) z ^= __float_as_uint(raw[g].x);
+            if (z == 0x9e3779b9u) probe[0] = 0;     // waits for every load
+            const long long s1 = stamp();
+            t_wait += s1 - s0;
+            s0 = s1;
+          }
+          float v[16];
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const int e = e0 + (g * 32 + lane) * V;
+            float cs = 0.f, qc = 0.f;
+            if (e < d) {
+              float x[V];
+              QcLoad<T>::widen(raw[g], x);
+#pragma unroll
+              for (int i = 0; i < V / 4; ++i) {
+                const float4 qv = q4[e / 4 + i];
+                cs = fmaf(x[4 * i], x[4 * i], cs);
+                cs = fmaf(x[4 * i + 1], x[4 * i + 1], cs);
+                cs = fmaf(x[4 * i + 2], x[4 * i + 2], cs);
+                cs = fmaf(x[4 * i + 3], x[4 * i + 3], cs);
+                qc = fmaf(qv.x, x[4 * i], qc);
+                qc = fmaf(qv.y, x[4 * i + 1], qc);
+                qc = fmaf(qv.z, x[4 * i + 2], qc);
+                qc = fmaf(qv.w, x[4 * i + 3], qc);
+              }
+            }
+            if constexpr (V == 4) {           // group g is tile t0 + g
+              v[2 * g] = cs;
+              v[2 * g + 1] = qc;
+            } else {                          // tiles t0 + 2g and 2g + 1
+              v[4 * g] = two ? 0.f : cs;
+              v[4 * g + 1] = two ? 0.f : qc;
+              v[4 * g + 2] = two ? cs : 0.f;
+              v[4 * g + 3] = two ? qc : 0.f;
+            }
+          }
+          // lane 4k holds |c_t|^2, lane 4k + 2 q_t.c_t of tile t0 + k
+          const float s = butterfly16(v, lane);
+          const float qc = __shfl_xor_sync(0xffffffffu, s, 2);
+          const int t = t0 + (lane >> 2);
+          const float term = t < ntiles ? (qtile[t] + s) - 2.f * qc : 0.f;
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const float tk = __shfl_sync(0xffffffffu, term, 4 * k);
+            if (t0 + k < ntiles) acc += tk;
+          }
+          if (Probe && threadIdx.x == 0) t_math += stamp() - s0;
+        }
+        if (lane == 0) out[(size_t)b * C + j0] = acc;
       }
-      cs = warp_sum(cs);
-      qc = warp_sum(qc);
-      acc += (qtile[t] + cs) - 2.f * qc;
     }
-    if (lane == 0) out[(size_t)b * C + j0] = acc;
+  } else {
+    for (int j0 = blockIdx.x * kQcWarps + warp; j0 < C;
+         j0 += gridDim.x * kQcWarps) {
+      const T* row = c + ((size_t)b * C + j0) * (size_t)d;
+      float acc = 0.f;
+      for (int t = 0; t < ntiles; ++t) {
+        const int te = min(d, (t + 1) * td);
+        float cs = 0.f, qc = 0.f;
+#pragma unroll 4
+        for (int j = t * td + lane; j < te; j += 32) {
+          const float v = widen(row[j]);
+          cs = fmaf(v, v, cs);
+          qc = fmaf(qsh[j], v, qc);
+        }
+        cs = warp_sum(cs);
+        qc = warp_sum(qc);
+        acc += (qtile[t] + cs) - 2.f * qc;
+      }
+      if (lane == 0) out[(size_t)b * C + j0] = acc;
+    }
+  }
+  if (Probe) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      long long* p = probe + 6 * ((size_t)blockIdx.y * gridDim.x + blockIdx.x);
+      p[0] = t_entry; p[1] = t_staged; p[2] = t_staged;
+      p[3] = t_wait; p[4] = t_math; p[5] = stamp();
+    }
   }
 }
 
-template <typename T>
+template <typename T, bool Probe>
 int launch_qc(const void* q, const void* c, void* out, int B, int C, int d,
-              int td, void* stream) {
+              int td, long long* probe, void* stream) {
   if (B == 0 || C == 0) return 0;
   if (B > 65535 || td < 1) return (int)cudaErrorInvalidConfiguration;
   const int ntiles = (d + td - 1) / td;
   const size_t smem = (size_t)(d + ntiles) * sizeof(float);
+  const bool vec = d % QcLoad<T>::V == 0 && ((uintptr_t)c & 15) == 0 &&
+                   (td == 128 || ntiles == 1);
+  auto kern = vec ? l2dist_qc_kernel<T, true, Probe>
+                  : l2dist_qc_kernel<T, false, Probe>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        l2dist_qc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  int gx = (C + kQcWarps - 1) / kQcWarps;
+  const int rows = vec ? kQcWarps * kQcRows : kQcWarps;
+  int gx = (C + rows - 1) / rows;
   if (gx > 65535) gx = 65535;
   dim3 grid(gx, B);
-  l2dist_qc_kernel<T><<<grid, kQcWarps * 32, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const T*)c, (float*)out, C, d, td);
+  kern<<<grid, kQcWarps * 32, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const T*)c, (float*)out, C, d, td, probe);
   return (int)cudaGetLastError();
 }
 
@@ -549,10 +719,20 @@ extern "C" int l2dist_qn_f32(const void* q, const void* c, void* out, int G,
 
 extern "C" int l2dist_qc_f32(const void* q, const void* c, void* out, int B,
                              int C, int d, int td, void* stream) {
-  return launch_qc<float>(q, c, out, B, C, d, td, stream);
+  return launch_qc<float, false>(q, c, out, B, C, d, td, nullptr, stream);
 }
 
 extern "C" int l2dist_qc_bf16(const void* q, const void* c, void* out, int B,
                               int C, int d, int td, void* stream) {
-  return launch_qc<__nv_bfloat16>(q, c, out, B, C, d, td, stream);
+  return launch_qc<__nv_bfloat16, false>(q, c, out, B, C, d, td, nullptr,
+                                         stream);
+}
+
+// The f32 form's probe instance: per-block clock64() phase stamps into
+// `probe`, for chip_smoke.py; no wrapper launches it.
+extern "C" int l2dist_qc_f32_probe(const void* q, const void* c, void* out,
+                                   int B, int C, int d, int td, void* probe,
+                                   void* stream) {
+  return launch_qc<float, true>(q, c, out, B, C, d, td, (long long*)probe,
+                                stream);
 }

@@ -43,8 +43,10 @@ def test_cuda_kernels_match_plain_versions():
 def test_cuda_replica_kernels_match_plain_versions():
     """The bf16 forms of the gather and scan kernels and their int8 (q8)
     forms against their plain versions, at a d that takes the 16-byte row
-    loads (96) and one that does not (36). Scan ids are equal; distances
-    within rtol 1e-5, atol 1e-4 (reduce order)."""
+    loads (96) and one that does not (36); then the int8 gather's edges
+    (d in {33, 768}, C in {1, 70, 129}, pad, out-of-range and failing
+    lanes, both id types, a misaligned replica view). Scan ids are equal;
+    distances within rtol 1e-5, atol 1e-4 (reduce order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     from repro_torch.kernels import quant
@@ -82,6 +84,34 @@ def test_cuda_replica_kernels_match_plain_versions():
             rids, rdd = ref.scan_topk_ref(cb, attrs, q, lo, hi, k)
             assert torch.equal(ids, rids)
             torch.testing.assert_close(dd, rdd, rtol=1e-5, atol=1e-4)
+
+    # the int8 gather's edges, as in the grid-corpus test: d in {33, 768},
+    # C in {1, 70, 129}, an all-pad lane, a lane no id passes, NaN attrs,
+    # int32 and int64 ids, and the replica as a misaligned view
+    for d in (33, 768):
+        corpus = torch.randn((N, d), generator=g, device=dev)
+        attrs = torch.rand((N, m), generator=g, device=dev)
+        attrs[3::41, 2] = float("nan")
+        qv, qs = quant.quant_replica(corpus, "int8")
+        flat = torch.empty(N * d + 33, dtype=torch.int8, device=dev)
+        flat[33:] = qv.reshape(-1)
+        for C in (1, 70, 129):
+            q = torch.randn((B, d), generator=g, device=dev)
+            lo = torch.rand((B, m), generator=g, device=dev) * 0.4
+            hi = lo + 0.6
+            lo[2, 0], hi[2, 0] = 2.0, 3.0                # every id fails
+            idx = torch.randint(-1, N + 2, (B, C), generator=g, device=dev)
+            idx[1] = -1                                  # all pad
+            for ids in (idx, idx.to(torch.int32)):
+                want = ref.gather_l2_filter_q8_ref(ids, qv, qs, attrs, q,
+                                                   lo, hi)
+                assert bool(torch.isinf(want[1:3]).all())
+                for qx in (qv, flat[33:].view(N, d)):
+                    got = ops.gather_l2_filter_q8(ids, qx, qs, attrs, q,
+                                                  lo, hi)
+                    assert torch.equal(torch.isinf(got), torch.isinf(want))
+                    torch.testing.assert_close(got, want, rtol=1e-5,
+                                               atol=1e-4)
 
 
 @pytest.mark.gpu
@@ -197,7 +227,9 @@ def test_cuda_unfused_kernels_match_plain_versions():
     the plain version, the two forms bitwise equal to each other and to
     gather_l2_filter's lanes under an all-pass box; +inf for ids outside
     [0, N). l2dist_qc (f32 and bf16 candidates) within rtol 1e-4, atol
-    1e-3 of its plain version (the expansion cancels)."""
+    1e-3 of its plain version (the expansion cancels), also at d in {33,
+    96, 264, 300, 768, 770, 1104}, C in {1, 70, 129} and a misaligned
+    view."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     dev = torch.device("cuda")
@@ -233,6 +265,19 @@ def test_cuda_unfused_kernels_match_plain_versions():
         torch.testing.assert_close(ops.l2dist(q, cand),
                                    ref.l2dist_qc_direct(q, cand),
                                    rtol=1e-4, atol=1e-3)
+
+    # l2dist_qc at the grid-corpus test's edges: d in {33, 96, 264, 300,
+    # 768, 770, 1104}, C in {1, 70, 129}, f32, bf16 and a misaligned view
+    for d in (33, 96, 264, 300, 768, 770, 1104):
+        for C in (1, 70, 129):
+            q = torch.randn((B, d), generator=g, device=dev)
+            cand = torch.randn((B, C, d), generator=g, device=dev)
+            flat = torch.empty(B * C * d + 1, device=dev)
+            flat[1:] = cand.reshape(-1)
+            for c in (cand, cand.to(torch.bfloat16), flat[1:].view(B, C, d)):
+                torch.testing.assert_close(ops.l2dist_qc(q, c),
+                                           ref.l2dist_qc_ref(q, c),
+                                           rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.gpu
@@ -340,9 +385,13 @@ def test_cuda_kernels_bit_equal_on_grid_corpus():
     """Every kernel form bit-equal to its plain version on a 1/32-grid
     corpus, where every f32 partial sum is exact in any order, so ids and
     distances must be ``torch.equal`` (ties to the lowest id included):
-    the fused gather (f32, bf16, int8), the unfused gather in both forms
-    (f32, bf16), l2dist_qc (f32, bf16), l2dist_qn (2-D and batched; its
-    3xTF32 split of a grid value has a zero lo part), and the scan in
+    the fused gather (f32, bf16, int8; the int8 form also at C in {1, 70,
+    129}, with an all-pad lane and a lane no id passes, int32 and int64
+    ids, and its replica as a misaligned view), the unfused gather in both
+    forms (f32, bf16), l2dist_qc (f32, bf16; also at d in {33, 96, 264,
+    300, 768, 770, 1104}, C in {1, 70, 129} and a misaligned view),
+    l2dist_qn (2-D and batched; its 3xTF32 split of a grid value has a
+    zero lo part), and the scan in
     f32, bf16 and int8 (int8 rows built with power-of-two scales, so the
     dequantized rows lie on the grid) plus its bitmask and windowed forms.
     The box scan's edges: N = 3001 (no multiple of any row tile), d in
@@ -391,9 +440,30 @@ def test_cuda_kernels_bit_equal_on_grid_corpus():
                 assert torch.equal(ops.gather_l2(ids, cx, q, c_blk=128), want)
             cand = cx[idx.clamp(0, N - 1)]
             assert torch.equal(ops.l2dist_qc(q, cand), ref.l2dist_qc_ref(q, cand))
-        assert torch.equal(
-            ops.gather_l2_filter_q8(idx, qv, qs, attrs, q, lo, hi),
-            ref.gather_l2_filter_q8_ref(idx, qv, qs, attrs, q, lo, hi))
+        # the int8 gather's edges: C not a multiple of its 32-lane tile,
+        # an all-pad lane, a lane whose box no row passes, both id types,
+        # and the replica as a view one odd-width row off 16-byte
+        # alignment (its byte-load path)
+        flat = torch.empty(N * d + 33, dtype=torch.int8, device=dev)
+        flat[33:] = qv.reshape(-1)
+        qv_off = flat[33:].view(N, d)
+        rng8 = np.random.default_rng(0xF8)
+        for C in (1, 70, 129):
+            idx = torch.as_tensor(rng8.integers(0, N, size=(B, C)),
+                                  device=dev)
+            idx[:, ::9] = -1
+            idx[:, 4::11] = N + 3
+            idx[1] = -1                                  # all pad
+            lo8, hi8 = lo.clone(), hi.clone()
+            lo8[2, 1], hi8[2, 1] = 5.0, 5.0              # every id fails
+            for ids in (idx, idx.to(torch.int32)):
+                want = ref.gather_l2_filter_q8_ref(ids, qv, qs, attrs, q,
+                                                   lo8, hi8)
+                assert bool(torch.isinf(want[1:3]).all())
+                for qx in (qv, qv_off):
+                    got = ops.gather_l2_filter_q8(ids, qx, qs, attrs, q,
+                                                  lo8, hi8)
+                    assert torch.equal(got, want), (d, C, ids.dtype)
         for G in (1, 3):
             qq = torch.as_tensor(_grid(rng, (G, 130, d)), device=dev)
             cc = torch.as_tensor(_grid(rng, (G, 700, d)), device=dev)
@@ -455,6 +525,22 @@ def test_cuda_kernels_bit_equal_on_grid_corpus():
                     assert torch.equal(got[0], want[0]), (d, B, k)
                     assert torch.equal(got[1], want[1]), (d, B, k)
             assert bool((got[0] == -1).all())            # nothing covered
+
+    # l2dist_qc's edges: one tile narrower than 128 (96), ragged last
+    # tiles (264, 300), d % 4 != 0 (33, 770), two 8-tile rounds (1104),
+    # C in {1, 70, 129}, f32 and bf16, and a view off 16-byte alignment;
+    # values within 1, so every sum stays below 2^14 up to d = 4096
+    rng = np.random.default_rng(0xE5)
+    for d in (33, 96, 264, 300, 768, 770, 1104):
+        for C in (1, 70, 129):
+            B = 37
+            q = torch.as_tensor(_grid(rng, (B, d), lim=32), device=dev)
+            cand = torch.as_tensor(_grid(rng, (B, C, d), lim=32), device=dev)
+            flat = torch.empty(B * C * d + 1, device=dev)
+            flat[1:] = cand.reshape(-1)
+            for cx in (cand, cand.to(torch.bfloat16), flat[1:].view(B, C, d)):
+                assert torch.equal(ops.l2dist_qc(q, cx),
+                                   ref.l2dist_qc_ref(q, cx)), (d, C, cx.dtype)
 
 
 @pytest.mark.gpu
