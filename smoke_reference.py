@@ -14,7 +14,9 @@ JAX reference itself cannot run.
     engine's hop cap.
   * ``graph_rows`` — the bulk builder's rule for one member row of one
     tree node, in float64: the exact top-K in-node candidates (ties to
-    the lower node position) and the HNSW RNG prune.
+    the lower node position) and the HNSW RNG prune; optionally with the
+    decisions that lie within fp32's resolution (near-ties) taken the way
+    a given fp32 build took them.
   * the int8 score path (DESIGN.md §12): ``quantize_rows_i8`` (the
     replica), ``dequant_rows``, ``rerank`` (the exact f32 (dist, id)
     top-k over candidates, which the graph lanes apply to the top ``rr``
@@ -30,6 +32,11 @@ JAX reference itself cannot run.
     ``a0 in (years...)`` optionally ``and a1 <= a1_max``, the two forms of
     filter expression ``chip_smoke.py`` serves, written directly in numpy
     without the predicate compiler.
+  * the streaming pass (DESIGN.md §11): ``live_topk`` (the exact in-box
+    top-k over rows that carry external ids, such as the live rows of a
+    delta segment) and ``merge_dist_ext`` (several candidate lists merged
+    by (distance, ext), lowest ext first on ties: the service's merge of
+    the base engine's answer with the delta's).
 
 ``tests/test_torch_reference.py`` pins all of them to the JAX package on
 the CPU.
@@ -43,7 +50,8 @@ import numpy as np
 
 __all__ = ["dfs_entries", "beam_search", "sq_dists_f64", "graph_rows",
            "graph_shape", "quantize_rows_i8", "dequant_rows", "rerank",
-           "scan_rerank", "antichain", "window_scan", "year_mask"]
+           "scan_rerank", "antichain", "window_scan", "year_mask",
+           "live_topk", "merge_dist_ext"]
 
 
 def _matches(attrs: np.ndarray, lo: np.ndarray, hi: np.ndarray):
@@ -186,33 +194,81 @@ def graph_shape(count: int, M: int, ef_b: int):
     return K, min(M, K - 1)
 
 
-def graph_rows(vecs, members, pos, d_rows, *, M: int, ef_b: int
-               ) -> np.ndarray:
+def graph_rows(vecs, members, pos, d_rows, *, M: int, ef_b: int,
+               rel_tol: float = 0.0, guide=None):
     """Adjacency rows of the node whose members are ``members`` (its
     ``order`` slice), for the members at node positions ``pos``, given
     their float64 squared distances ``d_rows`` (len(pos), len(members)).
-    Returns (len(pos), M) global ids in RNG scan order, -1 padded."""
+    Returns (len(pos), M) global ids in RNG scan order, -1 padded.
+
+    With ``rel_tol`` > 0 and ``guide`` ((len(pos), M) global ids, -1
+    padded: the rows a builder computed in lower precision), a decision
+    of the rule that lies within ``rel_tol`` x 2 x (the row's squared norm
+    plus its candidates' largest) of going the other way is taken the way
+    ``guide`` took it: candidates whose distances lie that close (which
+    of them enter the K, and in what order) go guide rows first, in the
+    guide's order, and a prune comparison that close keeps the candidate
+    iff the guide row holds it. A row with an exact copy of itself, or of
+    a kept neighbour, among its candidates ties on every prune. Returns
+    (rows, per row the near-tie decisions the guide took against the
+    float64 rule (len(pos),) int64)."""
     K, M_eff = graph_shape(len(members), M, ef_b)
     K = min(K, len(members))
+    guided = rel_tol > 0
     out = np.full((len(pos), M), -1, np.int64)
+    n_ties = np.zeros(len(pos), np.int64)
     for r, (p, d) in enumerate(zip(pos, d_rows)):
-        part = np.argpartition(d, K - 1)[:K] if K < len(d) \
+        # the K nearest by (dist, pos); guided, a margin past them for
+        # the candidates that tie with the K-th
+        K2 = min(K + 64, len(d)) if guided else K
+        part = np.argpartition(d, K2 - 1)[:K2] if K2 < len(d) \
             else np.arange(len(d))
         cand = part[np.lexsort((part, d[part]))]            # (dist, pos)
         cv = vecs[members[cand]].astype(np.float64)
+        if guided:
+            pv = vecs[members[p]].astype(np.float64)
+            tol = rel_tol * 2.0 * ((pv * pv).sum() + (cv * cv).sum(1).max())
+            g = {int(x): j for j, x in enumerate(guide[r]) if x >= 0}
+            rank = np.asarray([g.get(int(x), M) for x in members[cand]])
+            brk = np.nonzero(np.diff(d[cand]) > tol)[0] + 1
+            blocks = np.split(np.arange(len(cand)), brk)
+            sel = np.concatenate([blk[np.argsort(rank[blk], kind="stable")]
+                                  for blk in blocks])
+            # blocks where the guide reordered its own rows or brought one
+            # into the K, by first position
+            moved = []
+            for blk in blocks:
+                gm = blk[rank[blk] < M]
+                if (np.diff(rank[gm]) < 0).any() or (
+                        blk[0] < K and (gm >= K).any()):
+                    moved.append(blk[0])
+            sel = sel[:K]
+            cand, cv = cand[sel], cv[sel]
         kept: list = []
+        last = -1
         for j, c in enumerate(cand):
             if len(kept) >= M_eff:
                 break
+            last = j
             if c == p:
                 continue
             if kept:
                 dr = ((cv[kept] - cv[j]) ** 2).sum(1)
-                if (dr < d[c]).any():
+                if not guided:
+                    if (dr < d[c]).any():
+                        continue
+                elif (dr < d[c] - tol).any():
                     continue
+                elif (dr < d[c] + tol).any():
+                    keep = int(members[c]) in g
+                    n_ties[r] += keep == bool((dr < d[c]).any())
+                    if not keep:
+                        continue
             kept.append(j)
+        if guided:
+            n_ties[r] += sum(s0 <= last for s0 in moved)
         out[r, :len(kept)] = members[cand[kept]]
-    return out
+    return (out, n_ties) if guided else out
 
 
 def quantize_rows_i8(v):
@@ -320,3 +376,37 @@ def year_mask(attrs, years, a1_max=None):
         ok &= a[:, 1] <= np.float32(a1_max)
     return ok
 
+
+
+def live_topk(vecs, attrs, exts, q, lo, hi, k: int):
+    """Exact in-box top-k over rows whose external ids are ``exts``:
+    (ext ids (k,) int64, -1 padded; f32 distances, +inf padded), by
+    (distance, ext). NaN attrs never match."""
+    exts = np.asarray(exts, np.int64)
+    rows = np.nonzero(_matches(attrs, lo, hi))[0]
+    dv = vecs[rows] - np.asarray(q, np.float32)
+    d = np.einsum("vd,vd->v", dv, dv)
+    sel = np.lexsort((exts[rows], d))[:k]
+    out_e = np.full(k, -1, np.int64)
+    out_d = np.full(k, np.inf, np.float32)
+    out_e[:len(sel)] = exts[rows[sel]]
+    out_d[:len(sel)] = d[sel]
+    return out_e, out_d
+
+
+def merge_dist_ext(parts, k: int):
+    """Candidate lists ``parts`` = [(ext ids (B, c_i), dists (B, c_i)),
+    ...], ext -1 for none, merged per row by (distance, ext): (ext ids
+    (B, k) int64, -1 padded; dists (B, k) f32, +inf padded)."""
+    ext = np.concatenate([np.asarray(e, np.int64) for e, _ in parts], 1)
+    d = np.concatenate([np.asarray(x, np.float32) for _, x in parts], 1)
+    d = np.where(ext >= 0, d, np.inf).astype(np.float32)
+    key = np.where(ext >= 0, ext, np.iinfo(np.int64).max)
+    out_e = np.full((ext.shape[0], k), -1, np.int64)
+    out_d = np.full((ext.shape[0], k), np.inf, np.float32)
+    for i in range(ext.shape[0]):
+        sel = np.lexsort((key[i], d[i]))[:k]
+        sel = sel[np.isfinite(d[i][sel])]
+        out_e[i, :len(sel)] = ext[i][sel]
+        out_d[i, :len(sel)] = d[i][sel]
+    return out_e, out_d

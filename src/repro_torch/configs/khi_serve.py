@@ -35,6 +35,11 @@ class KHIServeConfig:
     box_budget: int = 8
     buckets: Tuple[int, ...] = (1, 8, 32, 128, 256)
     cache_size: int = 65536
+    # Streaming write path (DESIGN.md §11): per-shard delta-segment rows
+    # before inserts force a compaction. ~13% of a 1M-object shard keeps
+    # the delta's exact brute scan a small fraction of query cost while
+    # bounding the windowed-merge rebuild cadence.
+    delta_capacity: int = 131_072
 
     def search_params(self):
         """SearchParams for this serving cell."""

@@ -798,12 +798,7 @@ class Planner:
         self.n_total = int(di.count[di.root])
         self.scan_threshold = int(p.scan_threshold) or max(
             1, int(DEFAULT_SCAN_FRAC * self.n_total))
-        # padded rows (none unless the caller padded the index) get NaN
-        # attrs, which fail every box, so a scan never returns them
-        valid = torch.arange(di.attrs.shape[0], device=self.device) \
-            < self.n_total
-        self._scan_attrs = torch.where(valid[:, None], di.attrs,
-                                       torch.full_like(di.attrs, np.nan))
+        self._build_scan_attrs()
         self._scorer, self._exact = resolve_scorer_pair(p, dist_fn=dist_fn)
         self._use_kernel = p.backend == "pallas_gather_l2_filter"
         self._estimators = (self._build_estimators()
@@ -826,20 +821,64 @@ class Planner:
         """Position-ordered copies of the scan corpus: row i is the object
         at DFS rank i (``order[i]``), so an antichain node's objects are
         the contiguous slice ``[start, start + count)``. The attrs come
-        from ``_scan_attrs``, so padded rows stay NaN. Always f32: window
-        lanes scan exactly whatever ``quant`` is."""
+        from ``_scan_attrs``, so padded rows and tombstones stay NaN.
+        Always f32: window lanes scan exactly whatever ``quant`` is."""
         di = self.index
         self._pos_vecs = di.vecs[di.order].contiguous()
         self._pos_attrs = self._scan_attrs[di.order].contiguous()
 
-    def _build_estimators(self):
+    def _build_scan_attrs(self) -> None:
+        """The scan's attrs: padded rows (none unless the caller padded
+        the index) get NaN, which fails every box, so a scan never
+        returns them."""
+        di = self.index
+        valid = torch.arange(di.attrs.shape[0], device=self.device) \
+            < self.n_total
+        self._scan_attrs = torch.where(valid[:, None], di.attrs,
+                                       torch.full_like(di.attrs, np.nan))
+
+    def _build_estimators(self, deleted_rows=None):
+        """The routing-bound estimator from host copies of the tree.
+        ``deleted_rows``, the row ids of streaming tombstones (DESIGN.md
+        §11), subtracts the dead rows from each node's count, so the
+        bound covers live rows only."""
+        from .router import deleted_per_node
+
         di = self.index
         host = {f: getattr(di, f).cpu().numpy()
                 for f in ("left", "right", "dim", "bl", "lo", "hi", "count")}
+        count = host["count"].astype(np.int64)
+        if deleted_rows is not None and np.asarray(deleted_rows).size:
+            count = count - deleted_per_node(
+                di.order[:self.n_total].cpu().numpy(),
+                di.start.cpu().numpy(), count, deleted_rows)
         return [HostCardEstimator(host["left"], host["right"], host["dim"],
                                   host["bl"], host["lo"], host["hi"],
-                                  host["count"], di.root,
-                                  device=self.device)]
+                                  count, di.root, device=self.device)]
+
+    def refresh_index(self, index, *, deleted_rows=None) -> None:
+        """Rebind to a copy of the installed index with the same shapes,
+        the streaming tombstone path (DESIGN.md §11): a delete NaNs attr
+        rows and touches no other tensor. Re-derives the replica if the
+        copy lacks it, rebuilds the scan attrs, the estimators (with
+        ``deleted_rows``' tombstone-adjusted counts) and, under hybrid,
+        the position-ordered attrs alone (the vectors did not change),
+        and clears the plan cache. A new epoch needs a new Planner."""
+        if not isinstance(index, DeviceIndex):
+            raise TypeError("refresh_index takes a DeviceIndex of the same "
+                            "shapes as the installed one")
+        if index.attrs.shape != self.index.attrs.shape \
+                or index.vecs.shape != self.index.vecs.shape:
+            raise ValueError("refresh_index requires identical index shapes"
+                             " (use a new Planner for a new epoch)")
+        self.index = _with_replica_for(index, self.params.quant)
+        self._build_scan_attrs()
+        self._host_scan_attrs = None
+        if self.params.strategy in ("auto", "hybrid"):
+            self._estimators = self._build_estimators(deleted_rows)
+        if self.params.strategy == "hybrid":
+            self._pos_attrs = self._scan_attrs[index.order].contiguous()
+        self._plan_cache.clear()
 
     def _cards(self, qlo: np.ndarray, qhi: np.ndarray) -> np.ndarray:
         """Per-query routing bound through the plan cache."""

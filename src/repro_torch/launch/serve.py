@@ -17,7 +17,11 @@ graph`` only. ``--strategy hybrid`` scans each query's small tree nodes as windo
 ``--filter-expr 'a0 >= 3 and (a1 in [1, 4] or not a2 <= 0)'`` also serves
 a boolean filter expression through ``KHIService.search_expr`` and checks
 the answers against a numpy mask-then-top-k (``--box-budget`` boxes at
-most before the bitmask fallback).
+most before the bitmask fallback). ``--stream-smoke`` then drives the
+streaming write path (insert, delete, query, compact, query again) with
+a ``--delta-capacity``-row delta and checks that the answers after the
+compaction equal those before it: exactly under ``--strategy scan``,
+where every lane is exact, by overlap otherwise.
 """
 
 from __future__ import annotations
@@ -80,6 +84,9 @@ def serve_khi(args):
     if args.filter_expr:
         filter_expr_smoke(svc, vecs, attrs, Q, args)
         snap = svc.snapshot()
+    if args.stream_smoke:
+        stream_smoke(svc, vecs, attrs, Q, lo, hi, args)
+        snap = svc.snapshot()
     return snap
 
 
@@ -121,6 +128,41 @@ def filter_expr_smoke(svc, vecs, attrs, Q, args):
           f"program ({prog.n_boxes} boxes, budget {args.box_budget}); "
           f"{B} queries in {dt * 1e3:.0f}ms, recall {recall:.2f}, "
           f"predicate_lanes={snap['predicate_lanes']}")
+
+
+def stream_smoke(svc, vecs, attrs, Q, lo, hi, args):
+    """The streaming write path (DESIGN.md §11): insert perturbed copies of
+    64 rows, delete 16 of them and 16 base rows, query the merged view,
+    compact, and query again. Under ``--strategy scan`` the answers after
+    the compaction must equal those before it (ids, and distances within
+    rtol 1e-5); otherwise more than half the slots must agree (graph
+    lanes are approximate)."""
+    rng = np.random.default_rng(7)
+    svc.enable_streaming(capacity=args.delta_capacity)
+    t0 = time.perf_counter()
+    sel = rng.choice(len(vecs), size=64, replace=False)
+    exts = svc.insert(vecs[sel] + np.float32(1e-3), attrs[sel])
+    n_del = svc.delete(np.concatenate([exts[:16], sel[:16]]))
+    ingest_dt = time.perf_counter() - t0
+    B = min(16, len(Q))
+    pre_ids, pre_d = svc.search(Q[:B], lo[:B], hi[:B])
+    svc.compact()
+    post_ids, post_d = svc.search(Q[:B], lo[:B], hi[:B])
+    if args.strategy == "scan":
+        if not np.array_equal(post_ids, pre_ids):
+            raise AssertionError("scan lanes changed across the compaction")
+        np.testing.assert_allclose(post_d, pre_d, rtol=1e-5)
+        verdict = "equal"
+    else:
+        agree = float((post_ids == pre_ids).mean())
+        if agree <= 0.5:
+            raise AssertionError(f"pre/post-compaction overlap {agree:.2f}")
+        verdict = f"overlap {agree:.2f} (graph lanes are approximate)"
+    snap = svc.snapshot()
+    print(f"[serve] stream-smoke: +{len(exts)} inserts -{n_del} deletes "
+          f"in {ingest_dt * 1e3:.0f}ms, compactions={snap['compactions']} "
+          f"n_live={snap['n_live']} epoch={snap['epoch']}; "
+          f"pre/post-compaction answers {verdict}")
 
 
 def main(argv=None):
@@ -168,6 +210,11 @@ def main(argv=None):
     ap.add_argument("--box-budget", type=int, default=8,
                     help="max disjoint boxes a compiled predicate may lower "
                          "to before the bitmask fallback")
+    ap.add_argument("--stream-smoke", action="store_true",
+                    help="also drive the streaming write path: insert, "
+                         "delete, compact, re-query")
+    ap.add_argument("--delta-capacity", type=int, default=256,
+                    help="delta-segment rows for --stream-smoke")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' for the plain "
                          "versions)")

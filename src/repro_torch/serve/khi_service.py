@@ -14,7 +14,16 @@ expressions (``core/predicate.py``): each disjoint box of the compiled
 cover through the cached, bucketed ``search`` path, merged with
 ``_merge_dedup``, or one bitmask scan past ``box_budget``.
 
-Mesh serving, streaming writes and degradation tiers above 0 are not
+Streaming writes (DESIGN.md §11, ``core/delta.py``): after
+``enable_streaming`` the service takes ``insert``, ``delete`` and
+``compact``, answers with stable int64 external ids, and folds the delta
+segment's exact scan into every bucket-padded batch before unpadding.
+Every mutation bumps ``_mutation_seq``, which is part of the result
+cache key. ``compact`` rebuilds the live corpus with the device builder
+on the service's device and publishes it through ``swap_index``, which
+refuses any other caller while streaming.
+
+Mesh serving, sharded indexes and degradation tiers above 0 are not
 ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -28,9 +37,11 @@ from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..core.delta import StreamingState
 from ..core.engine import (DeviceIndex, Planner, SearchParams, _merge_dedup,
                            _todo, _with_replica_for, device_put_index,
                            validate_search_params)
+from ..core.khi import KHIConfig, KHIIndex
 from ..core.predicate import canonical_key, compile_expr, validate_expr
 from ..core.util import resolve_device
 
@@ -86,6 +97,8 @@ class Result:
     ids: np.ndarray    # (k,) int32 object ids, -1 padded
     dists: np.ndarray  # (k,) float32 squared L2, inf padded
     cached: bool = False
+    # with streaming enabled, ids are (k,) int64 stable external ids,
+    # which survive compaction
 
 
 class KHIService:
@@ -127,6 +140,9 @@ class KHIService:
         # stats["predicate_lanes"] while a compiled predicate runs, so the
         # dispatch attributes its device lanes to it; None otherwise
         self._pred_lanes: Optional[collections.Counter] = None
+        self._stream: Optional[StreamingState] = None
+        self._mutation_seq = 0
+        self._compacting = False
         self._install_index(index)
 
     def _install_index(self, index) -> None:
@@ -148,7 +164,14 @@ class KHIService:
                    drain: bool = True) -> dict:
         """Epoch hot-swap: flush queued requests against the old index
         (unless ``drain=False``), install the new one, bump the epoch and
-        clear the result cache. Returns the drained {ticket: Result}."""
+        clear the result cache. Returns the drained {ticket: Result}.
+        While streaming, only ``compact`` may publish an epoch: a bare
+        swap would drop the delta and the ext-id mapping."""
+        if self._stream is not None and not self._compacting:
+            raise RuntimeError(
+                "swap_index while streaming is enabled would drop the delta "
+                "segment and the ext-id mapping; publish new epochs through "
+                "compact() (DESIGN.md §11)")
         drained = self.flush() if drain else {}
         if params is not None:
             self._user_params = params
@@ -197,6 +220,9 @@ class KHIService:
         h.update(hi.tobytes())
         h.update(repr(self.params).encode())
         h.update(self.epoch.to_bytes(8, "little"))
+        # every insert, delete and compact bumps the sequence, so no
+        # answer from before a mutation is served after it
+        h.update(self._mutation_seq.to_bytes(8, "little"))
         return h.digest()
 
     def _cache_get(self, key: bytes):
@@ -217,7 +243,9 @@ class KHIService:
 
     def _run_device(self, qs: np.ndarray, los: np.ndarray,
                     his: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """Pad one micro-batch to its bucket, search, unpad."""
+        """Pad one micro-batch to its bucket, search, unpad. Under
+        streaming the delta is merged on the padded batch (pad lanes
+        carry the empty box and add nothing) and ids become ext ids."""
         b = qs.shape[0]
         bucket = self._bucket(b)
         pad = bucket - b
@@ -230,6 +258,9 @@ class KHIService:
         t0 = time.perf_counter()
         # results come back as numpy, so the device work has finished
         ids, dists = self._search(qs, los, his)
+        if self._stream is not None:
+            ids, dists = self._stream.merge(ids, dists, qs, los, his,
+                                            self.params.k)
         self.stats["device_seconds"] += time.perf_counter() - t0
         self.stats["batches"] += 1
         self.stats["pad_lanes"] += pad
@@ -248,7 +279,7 @@ class KHIService:
         B = queries.shape[0]
         self.stats["requests"] += B
         k = self.params.k
-        out_ids = np.full((B, k), -1, np.int32)
+        out_ids = np.full((B, k), -1, self._id_dtype)
         out_d = np.full((B, k), np.inf, np.float32)
         hit_mask = np.zeros((B,), bool)
         caching = self.config.cache_size > 0
@@ -296,11 +327,19 @@ class KHIService:
         B, k = queries.shape[0], self.params.k
         prog = compile_expr(expr, self.m, box_budget=self.params.box_budget)
         if prog.mode == "bitmask":
+            if self._stream is not None:
+                raise ValueError(
+                    f"predicate compiled to the bitmask fallback (cover "
+                    f"exceeds box_budget={self.params.box_budget}) while "
+                    f"streaming is enabled: the host mask plane cannot see "
+                    f"delta rows (DESIGN.md §11/§15). Raise "
+                    f"SearchParams.box_budget so the cover fits, simplify "
+                    f"the expression, or compact() first")
             self.stats["requests"] += B
             self.stats["predicate_lanes"]["bitmask"] += B
             ids, dists, _hops = self._planner._run_mask(queries, prog)
             return ids, dists
-        out_ids = np.full((B, k), -1, np.int32)
+        out_ids = np.full((B, k), -1, self._id_dtype)
         out_d = np.full((B, k), np.inf, np.float32)
         m = self.m
         self._pred_lanes = self.stats["predicate_lanes"]
@@ -316,7 +355,8 @@ class KHIService:
                 else:
                     # disjoint cover: dedup only collapses (-1, inf) pads
                     out_ids, out_d = _merge_dedup(out_ids, out_d, ids,
-                                                  dists, k)
+                                                  dists, k,
+                                                  out_dtype=self._id_dtype)
         finally:
             self._pred_lanes = None
         return out_ids, out_d
@@ -376,8 +416,113 @@ class KHIService:
         if batch:
             yield from self._run_batch(batch)
 
-    def enable_streaming(self, **_kw):
-        raise _todo("streaming writes", "11")
+    @property
+    def _id_dtype(self):
+        """int64 ext ids under streaming, int32 row ids otherwise."""
+        return np.int64 if self._stream is not None else np.int32
+
+    # ---------------------------------------------------------- streaming
+    def enable_streaming(self, *, capacity: int = 4096,
+                         build_config: Optional[KHIConfig] = None
+                         ) -> StreamingState:
+        """Turn on the streaming write path (DESIGN.md §11): a delta
+        segment of ``capacity`` rows on the index's device, tombstoned
+        deletes and ``compact()`` epoch publishing. Answers switch to
+        stable int64 external ids (the seed corpus keeps ``0..n-1``).
+        ``build_config`` is what compaction rebuilds with, by default the
+        device builder."""
+        if self._stream is not None:
+            raise RuntimeError("streaming is already enabled")
+        # the delta is scanned by the box-scan kernel whatever kernel
+        # scores the graph (the graph-only backends have no scan form;
+        # on a CPU tensor its wrapper computes the plain version), unless
+        # the caller chose the plain backend
+        backend = ("jnp" if self.params.backend == "jnp"
+                   else "pallas_gather_l2_filter")
+        self._stream = StreamingState(
+            self.index, capacity=capacity,
+            build_config=build_config or KHIConfig(builder="device"),
+            backend=backend, quant=self.params.quant,
+            rerank_mult=self.params.rerank_mult)
+        self._note_mutation()
+        return self._stream
+
+    def _require_stream(self) -> StreamingState:
+        if self._stream is None:
+            raise RuntimeError("call enable_streaming() first")
+        return self._stream
+
+    def _note_mutation(self) -> None:
+        """Bump the cache-key sequence; the eager clear keeps the store
+        from holding unreachable entries."""
+        self._mutation_seq += 1
+        self._cache.clear()
+
+    def insert(self, vecs: np.ndarray, attrs: np.ndarray) -> np.ndarray:
+        """Append rows to the delta; returns their int64 ext ids.
+        Compacts first when the batch would not fit."""
+        st = self._require_stream()
+        vecs = np.ascontiguousarray(np.atleast_2d(vecs), np.float32)
+        attrs = np.ascontiguousarray(np.atleast_2d(attrs), np.float32)
+        b = vecs.shape[0]
+        t0 = time.perf_counter()
+        if not st.fits(b):
+            self.compact()
+            if not st.fits(b):
+                raise ValueError(
+                    f"insert batch of {b} rows cannot fit the per-shard "
+                    f"delta capacity {st.delta.capacity} even after "
+                    f"compaction")
+        exts = st.insert(vecs, attrs)
+        self.stats["inserts"] += b
+        self.stats["ingest_seconds"] += time.perf_counter() - t0
+        self._note_mutation()
+        return exts
+
+    def delete(self, ext_ids) -> int:
+        """Tombstone rows by ext id (unknown and dead ids are skipped).
+        Delta rows NaN their slots; base rows NaN their attr row in a
+        copy of the index, which is installed and handed to the planner
+        with the tombstone-adjusted counts. Returns the rows deleted."""
+        st = self._require_stream()
+        t0 = time.perf_counter()
+        new_index, n_del = st.delete(np.asarray(ext_ids), self.index)
+        if new_index is not None:
+            self.index = new_index
+            self._planner.refresh_index(
+                new_index, deleted_rows=st.deleted_locals())
+        self.stats["deletes"] += n_del
+        self.stats["ingest_seconds"] += time.perf_counter() - t0
+        if n_del:
+            self._note_mutation()
+        return n_del
+
+    def compact(self) -> dict:
+        """Fold the delta and the tombstones into a fresh epoch: gather
+        the live corpus, rebuild it with the stored build config on the
+        service's device, publish it through ``swap_index`` (queued
+        requests flush against the old, delta-merged view first), then
+        rebind the ext mapping. Returns the drained {ticket: Result}."""
+        st = self._require_stream()
+        t0 = time.perf_counter()
+        vecs, attrs, exts = st.live_corpus(self.index)
+        if not vecs.shape[0]:
+            raise ValueError("cannot compact an index down to zero live "
+                             "rows (delete less or rebuild explicitly)")
+        dev = self.index.device
+        new_index = device_put_index(
+            KHIIndex.build(vecs, attrs, st.build_config, device=dev),
+            device=dev)
+        self._compacting = True
+        try:
+            drained = self.swap_index(new_index)
+        finally:
+            self._compacting = False
+        st.reset(self.index, exts)
+        self.stats["compactions"] += 1
+        self.stats["compact_seconds"] += time.perf_counter() - t0
+        self._note_mutation()
+        return drained
 
     def snapshot(self) -> dict:
         """JSON-able stats snapshot (the reference's keys)."""
@@ -391,4 +536,9 @@ class KHIService:
         s["epoch"] = self.epoch
         dq, ds = s["device_queries"], s["device_seconds"]
         s["device_qps"] = (dq / ds) if ds > 0 else None
+        if self._stream is not None:
+            s["streaming"] = True
+            s["n_live"] = self._stream.n_live
+            s["delta_fill"] = [self._stream.delta.size]
+            s["tombstones"] = int(self._stream.base_deleted.sum())
         return s

@@ -638,3 +638,65 @@ def test_cuda_windows_covering_all_rows_equal_box_scan():
                 assert torch.equal(got[1], want[1]), (d, B, k)
                 uncovered = int(ops.SCAN_TILES["scan_topk_windows"][0])
                 assert uncovered == 0, (d, B, k)
+
+
+@pytest.mark.gpu
+def test_cuda_scan_and_rerank_bit_equal_at_delta_shapes():
+    """The box scan in f32, bf16 and int8 and the f32 rerank gather at the
+    streaming delta's shapes, on a 1/32-grid corpus (every sum exact in
+    any order), each ``torch.equal`` to its plain version: N in {1, 16,
+    32, 4096, 131072} rows of which none, one, half or all are live (the
+    rest NaN attrs, as unwritten and deleted slots; the unwritten half of
+    the rows zero), k in {N when N <= 64, 10, 40} capped at N, B in {1,
+    37, 256} lanes with an all-pass, an empty and narrower boxes; the
+    rerank gathers the int8 scan's ids, -1 past its in-range count. Then
+    one full-width case: N = 131072, d = 768, B = 256, half live."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0xD17A)
+    m = 4
+
+    def case(N, d, live, B, ks):
+        vecs = _grid(rng, (N, d))
+        attrs = rng.integers(0, 16, size=(N, m)).astype(np.float32)
+        dead = np.ones(N, bool)
+        dead[rng.choice(N, size=live, replace=False)] = False
+        attrs[dead] = np.nan
+        vecs[N - (N - live) // 2:] = 0.0       # unwritten slots
+        corpus = torch.as_tensor(vecs, device=dev)
+        at = torch.as_tensor(attrs, device=dev)
+        qv = torch.as_tensor(rng.integers(-32, 33, size=(N, d)),
+                             dtype=torch.int8, device=dev)
+        qs = torch.as_tensor(rng.choice([1 / 16, 1 / 32], size=(N, 1)),
+                             dtype=torch.float32, device=dev)
+        qv[qs[:, 0] == 1 / 32] *= 2
+        q = torch.as_tensor(_grid(rng, (B, d)), device=dev)
+        lo = rng.integers(0, 10, size=(B, m)).astype(np.float32)
+        hi = lo + rng.integers(2, 8, size=(B, m)).astype(np.float32)
+        lo[::3], hi[::3] = -1.0, 16.0                  # all-pass
+        lo[1::7], hi[1::7] = np.inf, -np.inf           # empty
+        lo = torch.as_tensor(lo, device=dev)
+        hi = torch.as_tensor(hi, device=dev)
+        for k in sorted({min(k, N) for k in ks}):
+            for cx in (corpus, corpus.to(torch.bfloat16)):
+                got = ops.scan_topk(cx, at, q, lo, hi, k=k)
+                want = ref.scan_topk_ref(cx, at, q, lo, hi, k)
+                assert torch.equal(got[0], want[0]), (N, live, B, k)
+                assert torch.equal(got[1], want[1]), (N, live, B, k)
+            got = ops.scan_topk_q8(qv, qs, at, q, lo, hi, k=k)
+            want = ref.scan_topk_q8_ref(qv, qs, at, q, lo, hi, k)
+            assert torch.equal(got[0], want[0]), (N, live, B, k)
+            assert torch.equal(got[1], want[1]), (N, live, B, k)
+            cids = want[0]
+            assert torch.equal(
+                ops.gather_l2_filter(cids, corpus, at, q, lo, hi),
+                ref.gather_l2_filter_ref(cids, corpus, at, q, lo, hi))
+            if live == 0:
+                assert bool((got[0] == -1).all())
+
+    for N in (1, 16, 32, 4096, 131072):
+        for live in sorted({0, 1, N // 2, N}):
+            for B in (1, 37, 256):
+                case(N, 96, live, B, ((N,) if N <= 64 else ()) + (10, 40))
+    case(131072, 768, 65536, 256, (10, 40))

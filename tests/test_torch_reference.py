@@ -1,7 +1,8 @@
 """``smoke_reference.py`` (the plain numpy reference ``chip_smoke.py``
 holds the port to at full shard size) against the JAX package on the
 CPU: the DFS router, the wide-frontier beam search with its hop cap, the
-bulk builder's graph rows, the int8 score path (replica, graph-lane
+bulk builder's graph rows (also with near-ties taken a build's way), the
+int8 score path (replica, graph-lane
 rerank, scan-lane over-fetch and rerank), the hybrid path's antichain and
 windowed scan, and the predicate pass's row masks and masked top-k. Ids
 and hops are equal; distances within rtol = atol = 1e-5 (reduce
@@ -116,6 +117,50 @@ def test_graph_rows_match_device_builder(tiny_index):
         got = sref.graph_rows(vecs, members, np.arange(c), d_rows, M=M,
                               ef_b=2 * M)
         np.testing.assert_array_equal(got, want[int(t.level[p]), members])
+
+
+def test_graph_rows_take_near_ties_the_builds_way(tiny_data):
+    """A corpus holding exact and 1e-3 copies of its rows ties on many of
+    the rule's decisions: the fp32 device builder breaks them its own way.
+    Guided by its rows, ``graph_rows`` reproduces every row, while a
+    corrupted row still differs; guided by the float64 rule's own rows,
+    it returns them and reports no decision taken against the rule."""
+    from repro.core.khi import KHIConfig, KHIIndex
+
+    vecs, attrs = tiny_data
+    rng = np.random.default_rng(4)
+    pick = rng.choice(len(vecs), 200, replace=False)
+    noise = rng.normal(0, 1e-3, (200, vecs.shape[1])).astype(np.float32)
+    noise[:60] = 0
+    vecs = np.concatenate([vecs, vecs[pick] + noise])
+    attrs = np.concatenate([attrs, attrs[pick]])
+    M = 16
+    index = KHIIndex.build(vecs, attrs, KHIConfig(M=M, builder="device"))
+    t = index.tree
+    built = np.asarray(index.nbrs)
+    count = np.asarray(t.count)
+    nodes = np.nonzero(count > 1)[0]
+    for target in (count.max(), 300, 40):
+        p = int(nodes[np.argmin(np.abs(count[nodes] - target))])
+        s, c = int(t.start[p]), int(t.count[p])
+        members = np.asarray(t.order[s:s + c], np.int64)
+        pos = np.arange(min(c, 160))
+        d_rows = sref.sq_dists_f64(vecs, vecs[members[pos]],
+                                   chunk=500)[:, members]
+        got = built[int(t.level[p]), members[pos]]
+        want, _ = sref.graph_rows(vecs, members, pos, d_rows, M=M,
+                                  ef_b=2 * M, rel_tol=4e-6, guide=got)
+        np.testing.assert_array_equal(want, got)
+        bad = got.copy()
+        bad[:, 0] = bad[:, 1]
+        again, _ = sref.graph_rows(vecs, members, pos, d_rows, M=M,
+                                   ef_b=2 * M, rel_tol=4e-6, guide=bad)
+        assert (again != bad).any(1).all()
+        plain = sref.graph_rows(vecs, members, pos, d_rows, M=M, ef_b=2 * M)
+        same, n_tie = sref.graph_rows(vecs, members, pos, d_rows, M=M,
+                                      ef_b=2 * M, rel_tol=4e-6, guide=plain)
+        np.testing.assert_array_equal(same, plain)
+        assert not n_tie.any()
 
 
 def test_graph_shape_classes():
@@ -250,3 +295,38 @@ def test_year_mask_matches_predicate_compiler(tiny_index):
         got = sref.year_mask(attrs, ys, amax)
         np.testing.assert_array_equal(got, want)
         assert 0 < got.sum() < len(attrs)
+
+
+def test_live_topk_and_merge_match_streaming_oracle():
+    """live_topk over the base rows and over the inserted rows, merged by
+    merge_dist_ext, equals the reference's StreamingOracle after inserts
+    (exact duplicates of live rows among them: (dist, ext) ties) and
+    deletes, on the 1/32 grid where every distance is exact."""
+    rng = np.random.default_rng(41)
+    n0, d, m, k = 120, 16, 2, 8
+    vecs = (rng.integers(-64, 64, size=(n0, d)) / 32).astype(np.float32)
+    attrs = rng.integers(0, 16, size=(n0, m)).astype(np.float32)
+    oracle = jref.StreamingOracle(vecs, attrs)
+    nv = (rng.integers(-64, 64, size=(60, d)) / 32).astype(np.float32)
+    na = rng.integers(0, 16, size=(60, m)).astype(np.float32)
+    nv[:20], na[:20] = vecs[:20], attrs[:20]
+    oracle.insert(nv, na)
+    oracle.delete(rng.choice(n0 + 60, size=40, replace=False))
+    exts, lv, la = oracle.corpus()
+    base, delta = exts < n0, exts >= n0
+    Q = (rng.integers(-64, 64, size=(12, d)) / 32).astype(np.float32)
+    for i, q in enumerate(Q):
+        lo = rng.integers(0, 10, size=m).astype(np.float32)
+        hi = lo + rng.integers(0, 9, size=m).astype(np.float32)
+        if i % 4 == 0:
+            lo[:], hi[:] = 0.0, 15.0
+        parts = [sref.live_topk(lv[s], la[s], exts[s], q, lo, hi, k)
+                 for s in (base, delta)]
+        got_e, got_d = sref.merge_dist_ext(
+            [(e[None], dd[None]) for e, dd in parts], k)
+        want = oracle.query(q, jref.Predicate(lo, hi), k)
+        np.testing.assert_array_equal(got_e[0][got_e[0] >= 0], want)
+        assert (got_e[0] >= 0).sum() == len(want)
+        for j, e in enumerate(want):
+            v = lv[exts == e][0].astype(np.float64)
+            assert got_d[0][j] == np.float32(((v - q) ** 2).sum())

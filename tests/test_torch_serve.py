@@ -121,5 +121,10 @@ def test_khi_serve_config_and_rejections(tiny_index):
     with pytest.raises(ValueError, match="exactly one filter form"):
         Request(np.zeros(3), lo=np.zeros(3), hi=np.ones(3),
                 expr=Range(0, 0.0, 1.0))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        KHIService(tiny_index, device="cpu").enable_streaming()
+    assert cfg.delta_capacity == 131_072
+    svc = KHIService(tiny_index, device="cpu")
+    with pytest.raises(RuntimeError, match="enable_streaming"):
+        svc.delete([0])
+    svc.enable_streaming(capacity=8)
+    with pytest.raises(RuntimeError, match="already enabled"):
+        svc.enable_streaming()
