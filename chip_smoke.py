@@ -13,7 +13,10 @@ expressions through Request(expr=...) under "auto" and "hybrid" (one
 lowers to 3 disjoint boxes, one to the bitmask scan); then with
 strategy="graph" under every scoring backend it takes (the fused filter
 gather, the unfused gather, pallas_l2) and both routers (level, dfs);
-last, the streaming write path (``stream_pass``): a 131,072-row delta
+then degradation tiers and the SLO scheduler (``slo_pass``) at the
+config's policy: each tier's direct answers, a backlog down the ladder,
+an open-loop replay with faults armed on the scheduler's worker thread,
+and an int8-bottom ladder; last, the streaming write path (``stream_pass``): a 131,072-row delta
 (the config's ``delta_capacity``) takes 65,536 inserts and 20,000-odd
 deletes of base and delta rows, the same bursts are served and checked
 against the live corpus on an f32 and an int8 service, the delta scan is
@@ -38,7 +41,8 @@ graph pass holds the unfused gather's walk to the fused one's bit for
 bit, pallas_l2's to it on ids and recall, and the DFS router to the same
 file's numpy DFS. Launch counts are reset before each served path (the
 f32 build + serve, the int8 pass, the bf16 pass, the hybrid pass, the
-predicate pass, each graph configuration) and read after it; the public
+predicate pass, each graph configuration, the SLO pass's open loop and
+its int8 tier) and read after it; the public
 wrappers' rescoring of the graph pass's answers is counted apart, and
 so is each streaming service's served run.
 
@@ -1028,6 +1032,9 @@ def main_path(n: int, n_full: int, dev, rows: dict) -> None:
     predicate_pass(index, di, params, cfg, Q, sizes, dev, rows)
     graph_pass(index, di, params, cfg, Q, lo, hi, perm >= nq, serve_bursts,
                t_ids, dev, rows)
+    torch.cuda.empty_cache()
+    slo_pass(index, di, params, cfg, Q, lo, hi, perm >= nq, ids, use_scan,
+             t_ids, t_d, ref_ent, dev, rows)
     torch.cuda.empty_cache()
     stream_pass(index, di, params, cfg, Q, lo, hi, serve_bursts, ids, dev)
 
@@ -2033,6 +2040,332 @@ def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
           f"{wall * 1e3:.1f} ms wall", flush=True)
     check(len(kern) == len(scorer) > 0,
           "(c) the scorer did not call ops.l2dist_qc once a call")
+
+
+# -------------------------------------------------------------- the SLO
+
+SLO_FAULTS = "device_error%0,device_error@3,latency:50ms@5"
+SLO_TRICKLE_S = 0.005          # the first half arrives one every 5 ms
+SLO_INT8_LADDER = "ef=64,ef=32+expand_width=1+quant=int8"
+
+
+def slo_pass(index, di, params, cfg, Q, lo, hi, is_s, f32_ids, use_scan,
+             t_ids, t_d, ref_ent, dev, rows) -> None:
+    """Degradation tiers and the SLO scheduler on the index already built,
+    at the config's policy (``cfg.scheduler_config()``: slo_ms, qdepth,
+    the ladder). (1) A fresh f32 service takes the ladder and warms every
+    tier's buckets. (2) Each tier answers the 384 requests directly on an
+    emptied cache: tier 0 equal to the main path's f32 answers; tiers 1-2's
+    graph lanes equal to smoke_reference.beam_search at the tier's ef,
+    c_n, E and hops() from the main path's reference entries on every
+    lane, their scan lanes exact against the brute force; recall@10 by
+    selectivity. (3) Backlog: the 384 requests at once, pumped, at
+    thresholds (64, 128) with deadlines far off, through a service of
+    buckets (1, 8, 32) (at the cell's 256-lane batch the backlog drains
+    in two batches, which cannot cross two thresholds): every tier serves,
+    every Served record equal to its tier's direct answer. (4) Open loop
+    at the policy on the worker thread: 192 requests one every 5 ms, then
+    192 at one instant, two tenants, ``SLO_FAULTS`` armed and a request
+    dead on arrival last; checked: nothing dropped, the accounting, the
+    faults reconciled with the injector's log, no device error that was
+    not injected (a failing kernel would show here: the scheduler turns
+    any exception into typed records), ticket 0 the only fault rejection,
+    the other lanes of failed batches served after one retry, every Served
+    record equal to its tier's direct answer, no plain version on the
+    card; expiries are reported, not held to a bar. (5) An int8-bottom
+    ladder on another service: one replica, attached once; its bottom
+    tier held to smoke_reference's int8 beam search + f32 rerank and scan
+    over-fetch + rerank at the tier's params (the int8 pass's 95% bar)."""
+    import smoke_reference as sref
+    from repro_torch.core import engine as eng
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve import (FaultInjector, KHIService, Rejected,
+                                   Request, Served, ServeConfig,
+                                   SLOScheduler, TierSpec, replay_open_loop)
+
+    t_pass = time.perf_counter()
+    policy = cfg.scheduler_config()
+    serve_cfg = ServeConfig(buckets=cfg.buckets, cache_size=cfg.cache_size)
+    svc = KHIService(di, params, config=serve_cfg)
+    svc.set_tiers([s.apply(svc.params) for s in policy.ladder])
+    tp = svc._tier_params
+    check(all((p.c_e, p.c_n, p.scan_budget, p.frontier_cap, p.k)
+              == (tp[0].c_e, tp[0].c_n, tp[0].scan_budget,
+                  tp[0].frontier_cap, tp[0].k) for p in tp),
+          "[slo] a tier changed the router's inputs or k")
+    t0 = time.perf_counter()
+    for t in range(svc.n_tiers):        # every tier's buckets, other keys
+        for b in svc.config.buckets:
+            svc.search(Q[:b] + np.float32(2e-3), lo[:b], hi[:b], tier=t)
+    torch.cuda.synchronize()
+    print(f"[slo] policy: slo {policy.slo_ms} ms, qdepth {policy.qdepth}, "
+          f"ladder {cfg.degrade_ladder!r}, thresholds "
+          f"{policy.resolved_thresholds()}; tiers "
+          + "; ".join(f"{t}: ef={p.ef} E={p.expand_width} hops<={p.hops()}"
+                      for t, p in enumerate(tp))
+          + f"; every tier's buckets warmed in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+    # ---- (2) each tier's direct answers
+    gi, si = np.nonzero(~use_scan)[0], np.nonzero(use_scan)[0]
+    sel = {"1/4": np.nonzero(~is_s)[0], "1/64": np.nonzero(is_s)[0]}
+    nbrs = di.nbrs.cpu().numpy()
+    direct = {}
+    for t, p in enumerate(tp):
+        svc._cache.clear()
+        t0 = time.perf_counter()
+        ids_t, d_t = svc.search(Q, lo, hi, tier=t)
+        dt = time.perf_counter() - t0
+        direct[t] = ids_t
+        check_served(ids_t, d_t, index.vecs, index.attrs, Q, lo, hi,
+                     f"[slo] tier {t}")
+        exact = lanes_exact(ids_t[si], d_t[si], t_ids[si], t_d[si])
+        check(bool(exact.all()), f"[slo] tier {t}: scan lanes not exact on "
+              f"{int((~exact).sum())} lanes")
+        rec = {k: recall(ids_t[i], t_ids[i]) for k, i in sel.items()}
+        line = (f"[slo] tier {t} direct: {len(Q)} requests in {dt:.3f}s "
+                f"({len(Q) / dt:.1f} QPS); recall@{cfg.k} "
+                + ", ".join(f"{k} lanes {r:.4f}" for k, r in rec.items())
+                + f"; scan lanes exact on {int(exact.sum())} of {len(si)}")
+        if t == 0:
+            check(np.array_equal(ids_t, f32_ids),
+                  "[slo] tier 0 differs from the main path's f32 answers")
+            print(line + "; ids equal to the main path's", flush=True)
+            continue
+        g_ids, _, g_hops, _ = svc._get_planner(t).search(Q[gi], lo[gi],
+                                                         hi[gi])
+        check(np.array_equal(g_ids, ids_t[gi]),
+              f"[slo] tier {t}: served graph lanes differ from the graph "
+              f"program's")
+        t0 = time.perf_counter()
+        ref_out = [sref.beam_search(index.vecs, index.attrs, nbrs, e, Q[i],
+                                    lo[i], hi[i], k=cfg.k, ef=p.ef,
+                                    c_n=p.c_n, E=p.expand_width,
+                                    max_hops=p.hops())
+                   for e, i in zip(ref_ent, gi)]
+        same_ids = int((g_ids == np.stack([r[0] for r in ref_out]))
+                       .all(1).sum())
+        same_hops = int((g_hops == np.array([r[2] for r in ref_out])).sum())
+        print(line + f"; graph lanes: ids equal to the numpy beam search on "
+              f"{same_ids} of {len(gi)}, hops on {same_hops} (mean hops "
+              f"{g_hops.mean():.1f}; reference "
+              f"{time.perf_counter() - t0:.1f}s on the host)", flush=True)
+        check(same_ids == len(gi) and same_hops >= 0.95 * len(gi),
+              f"[slo] tier {t}: the hop loop disagrees with the numpy beam "
+              f"search")
+    del nbrs
+
+    # ---- (3) a backlog down the ladder
+    svc_b = KHIService(di, params, config=ServeConfig(buckets=(1, 8, 32),
+                                                      cache_size=0))
+    sched = SLOScheduler(svc_b, dataclasses.replace(
+        policy, tier_thresholds=(64, 128), slo_ms=3_600_000.0),
+        autostart=False)
+    t0 = time.perf_counter()
+    tickets = [sched.submit(Request(Q[i], lo[i], hi[i]), tenant=f"t{i % 2}")
+               for i in range(len(Q))]
+    while sched.pump():
+        pass
+    snap = sched.shutdown(drain=True)
+    dt = time.perf_counter() - t0
+    recs = [sched.result(t, timeout=0) for t in tickets]
+    same = sum(isinstance(r, Served) and np.array_equal(
+        r.result.ids, direct[r.tier][i]) for i, r in enumerate(recs))
+    print(f"[slo] backlog: {len(Q)} requests at once, thresholds (64, 128), "
+          f"batches of <= 32: {snap['batches']} batches in {dt:.2f}s, tiers "
+          f"{snap['tier_served']}; Served ids equal to the tier's direct "
+          f"answer on {same} of {len(Q)}", flush=True)
+    check(set(snap["tier_served"]) == {"0", "1", "2"} and snap["dropped"] == 0,
+          "[slo] the backlog did not serve at every tier")
+    check(same == len(Q), "[slo] backlog answers differ from the direct ones")
+    del svc_b, sched
+
+    # ---- (4) open loop at the config's policy, faults armed
+    svc._cache.clear()
+    injector = FaultInjector.parse(SLO_FAULTS)
+    reqs = [Request(Q[i], lo[i], hi[i]) for i in range(len(Q))]
+    h = len(Q) // 2
+    arrivals = [i * SLO_TRICKLE_S for i in range(h)]
+    arrivals += [h * SLO_TRICKLE_S] * (len(Q) - h)
+    ops.reset_launches()
+    ref.reset_calls()
+    torch.cuda.synchronize()
+    sched = SLOScheduler(svc, policy, injector=injector)   # worker thread
+    sub_at, timeline = [], []
+    execute = sched._execute
+
+    def timed_execute(batch, tier):
+        """Each device step's (start, end) on the replay's clock, its
+        lanes and tier: where the deadlines went."""
+        t0 = time.monotonic() - t_start
+        execute(batch, tier)
+        timeline.append((t0, time.monotonic() - t_start, len(batch), tier))
+
+    sched._execute = timed_execute
+
+    def submit(item):
+        sub_at.append(time.monotonic() - t_start)
+        return sched.submit(item[1], tenant=f"t{item[0] % 2}")
+
+    t_start = time.monotonic()
+    tickets = replay_open_loop(submit, arrivals, list(enumerate(reqs)))
+    t_doa = sched.submit(reqs[1], deadline_ms=0, tenant="t1")
+    snap = sched.shutdown(drain=True, timeout=600.0)
+    wall = time.monotonic() - t_start
+    torch.cuda.synchronize()
+    launches = {k: c for k, c in ops.LAUNCHES.items() if c}
+    plain_cuda = {k: v["cuda"] for k, v in ref.CALLS.items()}
+    recs = [sched.result(t, timeout=0) for t in tickets]
+    doa = sched.result(t_doa, timeout=0)
+    fired = injector.counts()
+    lag = (np.asarray(sub_at) - np.asarray(arrivals)) * 1e3
+    n_rej = sum(snap["rejected"].values())
+    served = [(i, r) for i, r in enumerate(recs) if isinstance(r, Served)]
+    faults = [(i, r) for i, r in enumerate(recs)
+              if isinstance(r, Rejected) and r.reason == "fault"]
+    other = [r.detail for r in recs if isinstance(r, Rejected)
+             and r.reason == "fault" and "injected" not in r.detail]
+    failed = {t for rec in injector.fired if rec["kind"] == "device_error"
+              for t in rec["tickets"]} - {0}
+    lat = {}
+    for _, r in served:
+        lat.setdefault(r.tier, []).append(r.latency_ms)
+    same = sum(np.array_equal(r.result.ids, direct[r.tier][i])
+               for i, r in served)
+    print(f"[slo] open loop: {len(Q) + 1} submitted ({h} one every "
+          f"{SLO_TRICKLE_S * 1e3:.0f} ms, {len(Q) - h} at "
+          f"{arrivals[-1]:.3f}s, 1 dead on arrival) in {wall:.3f}s: served "
+          f"{snap['served']} ({snap['served'] / wall:.1f} served/s), "
+          f"rejected {snap['rejected']}, dropped {snap['dropped']}; tier mix "
+          f"{snap['tier_served']}; batches {snap['batches']}, steps "
+          f"{snap['steps']}, expired in queue {snap['expired_in_queue']}, "
+          f"deadline breaches {snap['deadline_breaches']}", flush=True)
+    print(f"[slo] open loop: latency ms by tier "
+          + "; ".join(f"{t}: p50 {np.percentile(v, 50):.1f} p99 "
+                      f"{np.percentile(v, 99):.1f} (n={len(v)})"
+                      for t, v in sorted(lat.items()))
+          + f"; EMA ms by tier {snap['ema_ms']}; arrival lag ms mean "
+          f"{lag.mean():.3f} max {lag.max():.3f}; faults fired {fired}, "
+          f"batch failures {snap['batch_failures']}, retries "
+          f"{snap['retries']}, lane failures {snap['lane_failures']}, "
+          f"injected {snap['injected_faults']}, device errors "
+          f"{snap['device_errors']}; launches {launches}; plain-version "
+          f"CUDA calls {plain_cuda}; Served ids equal to the tier's direct "
+          f"answer on {same} of {len(served)}", flush=True)
+    print("[slo] open loop batches (start-end s on the replay's clock, "
+          "lanes, tier): " + ", ".join(f"{a:.3f}-{b:.3f} {n}@{t}"
+                                       for a, b, n, t in timeline),
+          flush=True)
+    check(not other, f"[slo] device errors that were not injected: {other}")
+    check(snap["device_errors"] == 0, "[slo] device_errors != 0")
+    check(snap["dropped"] == 0 and snap["served"] + n_rej == len(Q) + 1,
+          f"[slo] accounting: {snap}")
+    check(sum(snap["tier_served"].values()) == snap["served"],
+          "[slo] the tier mix does not sum to the served total")
+    check(isinstance(doa, Rejected) and doa.reason == "expired",
+          f"[slo] the dead-on-arrival request ended {doa}")
+    check(snap["injected_faults"] == fired["device_error"]
+          and snap["retries"] == snap["batch_failures"] >= 2,
+          "[slo] the faults do not reconcile with the injector's log")
+    check(len(faults) == 1 and faults[0][0] == 0
+          and snap["lane_failures"] == 1,
+          f"[slo] fault rejections {[i for i, _ in faults]}, expected "
+          f"ticket 0 alone")
+    check(all((isinstance(recs[t], Served) and recs[t].retries == 1)
+              or (isinstance(recs[t], Rejected)
+                  and recs[t].reason == "expired") for t in failed),
+          "[slo] a lane of a failed batch was not served after its retry")
+    check(same == len(served),
+          "[slo] open-loop answers differ from the direct ones")
+    check(all(v == 0 for v in plain_cuda.values()),
+          f"[slo] the run fell through to a plain version: {plain_cuda}")
+    for name in ("gather_l2_filter", "scan_topk"):
+        check(launches.get(name, 0) > 0, f"[slo] {name} was never launched")
+        rows[name]["slo_launches"] = launches.get(name, 0)
+    del svc, sched
+
+    # ---- (5) an int8-bottom ladder: one replica, the bottom tier to numpy
+    attach = []
+    orig = eng.with_quant_replica
+
+    def timed_attach(d, q):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(d, q)
+        torch.cuda.synchronize()
+        attach.append(time.perf_counter() - t0)
+        return out
+
+    svc8 = KHIService(di, params, config=serve_cfg)
+    eng.with_quant_replica = timed_attach
+    try:
+        svc8.set_tiers([s.apply(svc8.params)
+                        for s in TierSpec.parse_ladder(SLO_INT8_LADDER)])
+        p2 = svc8._tier_params[2]
+        ops.reset_launches()
+        ref.reset_calls()
+        t0 = time.perf_counter()
+        ids8, d8 = svc8.search(Q, lo, hi, tier=2)
+        dt = time.perf_counter() - t0
+        launches = {k: c for k, c in ops.LAUNCHES.items() if c}
+        plain_cuda = {k: v["cuda"] for k, v in ref.CALLS.items()}
+        g8, _, h8, _ = svc8._get_planner(2).search(Q[gi], lo[gi], hi[gi])
+        shared = all(svc8._get_planner(t).index.qvecs is svc8.index.qvecs
+                     for t in range(3))
+    finally:
+        eng.with_quant_replica = orig
+    qv, qs = svc8.index.qvecs, svc8.index.qscale
+    gib = (qv.numel() * qv.element_size() + qs.numel() * 4) / 2**30
+    check_served(ids8, d8, index.vecs, index.attrs, Q, lo, hi,
+                 "[slo int8] tier 2")
+    check(np.array_equal(g8, ids8[gi]), "[slo int8] served graph lanes "
+          "differ from the graph program's")
+    check(len(attach) == 1 and shared and svc8._tier_params[0].quant == "none",
+          f"[slo int8] the replica was attached {len(attach)} times, shared "
+          f"by every tier's planner: {shared}")
+    check(all(v == 0 for v in plain_cuda.values()),
+          f"[slo int8] the path fell through to a plain version: "
+          f"{plain_cuda}")
+    for name in ("gather_l2_filter_q8", "scan_topk_q8", "gather_l2_filter"):
+        check(launches.get(name, 0) > 0, f"[slo int8] {name} was never "
+              f"launched")
+    for name in ("gather_l2_filter_q8", "scan_topk_q8"):
+        rows[name]["slo_launches"] = launches.get(name, 0)
+    t0 = time.perf_counter()
+    deq = sref.dequant_rows(qv.cpu().numpy(), qs.cpu().numpy())
+    nbrs = di.nbrs.cpu().numpy()
+    rr = max(p2.k, min(p2.ef, p2.k * p2.rerank_mult))
+    same_ids = same_hops = 0
+    for j, i in enumerate(gi):
+        cand, _, hops = sref.beam_search(
+            deq, index.attrs, nbrs, ref_ent[j], Q[i], lo[i], hi[i], k=rr,
+            ef=p2.ef, c_n=p2.c_n, E=p2.expand_width, max_hops=p2.hops())
+        r_ids, _ = sref.rerank(index.vecs, cand, Q[i], p2.k)
+        same_ids += bool((r_ids == g8[j]).all())
+        same_hops += int(hops == h8[j])
+    del nbrs
+    kq = min(max(p2.k, p2.k * p2.rerank_mult), len(index.vecs))
+    same_scan = sum(bool((sref.scan_rerank(
+        deq, index.vecs, index.attrs, Q[i], lo[i], hi[i], k=p2.k, kq=kq)[0]
+        == ids8[i]).all()) for i in si)
+    del deq
+    rec = {k: recall(ids8[i], t_ids[i]) for k, i in sel.items()}
+    print(f"[slo int8] ladder {SLO_INT8_LADDER!r}: the replica ({gib:.3f} "
+          f"GiB) attached once in {attach[0]:.3f}s, shared by the 3 tiers' "
+          f"planners; tier 2 (ef={p2.ef} E={p2.expand_width}): {len(Q)} "
+          f"requests in {dt:.3f}s; recall@{cfg.k} "
+          + ", ".join(f"{k} lanes {r:.4f}" for k, r in rec.items())
+          + f"; graph lanes equal to the numpy int8 beam search + f32 rerank "
+          f"(rr={rr}) on {same_ids} of {len(gi)}, hops on {same_hops}; scan "
+          f"lanes equal to the numpy over-fetch (kq={kq}) + rerank on "
+          f"{same_scan} of {len(si)} ({time.perf_counter() - t0:.1f}s on "
+          f"the host); launches {launches}; plain-version CUDA calls "
+          f"{plain_cuda}", flush=True)
+    check(same_ids >= 0.95 * len(gi) and same_hops >= 0.95 * len(gi)
+          and same_scan >= 0.95 * len(si),
+          "[slo int8] tier 2 disagrees with the numpy reference")
+    del svc8
+    print(f"[slo] pass took {time.perf_counter() - t_pass:.1f}s", flush=True)
 
 
 # ------------------------------------------------------------ streaming

@@ -40,6 +40,16 @@ class KHIServeConfig:
     # the delta's exact brute scan a small fraction of query cost while
     # bounding the windowed-merge rebuild cadence.
     delta_capacity: int = 131_072
+    # SLO scheduler policy (serve/scheduler.py, DESIGN.md §13): bounded
+    # admission queue, default per-request deadline, and the degradation
+    # ladder (TierSpec grammar; each comma-separated step overrides
+    # SearchParams fields of the full-quality tier 0). The ladder halves
+    # ef twice and drops the frontier to one expansion per hop at the
+    # bottom: recall degrades, batch shapes do not change.
+    slo_ms: float = 100.0
+    qdepth: int = 1024
+    degrade_ladder: str = "ef=64,ef=32+expand_width=1"
+    batch_timeout_ms: float = 0.0       # 0 disables the timeout signal
 
     def search_params(self):
         """SearchParams for this serving cell."""
@@ -60,6 +70,14 @@ class KHIServeConfig:
         from ..serve.khi_service import ServeConfig
         return ServeConfig(buckets=self.buckets, cache_size=self.cache_size)
 
+    def scheduler_config(self):
+        """SchedulerConfig for the SLO front-end (DESIGN.md §13)."""
+        from ..serve.scheduler import SchedulerConfig, TierSpec
+        return SchedulerConfig(qdepth=self.qdepth, slo_ms=self.slo_ms,
+                               ladder=TierSpec.parse_ladder(
+                                   self.degrade_ladder),
+                               batch_timeout_ms=self.batch_timeout_ms)
+
 
 def config() -> KHIServeConfig:
     return KHIServeConfig()
@@ -69,4 +87,6 @@ def smoke_config() -> KHIServeConfig:
     return KHIServeConfig(name="khi-serve-smoke", n_per_shard=2000, d=32,
                           m=3, M=8, height=12, nodes_per_shard=4096, ef=32,
                           backend="jnp", scan_threshold=200,
-                          buckets=(1, 8, 32), cache_size=1024)
+                          buckets=(1, 8, 32), cache_size=1024,
+                          delta_capacity=256, qdepth=64, slo_ms=250.0,
+                          degrade_ladder="ef=16,ef=8+expand_width=1")

@@ -21,7 +21,12 @@ most before the bitmask fallback). ``--stream-smoke`` then drives the
 streaming write path (insert, delete, query, compact, query again) with
 a ``--delta-capacity``-row delta and checks that the answers after the
 compaction equal those before it: exactly under ``--strategy scan``,
-where every lane is exact, by overlap otherwise.
+where every lane is exact, by overlap otherwise. ``--load-smoke`` drives
+the SLO scheduler (DESIGN.md §13) with a bursty open-loop replay under
+``--inject`` faults, at the policy ``--slo-ms``, ``--qdepth`` and
+``--degrade-ladder`` set, and checks its accounting: nothing dropped,
+the tiers summing to the served total, the injected faults and retries
+reconciled with the injector's log.
 """
 
 from __future__ import annotations
@@ -86,6 +91,9 @@ def serve_khi(args):
         snap = svc.snapshot()
     if args.stream_smoke:
         stream_smoke(svc, vecs, attrs, Q, lo, hi, args)
+        snap = svc.snapshot()
+    if args.load_smoke:
+        load_smoke(svc, Q, lo, hi, args)
         snap = svc.snapshot()
     return snap
 
@@ -165,6 +173,81 @@ def stream_smoke(svc, vecs, attrs, Q, lo, hi, args):
           f"pre/post-compaction answers {verdict}")
 
 
+def load_smoke(svc, Q, lo, hi, args):
+    """The SLO scheduler under fault injection (DESIGN.md §13): a short
+    bursty open-loop replay (a trickle, then half the requests at one
+    instant, two tenants) through ``SLOScheduler`` with the ``--inject``
+    faults armed, plus one request dead on arrival. Checks that nothing
+    is dropped, the tier counts sum to the served total, the dead request
+    is ``expired``, the scheduler's injected faults equal the injector's
+    ``device_error`` firings, every failed batch got one re-split retry,
+    no device error that was not injected occurred, and a transient
+    ``device_error@N`` recovered every lane."""
+    from repro_torch.serve import (FaultInjector, Rejected, Request,
+                                   SchedulerConfig, Served, SLOScheduler,
+                                   TierSpec, replay_open_loop)
+
+    injector = FaultInjector.parse(args.inject)
+    cfg = SchedulerConfig(qdepth=args.qdepth, slo_ms=args.slo_ms,
+                          ladder=TierSpec.parse_ladder(args.degrade_ladder))
+    # install the ladder (the scheduler then keeps it) and run every
+    # tier's bucket shapes once on throwaway keys before the worker
+    # thread starts, so the replay's latencies are the steady state's
+    svc.set_tiers([spec.apply(svc.params) for spec in cfg.ladder])
+    for t in range(svc.n_tiers):
+        for b in svc.config.buckets:
+            svc.search(Q[:b] + np.float32(2e-3), lo[:b], hi[:b], tier=t)
+    sched = SLOScheduler(svc, cfg, injector=injector, autostart=True)
+
+    n = min(48, len(Q))
+    reqs = [Request(Q[i], lo[i], hi[i]) for i in range(n)]
+    arrivals = [i * 0.01 for i in range(n // 2)]
+    arrivals += [arrivals[-1]] * (n - n // 2)
+    tickets = replay_open_loop(
+        lambda r: sched.submit(r[1], tenant=f"t{r[0] % 2}"),
+        arrivals, list(enumerate(reqs)))
+    t_doa = sched.submit(reqs[0], deadline_ms=0)
+    snap = sched.shutdown(drain=True)
+    recs = [sched.result(t, timeout=0) for t in tickets]
+
+    fired = injector.counts()
+    n_served = sum(isinstance(r, Served) for r in recs)
+    n_rej = sum(isinstance(r, Rejected) for r in recs)
+    doa = sched.result(t_doa, timeout=0)
+    checks = [
+        (snap["dropped"] == 0, f"silent drop: {snap}"),
+        (n_served + n_rej == n, "missing terminal record"),
+        (sum(snap["tier_served"].values()) == snap["served"],
+         f"tier accounting != served total: {snap}"),
+        (isinstance(doa, Rejected) and doa.reason == "expired",
+         f"the dead-on-arrival request ended {doa}"),
+        (snap["injected_faults"] == fired["device_error"],
+         f"scheduler saw {snap['injected_faults']} injected faults, "
+         f"injector fired {fired['device_error']}"),
+        (snap["retries"] == snap["batch_failures"],
+         "every failed batch must get exactly one re-split retry pass"),
+        (snap["device_errors"] == 0,
+         "device errors that were not injected: " + "; ".join(
+             r.detail for r in recs if isinstance(r, Rejected)
+             and r.reason == "fault" and "injected" not in r.detail)),
+    ]
+    if any(s.kind == "device_error" and s.step is not None
+           for s in injector.specs):
+        checks += [
+            (snap["batch_failures"] >= 1, "induced batch failure missed"),
+            (all(isinstance(r, Served) for r in recs),
+             "transient device_error must recover every lane via re-split: "
+             + str([r for r in recs if isinstance(r, Rejected)])),
+        ]
+    for ok, msg in checks:
+        if not ok:
+            raise AssertionError(msg)
+    print(f"[serve] load-smoke: {n + 1} submitted = {snap['served']} served"
+          f" + {sum(snap['rejected'].values())} rejected (0 dropped); "
+          f"tiers={snap['tier_served']} retries={snap['retries']} "
+          f"faults={fired} timeouts={snap['timeouts']} slo={args.slo_ms}ms")
+
+
 def main(argv=None):
     from repro_torch.core.engine import BACKENDS, QUANTS, ROUTERS, STRATEGIES
 
@@ -215,6 +298,23 @@ def main(argv=None):
                          "delete, compact, re-query")
     ap.add_argument("--delta-capacity", type=int, default=256,
                     help="delta-segment rows for --stream-smoke")
+    ap.add_argument("--slo-ms", type=float, default=250.0,
+                    help="default per-request deadline of the SLO scheduler")
+    ap.add_argument("--qdepth", type=int, default=64,
+                    help="bounded admission-queue depth; over-capacity "
+                         "requests get a typed queue_full rejection")
+    ap.add_argument("--degrade-ladder", default="ef=16,ef=8+expand_width=1",
+                    help="degradation-tier ladder, comma-separated steps of "
+                         "+-joined SearchParams overrides, e.g. "
+                         "'ef=32,ef=16+expand_width=1'")
+    ap.add_argument("--inject", default="",
+                    help="fault-injection spec for --load-smoke, e.g. "
+                         "'device_error@1,latency:30ms@2' (serve/faults.py "
+                         "grammar)")
+    ap.add_argument("--load-smoke", action="store_true",
+                    help="drive the SLO scheduler with a bursty replay under "
+                         "--inject faults and check its no-drop and retry "
+                         "accounting")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' for the plain "
                          "versions)")

@@ -23,8 +23,17 @@ cache key. ``compact`` rebuilds the live corpus with the device builder
 on the service's device and publishes it through ``swap_index``, which
 refuses any other caller while streaming.
 
-Mesh serving, sharded indexes and degradation tiers above 0 are not
-ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+Degradation tiers (DESIGN.md §13): the service carries a ladder of
+``SearchParams`` (``tiers=`` / ``set_tiers``) and every entry point takes
+``tier=``; tier 0 is the full-quality default. Each tier has its own
+validated params and a planner built on first use against the same index,
+all planners share one plan cache (the routing bound is tier-invariant),
+one compressed replica serves every quantized tier, and the result cache
+key carries the tier. ``serve/scheduler.py`` steps batches down the
+ladder under load.
+
+Mesh serving and sharded indexes are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -116,9 +125,9 @@ class KHIService:
                              f"got {on_undersized!r}")
         if mesh is not None:
             raise _todo("mesh serving", "13")
-        if tiers:
-            raise _todo("degradation tiers", "14")
-        self._user_params = params or SearchParams()
+        self._tier_user: Tuple[SearchParams, ...] = (
+            params or SearchParams(),) + tuple(tiers)
+        self._check_tiers(self._tier_user)
         self._legacy_dist_fn = dist_fn
         self._on_undersized = on_undersized
         self._device = device
@@ -145,20 +154,62 @@ class KHIService:
         self._compacting = False
         self._install_index(index)
 
+    @staticmethod
+    def _check_tiers(tier_user: Tuple[SearchParams, ...]) -> None:
+        """Ladder rules (DESIGN.md §13): a degraded tier trades recall,
+        never the result contract of tier 0: the same k (results, cache
+        entries and the streaming merge are k-shaped) and one replica
+        dtype across the quantized tiers (the index carries one)."""
+        base = tier_user[0]
+        for t, p in enumerate(tier_user[1:], start=1):
+            if p.k != base.k:
+                raise ValueError(
+                    f"degradation tier {t} changes k ({p.k} != {base.k}): "
+                    f"tiers degrade recall, never the result shape")
+        quants = {p.quant for p in tier_user if p.quant != "none"}
+        if len(quants) > 1:
+            raise ValueError(
+                f"degradation tiers mix quantized replicas {sorted(quants)}; "
+                f"the index carries one compressed replica — use a single "
+                f"quant across the ladder")
+
+    def set_tiers(self, tiers: Sequence[SearchParams]) -> None:
+        """(Re)install the degradation ladder: tier 0 stays the
+        construction-time params, ``tiers[i]`` becomes step ``i+1``. The
+        planners are rebuilt against the live index; the result cache
+        stays valid (its keys carry the tier's params)."""
+        new = (self._tier_user[0],) + tuple(tiers)
+        self._check_tiers(new)
+        self._tier_user = new
+        self._install_index(self.index)
+
+    @property
+    def n_tiers(self) -> int:
+        return len(self._tier_user)
+
     def _install_index(self, index) -> None:
+        """Bind an index: validate every tier's params against it, attach
+        the one compressed replica any tier wants (once per epoch), and
+        reset the per-tier planners, which share one plan cache. Tier 0's
+        planner is built here, the others on first use."""
         if not isinstance(index, DeviceIndex):
             if hasattr(index, "offsets") and hasattr(index, "di"):
                 raise _todo("sharded indexes", "13")
             index = device_put_index(index, device=resolve_device(
                 self._device))
-        self.params = validate_search_params(
-            self._user_params, index, on_undersized=self._on_undersized)
-        # a quantized search streams the compressed replica: attach it
-        # once per epoch (swap_index re-derives it for a bare f32 index)
-        self.index = _with_replica_for(index, self.params.quant)
+        self._tier_params: Tuple[SearchParams, ...] = tuple(
+            validate_search_params(up, index,
+                                   on_undersized=self._on_undersized)
+            for up in self._tier_user)
+        self.params = self._tier_params[0]
+        quants = {p.quant for p in self._tier_params if p.quant != "none"}
+        if quants:
+            index = _with_replica_for(index, quants.pop())
+        self.index = index
         self._plan_cache: "collections.OrderedDict[bytes, int]" = (
             collections.OrderedDict())
-        self._search = self._build_search_fn()
+        self._planners: dict = {}
+        self._get_planner(0)
 
     def swap_index(self, index, *, params: Optional[SearchParams] = None,
                    drain: bool = True) -> dict:
@@ -174,12 +225,19 @@ class KHIService:
                 "compact() (DESIGN.md §11)")
         drained = self.flush() if drain else {}
         if params is not None:
-            self._user_params = params
+            new = (params,) + self._tier_user[1:]
+            self._check_tiers(new)
+            self._tier_user = new
         self._install_index(index)
         self.epoch += 1
         self._cache.clear()
         self.stats["epoch_swaps"] += 1
         return drained
+
+    @property
+    def _planner(self) -> Planner:
+        """Tier 0's planner."""
+        return self._planners[0]
 
     @property
     def d(self) -> int:
@@ -189,23 +247,30 @@ class KHIService:
     def m(self) -> int:
         return self.index.attrs.shape[-1]
 
-    def _build_search_fn(self):
-        planner = Planner(self.index, self.params,
-                          dist_fn=self._legacy_dist_fn,
-                          on_undersized=self._on_undersized,
-                          plan_cache=self._plan_cache,
-                          plan_salt=self.epoch.to_bytes(8, "little"))
-        self._planner = planner
+    def _get_planner(self, tier: int) -> Planner:
+        """``tier``'s planner, built on first use: an unused ladder step
+        costs nothing. Every planner reads the service's plan cache. One
+        first built after streaming deletes gets the tombstone-adjusted
+        counts; a new epoch's (built while ``compact`` publishes it)
+        gets none, since the old epoch's tombstones are not its rows."""
+        planner = self._planners.get(tier)
+        if planner is None:
+            planner = Planner(self.index, self._tier_params[tier],
+                              dist_fn=self._legacy_dist_fn,
+                              on_undersized=self._on_undersized,
+                              plan_cache=self._plan_cache,
+                              plan_salt=self.epoch.to_bytes(8, "little"))
+            if self._stream is not None and not self._compacting:
+                planner.refresh_index(
+                    self.index, deleted_rows=self._stream.deleted_locals())
+            self._planners[tier] = planner
+        return planner
 
-        def run(q, lo, hi):
-            ids, dists, _hops, plan = planner.search(q, lo, hi)
-            self.stats["scan_lanes"] += int(plan.use_scan.sum())
-            if self._pred_lanes is not None:
-                # every device lane of a predicate box, pads included (a
-                # graph strategy's plan makes them all graph lanes)
-                Planner._count_lanes(plan, self._pred_lanes, q.shape[0])
-            return ids, dists
-        return run
+    def _check_tier(self, tier: int) -> None:
+        if not 0 <= tier < len(self._tier_params):
+            raise ValueError(f"tier must be in [0, {len(self._tier_params)})"
+                             f", got {tier} (install ladders via tiers= / "
+                             f"set_tiers)")
 
     def _bucket(self, b: int) -> int:
         for size in self.config.buckets:
@@ -213,12 +278,16 @@ class KHIService:
                 return size
         return self.config.max_batch
 
-    def _key(self, q: np.ndarray, lo: np.ndarray, hi: np.ndarray) -> bytes:
+    def _key(self, q: np.ndarray, lo: np.ndarray, hi: np.ndarray,
+             tier: int = 0) -> bytes:
         h = hashlib.blake2b(digest_size=16)
         h.update(q.tobytes())
         h.update(lo.tobytes())
         h.update(hi.tobytes())
-        h.update(repr(self.params).encode())
+        # the tier keys apart even where two tiers' params are equal: an
+        # answer degraded under load is never served as a tier-0 hit
+        h.update(tier.to_bytes(2, "little"))
+        h.update(repr(self._tier_params[tier]).encode())
         h.update(self.epoch.to_bytes(8, "little"))
         # every insert, delete and compact bumps the sequence, so no
         # answer from before a mutation is served after it
@@ -242,9 +311,10 @@ class KHIService:
             self._cache.popitem(last=False)
 
     def _run_device(self, qs: np.ndarray, los: np.ndarray,
-                    his: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """Pad one micro-batch to its bucket, search, unpad. Under
-        streaming the delta is merged on the padded batch (pad lanes
+                    his: np.ndarray, tier: int = 0
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Pad one micro-batch to its bucket, search at ``tier``, unpad.
+        Under streaming the delta is merged on the padded batch (pad lanes
         carry the empty box and add nothing) and ids become ext ids."""
         b = qs.shape[0]
         bucket = self._bucket(b)
@@ -257,7 +327,12 @@ class KHIService:
                 [his, np.full((pad, self.m), -np.inf, np.float32)])
         t0 = time.perf_counter()
         # results come back as numpy, so the device work has finished
-        ids, dists = self._search(qs, los, his)
+        ids, dists, _hops, plan = self._get_planner(tier).search(qs, los, his)
+        self.stats["scan_lanes"] += int(plan.use_scan.sum())
+        if self._pred_lanes is not None:
+            # every device lane of a predicate box, pads included (a
+            # graph strategy's plan makes them all graph lanes)
+            Planner._count_lanes(plan, self._pred_lanes, bucket)
         if self._stream is not None:
             ids, dists = self._stream.merge(ids, dists, qs, los, his,
                                             self.params.k)
@@ -266,13 +341,14 @@ class KHIService:
         self.stats["pad_lanes"] += pad
         self.stats["device_queries"] += bucket
         self.stats["traced_buckets"].add(bucket)
-        self.stats["tier_lanes"][0] += b
+        self.stats["tier_lanes"][tier] += b
         return ids[:b], dists[:b]
 
-    def _answer(self, queries: np.ndarray, lo: np.ndarray, hi: np.ndarray
-                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Cache-aware core: -> (ids (B, k), dists (B, k), hit (B,) bool).
-        Batches larger than the top bucket are chunked."""
+    def _answer(self, queries: np.ndarray, lo: np.ndarray, hi: np.ndarray,
+                tier: int = 0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Cache-aware core: -> (ids (B, k), dists (B, k), hit (B,) bool)
+        at degradation tier ``tier`` (the scheduler's entry). Batches
+        larger than the top bucket are chunked."""
         queries = np.ascontiguousarray(queries, np.float32)
         lo = np.ascontiguousarray(lo, np.float32)
         hi = np.ascontiguousarray(hi, np.float32)
@@ -283,7 +359,7 @@ class KHIService:
         out_d = np.full((B, k), np.inf, np.float32)
         hit_mask = np.zeros((B,), bool)
         caching = self.config.cache_size > 0
-        keys = [self._key(queries[i], lo[i], hi[i]) if caching else None
+        keys = [self._key(queries[i], lo[i], hi[i], tier) if caching else None
                 for i in range(B)]
         miss: List[int] = []
         for i, key in enumerate(keys):
@@ -297,7 +373,7 @@ class KHIService:
         for c0 in range(0, len(miss), self.config.max_batch):
             chunk = miss[c0:c0 + self.config.max_batch]
             ids, dists = self._run_device(queries[chunk], lo[chunk],
-                                          hi[chunk])
+                                          hi[chunk], tier)
             for j, i in enumerate(chunk):
                 out_ids[i], out_d[i] = ids[j], dists[j]
                 if caching:
@@ -306,10 +382,10 @@ class KHIService:
 
     def search(self, queries: np.ndarray, lo: np.ndarray, hi: np.ndarray,
                *, tier: int = 0) -> Tuple[np.ndarray, np.ndarray]:
-        """Batch front door: (B, d) x (B, m) x (B, m) -> ids/dists (B, k)."""
-        if tier != 0:
-            raise _todo("degradation tiers", "14")
-        ids, dists, _ = self._answer(queries, lo, hi)
+        """Batch front door: (B, d) x (B, m) x (B, m) -> ids/dists (B, k)
+        at degradation tier ``tier`` (0, full quality, by default)."""
+        self._check_tier(tier)
+        ids, dists, _ = self._answer(queries, lo, hi, tier)
         return ids, dists
 
     def search_expr(self, queries: np.ndarray, expr, *, tier: int = 0
@@ -319,25 +395,27 @@ class KHIService:
         disjoint box through the cached, bucketed ``_answer`` path and
         merge the per-box streams with ``_merge_dedup``; bitmask programs
         run one exact f32 scan through the planner.
-        ``stats["predicate_lanes"]`` counts the lanes either way."""
-        if tier != 0:
-            raise _todo("degradation tiers", "14")
+        ``stats["predicate_lanes"]`` counts the lanes either way.
+        ``tier`` selects the degradation tier, as in ``search``."""
+        self._check_tier(tier)
         validate_expr(expr, self.m)
         queries = np.ascontiguousarray(queries, np.float32)
         B, k = queries.shape[0], self.params.k
-        prog = compile_expr(expr, self.m, box_budget=self.params.box_budget)
+        p = self._tier_params[tier]
+        prog = compile_expr(expr, self.m, box_budget=p.box_budget)
         if prog.mode == "bitmask":
             if self._stream is not None:
                 raise ValueError(
                     f"predicate compiled to the bitmask fallback (cover "
-                    f"exceeds box_budget={self.params.box_budget}) while "
+                    f"exceeds box_budget={p.box_budget}) while "
                     f"streaming is enabled: the host mask plane cannot see "
                     f"delta rows (DESIGN.md §11/§15). Raise "
                     f"SearchParams.box_budget so the cover fits, simplify "
                     f"the expression, or compact() first")
             self.stats["requests"] += B
             self.stats["predicate_lanes"]["bitmask"] += B
-            ids, dists, _hops = self._planner._run_mask(queries, prog)
+            ids, dists, _hops = self._get_planner(tier)._run_mask(queries,
+                                                                  prog)
             return ids, dists
         out_ids = np.full((B, k), -1, self._id_dtype)
         out_d = np.full((B, k), np.inf, np.float32)
@@ -349,7 +427,7 @@ class KHIService:
                     np.broadcast_to(prog.lo[b], (B, m)), np.float32)
                 hi = np.ascontiguousarray(
                     np.broadcast_to(prog.hi[b], (B, m)), np.float32)
-                ids, dists, _hit = self._answer(queries, lo, hi)
+                ids, dists, _hit = self._answer(queries, lo, hi, tier)
                 if b == 0:
                     out_ids, out_d = ids, dists
                 else:
@@ -482,15 +560,17 @@ class KHIService:
     def delete(self, ext_ids) -> int:
         """Tombstone rows by ext id (unknown and dead ids are skipped).
         Delta rows NaN their slots; base rows NaN their attr row in a
-        copy of the index, which is installed and handed to the planner
-        with the tombstone-adjusted counts. Returns the rows deleted."""
+        copy of the index, which is installed and handed to every tier's
+        planner with the tombstone-adjusted counts. Returns the rows
+        deleted."""
         st = self._require_stream()
         t0 = time.perf_counter()
         new_index, n_del = st.delete(np.asarray(ext_ids), self.index)
         if new_index is not None:
             self.index = new_index
-            self._planner.refresh_index(
-                new_index, deleted_rows=st.deleted_locals())
+            dead = st.deleted_locals()
+            for planner in self._planners.values():
+                planner.refresh_index(new_index, deleted_rows=dead)
         self.stats["deletes"] += n_del
         self.stats["ingest_seconds"] += time.perf_counter() - t0
         if n_del:

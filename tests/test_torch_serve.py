@@ -128,3 +128,50 @@ def test_khi_serve_config_and_rejections(tiny_index):
     svc.enable_streaming(capacity=8)
     with pytest.raises(RuntimeError, match="already enabled"):
         svc.enable_streaming()
+
+
+def test_khi_serve_configs_equal_reference():
+    """The port's khi-serve configs, field for field, are the reference's
+    (the full cell and the smoke one), and so is the scheduler policy they
+    build."""
+    import dataclasses
+
+    from repro.configs import khi_serve as jkhi_serve
+
+    for name in ("config", "smoke_config"):
+        got, want = getattr(khi_serve, name)(), getattr(jkhi_serve, name)()
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), name
+        gs, ws = got.scheduler_config(), want.scheduler_config()
+        assert [dataclasses.asdict(s) for s in gs.ladder] == \
+            [dataclasses.asdict(s) for s in ws.ladder]
+        assert (gs.qdepth, gs.slo_ms, gs.batch_timeout_ms,
+                gs.resolved_thresholds()) == (ws.qdepth, ws.slo_ms,
+                                              ws.batch_timeout_ms,
+                                              ws.resolved_thresholds())
+    cfg = khi_serve.config().scheduler_config()
+    assert (cfg.qdepth, cfg.slo_ms, len(cfg.ladder)) == (1024, 100.0, 2)
+
+
+@pytest.mark.parametrize("inject", ["device_error@2"])
+def test_serve_launcher_load_smoke(inject, capsys):
+    """``repro_torch.launch.serve --load-smoke`` on the CPU at the
+    launcher's default policy (slo 250 ms, qdepth 64, the smoke ladder):
+    its accounting checks pass and the injected fault was retried. The
+    smoke runs on one intra-op thread: its tensors are tiny, and with the
+    test run's other processes on the same cores the thread pool's
+    oversubscription alone stalls a batch past the 250 ms deadline."""
+    import torch
+
+    from repro_torch.launch.serve import main
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        main(["--mode", "khi", "--n", "1500", "--d", "32", "--batch", "16",
+              "--device", "cpu", "--load-smoke", "--inject", inject])
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert "[serve] load-smoke: 49 submitted" in out
+    assert "(0 dropped)" in out and "retries=1" in out
+    assert "slo=250.0ms" in out
