@@ -13,10 +13,16 @@ expressions through Request(expr=...) under "auto" and "hybrid" (one
 lowers to 3 disjoint boxes, one to the bitmask scan); then with
 strategy="graph" under every scoring backend it takes (the fused filter
 gather, the unfused gather, pallas_l2) and both routers (level, dfs);
-then degradation tiers and the SLO scheduler (``slo_pass``) at the
+then the sharded index (``shard_pass``): the same corpus as 4
+round-robin shards through ``build_sharded``, the same bursts served
+through a KHIService over it and held to per-shard numpy and brute
+forces merged in (dist, shard, local) order, its int8, hybrid, bitmask
+and streaming paths and one compaction; then degradation tiers and the
+SLO scheduler (``slo_pass``) at the
 config's policy: each tier's direct answers, a backlog down the ladder,
 an open-loop replay with faults armed on the scheduler's worker thread,
-and an int8-bottom ladder; last, the streaming write path (``stream_pass``): a 131,072-row delta
+and an int8-bottom ladder; last, the streaming write path
+(``stream_pass``), on shard 0 of the sharded index: a 131,072-row delta
 (the config's ``delta_capacity``) takes 65,536 inserts and 20,000-odd
 deletes of base and delta rows, the same bursts are served and checked
 against the live corpus on an f32 and an int8 service, the delta scan is
@@ -84,6 +90,15 @@ TF32_FLOPS = 495e12            # H100 SXM TF32 tensor cores, dense
 # distance's error at d = 768 stays under 6e-7 of them on the CPU, and
 # 3xTF32's is of fp32's order
 NEAR_TIE = 4e-6
+
+
+T_START = time.perf_counter()
+
+
+def mark(what: str) -> None:
+    """One line of the script's timeline: seconds since it started."""
+    print(f"[time] {what} done at {time.perf_counter() - T_START:.1f}s",
+          flush=True)
 
 
 def fail(msg: str) -> None:
@@ -822,6 +837,17 @@ def windows_check(pos_vecs, pos_attrs, q, qlo, qhi, starts, counts, k,
     return r
 
 
+def lane_sample(lanes, n: int = 64, seed: int = 0):
+    """A seeded sample of ``n`` of ``lanes`` (all of them when fewer),
+    ascending: the lanes a numpy check over the whole corpus runs on where
+    running it on every lane would not fit the script's time limit."""
+    lanes = np.asarray(lanes)
+    if len(lanes) <= n:
+        return lanes
+    return np.sort(np.random.default_rng(seed).choice(lanes, n,
+                                                      replace=False))
+
+
 def lanes_exact(ids, dists, t_ids, t_d):
     """Per lane: every slot holds the truth's id, or a distance within
     1e-5 relative of the truth's (a near-tie), with the same -1 slots."""
@@ -936,6 +962,7 @@ def main_path(n: int, n_full: int, dev, rows: dict) -> None:
           f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB",
           flush=True)
     builder_check(index, di, cfg.M)
+    mark("the main path's build")
 
     # ---- phase 4: serve mixed-selectivity bursts through the planner
     svc = KHIService(di, params, config=ServeConfig(
@@ -1024,19 +1051,29 @@ def main_path(n: int, n_full: int, dev, rows: dict) -> None:
                            t_d, cfg, dev)
     trace_programs("f32", di, svc.params, Q, lo, hi, split_lanes(use_scan))
     del svc
+    mark("the main path's serving and checks")
     for quant in ("int8", "bf16"):
         quant_pass(quant, index, di, params, cfg, Q, lo, hi, serve_bursts,
                    use_scan, t_ids, ref_ent, dev, rows)
+        mark(f"the {quant} pass")
     hybrid_pass(index, di, params, cfg, Q, lo, hi, perm >= nq, serve_bursts,
                 ids, use_scan, t_ids, t_d, dev, rows)
+    mark("the hybrid pass")
     predicate_pass(index, di, params, cfg, Q, sizes, dev, rows)
+    mark("the predicate pass")
     graph_pass(index, di, params, cfg, Q, lo, hi, perm >= nq, serve_bursts,
                t_ids, dev, rows)
+    mark("the graph pass")
     torch.cuda.empty_cache()
+    s_index, s_di = shard_pass(index, di, params, cfg, Q, lo, hi,
+                               serve_bursts, ids, use_scan, dev, rows)
+    mark("the shard pass")
     slo_pass(index, di, params, cfg, Q, lo, hi, perm >= nq, ids, use_scan,
              t_ids, t_d, ref_ent, dev, rows)
+    mark("the SLO pass")
     torch.cuda.empty_cache()
-    stream_pass(index, di, params, cfg, Q, lo, hi, serve_bursts, ids, dev)
+    stream_pass(s_index, s_di, params, cfg, Q, lo, hi, serve_bursts, dev)
+    mark("the stream pass")
 
 
 def build_l2dist_split(tree, calls, build_s: float) -> str:
@@ -1226,8 +1263,9 @@ def trace_programs(tag, di, p, Q, lo, hi, parts, planner=None) -> None:
     and once under torch.profiler, on ``planner`` when given. Prints the
     wall time, the summed device time of the device-side events (kernels
     and copies, so nothing counts twice), the device's idle share over
-    the wall time and the top kernels. The profiler itself slows the
-    host, so the idle share is an upper bound of the untraced run's.
+    the wall time, the top kernels and the main thread's CPU time. The
+    profiler itself slows the host, so the idle share is an upper bound
+    of the untraced run's.
 
     The hand kernels the traced run launched (``ops.LAUNCHES``) are held
     to the profiler's kernel records: where records are missing (the
@@ -1244,10 +1282,11 @@ def trace_programs(tag, di, p, Q, lo, hi, parts, planner=None) -> None:
         ops.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+            t0, c0 = time.perf_counter(), time.thread_time()
             pl.search(Q[lanes], lo[lanes], hi[lanes])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            cpu = time.thread_time() - c0
         launched = {k: v for k, v in ops.LAUNCHES.items() if v}
         ops.LAUNCHES.update(saved)
         # device-side events only: an operator's own entry repeats the
@@ -1257,7 +1296,7 @@ def trace_programs(tag, di, p, Q, lo, hi, parts, planner=None) -> None:
                and e.self_device_time_total > 0]
         dev_names = [e.name for e in prof.events()
                      if e.device_type != DeviceType.CPU]
-        return wall, evs, launched, dev_names
+        return wall, cpu, evs, launched, dev_names
 
     def timed_wrappers(pl, lanes, names):
         marks = {nm: [] for nm in names}
@@ -1290,12 +1329,13 @@ def trace_programs(tag, di, p, Q, lo, hi, parts, planner=None) -> None:
         pl = planner or Planner(di, dataclasses.replace(p, strategy=strat))
         pl.search(Q[lanes], lo[lanes], hi[lanes])
         torch.cuda.synchronize()
-        wall, evs, launched, dev_names = traced(pl, lanes)
+        wall, cpu, evs, launched, dev_names = traced(pl, lanes)
         dev_ms = sum(t for _, t, _ in evs)
         top = sorted(evs, key=lambda e: -e[1])[:5]
         print(f"[trace] {tag} {strat} program, {len(lanes)} lanes: wall "
               f"{wall * 1e3:.1f} ms, kernels {dev_ms:.1f} ms on the card "
-              f"(idle {100 * max(0.0, 1 - dev_ms / (wall * 1e3)):.1f}%); "
+              f"(idle {100 * max(0.0, 1 - dev_ms / (wall * 1e3)):.1f}%), "
+              f"main-thread CPU {cpu * 1e3:.1f} ms; "
               f"top: " + "; ".join(f"{k[:60]} {t:.2f} ms x{c}"
                                    for k, t, c in top), flush=True)
         # launches of each hand kernel against the profiler's records
@@ -1441,13 +1481,15 @@ def quant_pass(quant, index, di, params, cfg, Q, lo, hi, serve_bursts,
           "int8: the graph lanes disagree with the numpy reference")
     kq = min(max(p.k, p.k * p.rerank_mult), len(index.vecs))
     t0 = time.perf_counter()
+    ss = lane_sample(si)
     same_scan = sum(bool((sref.scan_rerank(
         deq, index.vecs, index.attrs, Q[i], lo[i], hi[i], k=p.k, kq=kq)[0]
-        == ids[i]).all()) for i in si)
+        == ids[i]).all()) for i in ss)
     print(f"[int8] scan lanes: ids equal to the numpy int8 over-fetch "
-          f"(kq={kq}) + f32 rerank on {same_scan} of {len(si)} lanes "
-          f"({time.perf_counter() - t0:.1f}s on the host)", flush=True)
-    check(same_scan >= 0.95 * len(si),
+          f"(kq={kq}) + f32 rerank on {same_scan} of {len(ss)} sampled lanes "
+          f"(of {len(si)}; {time.perf_counter() - t0:.1f}s on the host)",
+          flush=True)
+    check(same_scan >= 0.95 * len(ss),
           "int8: the scan lanes disagree with the numpy reference")
 
 
@@ -1573,7 +1615,7 @@ def hybrid_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts,
         pure = np.nonzero(mode == 1)[0]
         exact = lanes_exact(ids[pure], dists[pure], t_ids[pure], t_d[pure])
         t0 = time.perf_counter()
-        sample = pure[is_s[pure]]
+        sample = lane_sample(pure[is_s[pure]])
         np_same = np_small = 0
         for i in sample:
             nodes = sref.antichain(index.tree, lo[i], hi[i])
@@ -1584,8 +1626,8 @@ def hybrid_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts,
             np_same += bool(lanes_exact(ids[i][None], dists[i][None],
                                         w_ids[None], w_d[None])[0])
         print(f"{tag} pure-window lanes: {int(exact.sum())} of {len(pure)} "
-              f"give the f32 truth's ids; of the {len(sample)} 1/64 ones, "
-              f"the numpy antichain is all-small on {np_small} and the "
+              f"give the f32 truth's ids; of {len(sample)} sampled 1/64 "
+              f"ones (of {int(is_s[pure].sum())}), the numpy antichain is all-small on {np_small} and the "
               f"numpy windowed scan equal on {np_same} "
               f"({time.perf_counter() - t0:.1f}s on the host)", flush=True)
         check(bool(exact.all()), f"{tag} a pure-window lane is not exact")
@@ -1800,8 +1842,9 @@ def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
     level; (c) pallas_l2 (a PyTorch gather of the candidate rows, then
     l2dist_qc), level; (d) the unfused gather with the stack DFS. Each
     serves the same warm-up pass and the 384 requests in the same bursts
-    through KHIService, and its launches are counted over the served run
-    alone. Then, under counts of their own, the served answers of (b),
+    through KHIService ((d) all at once, in two batches, to fit the
+    script's time limit), and its launches are counted over the served
+    run alone. Then, under counts of their own, the served answers of (b),
     (c) and (d) are rescored through the public wrappers (the
     row-per-step ops.gather_l2, the rank-dispatching ops.l2dist), which
     must give the served distances bit for bit. Then the graph program
@@ -1814,9 +1857,9 @@ def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
     max_steps, gives entries equal to smoke_reference.dfs_entries capped
     at the same pops on every lane (the lanes cut are counted), and it
     equals (b) wherever its entries equal the level router's. The DFS
-    router alone then walks the same boxes with max_steps at the tree's
-    node count: entries equal to the uncapped numpy DFS on every lane,
-    and no lane reaches that cap."""
+    router alone then walks 128 sampled boxes with max_steps at the
+    tree's node count: entries equal to the uncapped numpy DFS on every
+    one, and no lane reaches that cap."""
     import smoke_reference as sref
     from repro_torch.core import engine as eng
     from repro_torch.core import router as rt
@@ -1844,13 +1887,18 @@ def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
         ops.reset_launches()
         ref.reset_calls()
         t0 = time.perf_counter()
-        results = serve_bursts(svc, Q)
+        if router == "dfs":
+            # the requests at once (batches of 256 and 128): a DFS batch
+            # costs its longest walk's pops, ~4096 in every burst
+            ids, dists = svc.search(Q, lo, hi)
+        else:
+            results = serve_bursts(svc, Q)
+            ids = np.stack([r.ids for r in results])
+            dists = np.stack([r.dists for r in results])
         dt = time.perf_counter() - t0
         torch.cuda.synchronize()
         launches = dict(ops.LAUNCHES)
         plain_cuda = {k: v["cuda"] for k, v in ref.CALLS.items()}
-        ids = np.stack([r.ids for r in results])
-        dists = np.stack([r.dists for r in results])
         if tag in WRAPPER_KERNELS:
             # the public wrappers, a user's own call on the served ids
             safe = torch.as_tensor(np.maximum(ids, 0)).to(dev).long()
@@ -1902,8 +1950,8 @@ def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
               f"{name} served lanes differ from the graph program's")
         out[tag] = (ids, dists, g_hops)
         rec = {k: recall(ids[i], t_ids[i]) for k, i in sel.items()}
-        print(f"{name} backend={backend} router={router}: {len(results)} "
-              f"requests in {dt:.3f}s ({len(results) / dt:.1f} QPS "
+        print(f"{name} backend={backend} router={router}: {len(ids)} "
+              f"requests in {dt:.3f}s ({len(ids) / dt:.1f} QPS "
               f"end-to-end); warm-up {warm_s:.1f}s; recall@{cfg.k} "
               + ", ".join(f"{k} lanes {r:.4f}" for k, r in rec.items())
               + f"; mean hops {g_hops.mean():.1f}; launches "
@@ -1948,10 +1996,10 @@ def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
                               torch.as_tensor(hi).to(dev), pb)[0]
     lvl = lvl.cpu().numpy()
 
-    def numpy_dfs(max_steps):
+    def numpy_dfs(max_steps, lanes=range(len(Q))):
         return [sref.dfs_entries(index.tree, index.attrs, lo[i], hi[i],
                                  pd.c_e, pd.scan_budget, max_steps)
-                for i in range(len(Q))]
+                for i in lanes]
 
     def n_same(ent, ref_ent):
         return sum(ent[i][ent[i] >= 0].tolist() == e
@@ -1976,25 +2024,28 @@ def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
     check(same_ref == len(Q), "(d) the DFS entries differ from numpy's")
     check(bool(walk[eq_lvl].all()),
           "(d) the walk differs from (b)'s on lanes with equal entries")
-    # the router alone, uncapped: a DFS pops each node at most once
+    # the router alone, uncapped (a DFS pops each node at most once), on
+    # a seeded sample of lanes: its cost is the longest walk's pops
+    lu = lane_sample(np.arange(len(Q)), 128, seed=5)
     p_all = dataclasses.replace(pd, max_steps=int(di.left.numel()))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ent_u, _, pops_u = rt.route_dfs(di, torch.as_tensor(lo).to(dev),
-                                    torch.as_tensor(hi).to(dev), p_all,
+    ent_u, _, pops_u = rt.route_dfs(di, torch.as_tensor(lo[lu]).to(dev),
+                                    torch.as_tensor(hi[lu]).to(dev), p_all,
                                     with_steps=True)
     torch.cuda.synchronize()
     u_s = time.perf_counter() - t0
     ent_u, pops_u = ent_u.cpu().numpy(), pops_u.cpu().numpy()
-    same_u = n_same(ent_u, numpy_dfs(None))
+    same_u = n_same(ent_u, numpy_dfs(None, lu))
     print(f"[graph] (d) DFS router alone with max_steps {p_all.max_steps} "
-          f"(the node count) in {u_s:.3f}s: entries equal to the uncapped "
-          f"numpy DFS on {same_u} of {len(Q)} lanes, to the level router's "
-          f"on {int((ent_u == lvl).all(1).sum())}; pops per lane max "
+          f"(the node count) on {len(lu)} sampled lanes in {u_s:.3f}s: "
+          f"entries equal to the uncapped numpy DFS on {same_u} of "
+          f"{len(lu)}, to the level router's on "
+          f"{int((ent_u == lvl[lu]).all(1).sum())}; pops per lane max "
           f"{int(pops_u.max())}, mean {pops_u.mean():.1f} "
           f"({u_s / max(1, int(pops_u.max())) * 1e3:.2f} ms a lockstep pop)",
           flush=True)
-    check(same_u == len(Q), "(d) the uncapped DFS entries differ from "
+    check(same_u == len(lu), "(d) the uncapped DFS entries differ from "
           "numpy's")
     check(int(pops_u.max()) < p_all.max_steps,
           "(d) a lane reached the node count in pops")
@@ -2043,6 +2094,510 @@ def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
 
 
 # -------------------------------------------------------------- the SLO
+
+SHARDS = 4
+SHARD_INSERTS = 16_384
+SHARD_BASE_DELETES = 4_096
+SHARD_DELTA_DELETES = 1_024
+SHARD_INT8_LANES = 32
+
+
+def index_gib(di) -> float:
+    """GiB of every tensor of a DeviceIndex (stacked or not)."""
+    return sum(t.numel() * t.element_size()
+               for t in vars(di).values() if torch.is_tensor(t)) / 2**30
+
+
+def per_shard_truth(skhi, Q, lo, hi, k: int, dev):
+    """The exact answer in the merge's tie order: each shard's f32 masked
+    brute force (the plain scan over its real rows) on local ids, merged
+    by smoke_reference.merge_shards in (dist, shard, local) order."""
+    import smoke_reference as sref
+    from repro_torch.kernels import ref
+
+    S = skhi.num_shards
+    qt, tl, th = (torch.as_tensor(a).to(dev) for a in (Q, lo, hi))
+    ids = np.full((S, len(Q), k), -1, np.int64)
+    dd = np.full((S, len(Q), k), np.inf, np.float32)
+    for s in range(S):
+        sh = skhi.di.shard(s)
+        n_s = int(sh.count[sh.root])
+        for b in range(0, len(Q), 64):
+            a, d_ = ref.scan_topk_ref(sh.vecs[:n_s], sh.attrs[:n_s],
+                                      qt[b:b + 64], tl[b:b + 64],
+                                      th[b:b + 64], k)
+            ids[s, b:b + 64] = a.cpu().numpy()
+            dd[s, b:b + 64] = d_.cpu().numpy()
+    return sref.merge_shards(ids, dd, S, k)
+
+
+def shard_pass(index, di, params, cfg, Q, lo, hi, serve_bursts, single_ids,
+               single_scan, dev, rows):
+    """The sharded index on the card, in one process: ``build_sharded``
+    over the main path's corpus into SHARDS round-robin shards (250,000
+    rows each at n = 1M; the widths kept), served through a ``KHIService`` at
+    the config's params in the main path's bursts. Scan lanes are held to
+    the per-shard f32 brute force merged in the merge's (dist, shard,
+    local) order; every graph lane's per-shard ids and hops to
+    smoke_reference.py's numpy DFS + beam search over that shard's
+    arrays, and the merged answer to its numpy merge. Then the int8 tier
+    (>= 95% of the checked lanes equal to the numpy int8 search, per
+    shard, merged), hybrid at the cell threshold (pure-window lanes
+    exact) and the bitmask expression E2 (exact against the per-shard
+    masked brute force, merged). Then streaming at the config's
+    ``delta_capacity`` per shard: SHARD_INSERTS inserts in bursts,
+    deletes of base and delta rows, the requests checked against the
+    live corpus, and one compaction through ``build_sharded`` timed by
+    phase. The sharded and the single index's graph programs are traced
+    in the same run. Returns shard 0 as (its host KHIIndex, a copy of
+    its DeviceIndex), the index the streaming pass runs on."""
+    import smoke_reference as sref
+    from repro_torch.core import KHIConfig
+    from repro_torch.core import khi as khi_mod
+    from repro_torch.core import sharded as sh_mod
+    from repro_torch.core.engine import (_query_batch_sharded,
+                                         resolve_scorer_pair,
+                                         with_quant_replica)
+    from repro_torch.core.predicate import parse_expr
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve import KHIService, ServeConfig
+
+    S, k = SHARDS, cfg.k
+    n, d = index.vecs.shape
+    t_pass = time.perf_counter()
+    scfg = ServeConfig(buckets=cfg.buckets, cache_size=cfg.cache_size)
+
+    def build_timed(fn, *a, **kw):
+        """Run ``fn`` with every shard's KHIIndex.build timed (seconds,
+        index, its l2dist_qn calls) and every l2dist_qn call between
+        CUDA events; -> (fn's result, per-shard records, seconds)."""
+        l2_calls, per = [], []
+        orig_l2, ops.l2dist_qn = l2dist_events(l2_calls)
+        build = khi_mod.KHIIndex.build
+
+        def timed_build(*ba, **bkw):
+            t, c0 = time.perf_counter(), len(l2_calls)
+            ix = build(*ba, **bkw)
+            per.append((time.perf_counter() - t, ix, l2_calls[c0:]))
+            return ix
+
+        khi_mod.KHIIndex.build = timed_build
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+        finally:
+            ops.l2dist_qn = orig_l2
+            khi_mod.KHIIndex.build = build
+        return out, per, time.perf_counter() - t0
+
+    def l2_s(calls):
+        return sum(a.elapsed_time(b) for *_, a, b in calls) / 1e3
+
+    # ---- build
+    ops.reset_launches()
+    ref.reset_calls()
+    torch.cuda.reset_peak_memory_stats()
+    skhi, per, build_s = build_timed(
+        sh_mod.build_sharded, index.vecs, index.attrs, S,
+        KHIConfig(M=cfg.M, builder="device"), device=dev)
+    hosts = [ix for _, ix, _ in per]
+    for ix in hosts:
+        ix.nbrs = None                       # the stacked copy serves
+    torch.cuda.empty_cache()
+    print(f"[shard] build_sharded S={S} over n={n}: {build_s:.1f}s; per "
+          f"shard " + ", ".join(
+              f"{ix.n} rows {t:.1f}s (l2dist_qn {l2_s(c):.1f}s over "
+              f"{len(c)} launches)" for t, ix, c in per)
+          + f"; l2dist_qn {sum(l2_s(c) for *_, c in per):.1f}s in all; "
+          f"pad waste (rows, nodes, levels) "
+          f"{tuple(round(w, 6) for w in skhi.pad_waste)}; stacked index "
+          f"{index_gib(skhi.di):.3f} GiB (single index {index_gib(di):.3f});"
+          f" peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    check(skhi.num_shards == S and skhi.di.n == -(-n // S),
+          "[shard] the stacked index has other shapes")
+
+    # ---- f32 service at the config's params, the main path's bursts
+    svc = KHIService(skhi, params, config=scfg)
+    p = svc.params
+    t0 = time.perf_counter()
+    serve_bursts(svc, Q + np.float32(1e-3))        # warm-up, other keys
+    warm_s = time.perf_counter() - t0
+    before = svc.snapshot()
+    t0 = time.perf_counter()
+    results = serve_bursts(svc, Q)
+    dt = time.perf_counter() - t0
+    after = svc.snapshot()
+    launches = {nm: c for nm, c in ops.LAUNCHES.items() if c}
+    plain_cuda = {nm: v["cuda"] for nm, v in ref.CALLS.items() if v["cuda"]}
+    print(f"[shard] f32: {len(Q)} requests in {dt:.3f}s ({len(Q) / dt:.1f} "
+          f"QPS end-to-end); warm-up {warm_s:.1f}s; frontier_cap "
+          f"{p.frontier_cap} scan_budget {p.scan_budget}; batches "
+          f"{after['batches'] - before['batches']}, scan_lanes "
+          f"{after['scan_lanes'] - before['scan_lanes']}; launches over the "
+          f"build and the served runs {launches}", flush=True)
+    for name in ("gather_l2_filter", "scan_topk", "l2dist_qn"):
+        check(launches.get(name, 0) > 0, f"[shard] {name} was never "
+              f"launched")
+    check(not plain_cuda, f"[shard] the path fell through to a plain "
+          f"version: {plain_cuda}")
+    ids = np.stack([r.ids for r in results])
+    dists = np.stack([r.dists for r in results])
+    check_served(ids, dists, index.vecs, index.attrs, Q, lo, hi, "[shard]")
+    plan = svc._planner.plan(lo, hi)
+    use_scan = plan.use_scan
+    si, gi = np.nonzero(use_scan)[0], np.nonzero(~use_scan)[0]
+    check(len(si) > 0 and len(gi) > 0, "[shard] the bursts did not take "
+          "both graph and scan lanes")
+    t0 = time.perf_counter()
+    st_ids, st_d = per_shard_truth(skhi, Q, lo, hi, k, dev)
+    truth_s = time.perf_counter() - t0
+    ok_s = lanes_exact(ids[si], dists[si], st_ids[si], st_d[si])
+    same_s = (ids[si] == st_ids[si]).all(1)
+    print(f"[shard] scan lanes ({len(si)}): equal to the per-shard f32 "
+          f"brute force merged in (dist, shard, local) order on "
+          f"{int(ok_s.sum())} ({int(same_s.sum())} with every id equal, the "
+          f"rest near-ties); truth {truth_s:.1f}s", flush=True)
+    check(bool(ok_s.all()), "[shard] scan lanes are not exact")
+
+    # graph lanes: each shard's walk against numpy over that shard's arrays
+    scorer, exact = resolve_scorer_pair(p)
+    qg, lg, hg = (torch.as_tensor(a[gi]).to(dev) for a in (Q, lo, hi))
+    l_ids, l_d, l_hops = _query_batch_sharded(skhi.di, qg, lg, hg, p,
+                                              scorer, exact)
+    l_ids, l_d = l_ids.cpu().numpy(), l_d.cpu().numpy()
+    l_hops = l_hops.cpu().numpy()
+    m_ids, _ = sref.merge_shards(l_ids, l_d, S, k)
+    check(np.array_equal(m_ids, ids[gi]),
+          "[shard] served graph lanes differ from the merged shard walks")
+    def card_dist(s, i):
+        """Lane i's f32 distances on shard s by the gather kernel, the
+        walk's own sum order (a distance does not depend on its batch)."""
+        sh = skhi.di.shard(s)
+        qq, ql, qh = (torch.as_tensor(a[i][None]).to(dev)
+                      for a in (Q, lo, hi))
+
+        def dist(rows):
+            t = torch.as_tensor(np.asarray(rows, np.int64)[None]).to(dev)
+            return ops.gather_l2_filter(t, sh.vecs, sh.attrs, qq, ql,
+                                        qh)[0].cpu().numpy()
+        return dist
+
+    t0 = time.perf_counter()
+    r_ids, r_d, r_hops, per_shard = [], [], [], []
+    for s, ix in enumerate(hosts):
+        nb = skhi.di.nbrs[s].cpu().numpy()         # the padded height
+        out, replayed = [], 0
+        for j, i in enumerate(gi):
+            e = sref.dfs_entries(ix.tree, ix.attrs, lo[i], hi[i], p.c_e,
+                                 p.scan_budget)
+            kw = dict(k=k, ef=p.ef, c_n=p.c_n, E=p.expand_width,
+                      max_hops=p.hops())
+            o = sref.beam_search(ix.vecs, ix.attrs, nb, e, Q[i], lo[i],
+                                 hi[i], **kw)
+            if not ((o[0] == l_ids[s, j]).all() and o[2] == l_hops[s, j]):
+                # numpy's sum order may order a near-tie otherwise: replay
+                # the same numpy walk on the card's distances
+                o = sref.beam_search(ix.vecs, ix.attrs, nb, e, Q[i], lo[i],
+                                     hi[i], dist=card_dist(s, i), **kw)
+                replayed += 1
+            out.append(o)
+        del nb
+        r_ids.append(np.stack([o[0] for o in out]))
+        r_d.append(np.stack([o[1] for o in out]))
+        r_hops.append(np.array([o[2] for o in out]))
+        per_shard.append((int((l_ids[s] == r_ids[s]).all(1).sum()),
+                          int((l_hops[s] == r_hops[s]).sum()), replayed))
+    ref_s = time.perf_counter() - t0
+    n_ids, _ = sref.merge_shards(np.stack(r_ids), np.stack(r_d), S, k)
+    same_m = (n_ids == ids[gi]).all(1)
+    both = np.nonzero(~use_scan & ~single_scan)[0]
+    rec_sh = recall(ids[both], st_ids[both])
+    rec_1 = recall(single_ids[both], st_ids[both])
+    print(f"[shard] graph lanes ({len(gi)}): per shard, ids and hops equal "
+          f"to the numpy DFS + beam search over the shard's arrays on "
+          + ", ".join(f"{a} / {b}" for a, b, _ in per_shard)
+          + f" of {len(gi)} (of them walked on the card's distances, a "
+          f"near-tie numpy's sum order orders otherwise: "
+          f"{[r for *_, r in per_shard]}; mean hops per shard "
+          f"{[round(float(h.mean()), 1) for h in l_hops]}; {ref_s:.1f}s on "
+          f"the host); served answers equal to the numpy merge in (dist, "
+          f"shard, local) order on {int(same_m.sum())}; recall@{k} on the "
+          f"{len(both)} lanes both services walked: sharded {rec_sh:.4f}, "
+          f"single index {rec_1:.4f}", flush=True)
+    check(all(a == len(gi) and b == len(gi) for a, b, _ in per_shard),
+          "[shard] a shard's walk differs from the numpy beam search")
+    check(bool(same_m.all()), "[shard] served graph lanes differ from the "
+          "numpy merge")
+    trace_programs("shard f32", skhi, p, Q, lo, hi, split_lanes(use_scan),
+                   planner=svc._planner)
+    trace_programs("single f32", di, params, Q, lo, hi, [("graph", gi)])
+
+    # ---- the int8 tier: the replica on the stacked index
+    ops.reset_launches()
+    ref.reset_calls()
+    t0 = time.perf_counter()
+    sq = dataclasses.replace(skhi, di=with_quant_replica(skhi.di, "int8"))
+    torch.cuda.synchronize()
+    attach_s = time.perf_counter() - t0
+    svc8 = KHIService(sq, dataclasses.replace(params, quant="int8"),
+                      config=scfg)
+    serve_bursts(svc8, Q + np.float32(1e-3))
+    t0 = time.perf_counter()
+    res8 = serve_bursts(svc8, Q)
+    dt8 = time.perf_counter() - t0
+    l8 = {nm: c for nm, c in ops.LAUNCHES.items() if c}
+    for name in ("gather_l2_filter_q8", "scan_topk_q8"):
+        check(l8.get(name, 0) > 0, f"[shard int8] {name} was never launched")
+    check(not any(v["cuda"] for v in ref.CALLS.values()),
+          "[shard int8] the path fell through to a plain version")
+    ids8 = np.stack([r.ids for r in res8])
+    p8 = svc8.params
+    use8 = svc8._planner.plan(lo, hi).use_scan
+    si8, gi8 = np.nonzero(use8)[0], np.nonzero(~use8)[0]
+    gs8 = lane_sample(gi8, SHARD_INT8_LANES, seed=21)
+    ss8 = lane_sample(si8, SHARD_INT8_LANES, seed=22)
+    kq = min(max(k, k * p8.rerank_mult), skhi.di.n)
+    rr = max(k, min(p8.ef, k * p8.rerank_mult))
+    t0 = time.perf_counter()
+    lanes8 = np.concatenate([ss8, gs8])
+    np_i = np.full((S, len(lanes8), k), -1, np.int64)
+    np_d = np.full((S, len(lanes8), k), np.inf, np.float32)
+    for s, ix in enumerate(hosts):
+        n_s = ix.n
+        deq = sref.dequant_rows(sq.di.qvecs[s][:n_s].cpu().numpy(),
+                                sq.di.qscale[s][:n_s].cpu().numpy())
+        nb = skhi.di.nbrs[s].cpu().numpy()
+        for j, i in enumerate(lanes8):
+            if use8[i]:
+                a, b = sref.scan_rerank(deq, ix.vecs, ix.attrs, Q[i], lo[i],
+                                        hi[i], k=k, kq=kq)
+            else:
+                e = sref.dfs_entries(ix.tree, ix.attrs, lo[i], hi[i],
+                                     p8.c_e, p8.scan_budget)
+                cand, _, _ = sref.beam_search(
+                    deq, ix.attrs, nb, e, Q[i], lo[i], hi[i], k=rr,
+                    ef=p8.ef, c_n=p8.c_n, E=p8.expand_width,
+                    max_hops=p8.hops())
+                a, b = sref.rerank(ix.vecs, cand, Q[i], k)
+            np_i[s, j], np_d[s, j] = a, b
+        del deq, nb
+    n8_i, _ = sref.merge_shards(np_i, np_d, S, k)
+    eq8 = (n8_i == ids8[lanes8]).all(1)
+    n_s8 = int(eq8[:len(ss8)].sum())
+    n_g8 = int(eq8[len(ss8):].sum())
+    rb = sq.di.qvecs.numel() + sq.di.qscale.numel() * 4
+    print(f"[shard int8] replica ({rb / 2**30:.3f} GiB) attached to the "
+          f"stacked index in {attach_s:.3f}s; {len(Q)} requests in "
+          f"{dt8:.3f}s ({len(Q) / dt8:.1f} QPS end-to-end); launches {l8}; "
+          f"ids equal to the numpy int8 search per shard (scan: over-fetch "
+          f"kq={kq} + f32 rerank; graph: beam search + f32 rerank of the "
+          f"top rr={rr}), merged, on {n_s8} of {len(ss8)} sampled scan "
+          f"lanes (of {len(si8)}) and {n_g8} of {len(gs8)} sampled graph "
+          f"lanes (of {len(gi8)}; "
+          f"{time.perf_counter() - t0:.1f}s on the host)", flush=True)
+    check(n_s8 >= 0.95 * len(ss8) and n_g8 >= 0.95 * len(gs8),
+          "[shard int8] the lanes disagree with the numpy int8 search")
+    del svc8, sq
+    torch.cuda.empty_cache()
+
+    # ---- hybrid at the cell threshold: pure-window lanes exact
+    ops.reset_launches()
+    ref.reset_calls()
+    svc_h = KHIService(skhi, dataclasses.replace(params, strategy="hybrid"),
+                       config=scfg)
+    serve_bursts(svc_h, Q + np.float32(1e-3))
+    t0 = time.perf_counter()
+    res_h = serve_bursts(svc_h, Q)
+    dt_h = time.perf_counter() - t0
+    lh = {nm: c for nm, c in ops.LAUNCHES.items() if c}
+    check(lh.get("scan_topk_windows", 0) > 0,
+          "[shard hybrid] the windowed scan was never launched")
+    check(not any(v["cuda"] for v in ref.CALLS.values()),
+          "[shard hybrid] the path fell through to a plain version")
+    mode = svc_h._planner.plan(lo, hi).mode
+    pure = np.nonzero(mode == 1)[0]
+    ids_h = np.stack([r.ids for r in res_h])
+    d_h = np.stack([r.dists for r in res_h])
+    ok_h = lanes_exact(ids_h[pure], d_h[pure], st_ids[pure], st_d[pure])
+    print(f"[shard hybrid {svc_h._planner.node_scan_threshold}] {len(Q)} "
+          f"requests in {dt_h:.3f}s ({len(Q) / dt_h:.1f} QPS end-to-end); "
+          f"lanes by mode: graph {int((mode == 0).sum())}, pure-window "
+          f"{len(pure)}, mixed {int((mode == 2).sum())}; pure-window lanes "
+          f"equal to the per-shard f32 truth, merged, on {int(ok_h.sum())}; "
+          f"launches {lh}", flush=True)
+    check(len(pure) > 0 and bool(ok_h.all()),
+          "[shard hybrid] a pure-window lane is not exact")
+    del svc_h
+
+    # ---- the bitmask expression E2 against the masked brute force
+    years = tuple(range(2005, 2024, 2))
+    expr = parse_expr("a0 in [" + ", ".join(map(str, years)) + "]", cfg.m)
+    mask = sref.year_mask(index.attrs, years)
+    mt_i = np.full((S, len(Q), k), -1, np.int64)
+    mt_d = np.full((S, len(Q), k), np.inf, np.float32)
+    for s, ix in enumerate(hosts):
+        mt_i[s], mt_d[s] = masked_truth(skhi.di.vecs[s][:ix.n], mask[s::S],
+                                        Q, k, dev)
+    e_ti, e_td = sref.merge_shards(mt_i, mt_d, S, k)
+    ops.reset_launches()
+    ref.reset_calls()
+    svc.search_expr(Q + np.float32(1e-3), expr)
+    t0 = time.perf_counter()
+    e_ids, e_d = svc.search_expr(Q, expr)
+    dt_e = time.perf_counter() - t0
+    le = {nm: c for nm, c in ops.LAUNCHES.items() if c}
+    ok_e = lanes_exact(e_ids, e_d, e_ti, e_td)
+    print(f"[shard predicate] E2 ({len(years)} years, bitmask, "
+          f"{int(mask.sum())} rows): {len(Q)} queries in {dt_e:.3f}s; "
+          f"equal to the per-shard masked brute force, merged, on "
+          f"{int(ok_e.sum())} of {len(Q)}; launches {le}", flush=True)
+    check(le.get("scan_topk_mask", 0) > 0,
+          "[shard predicate] the bitmask kernel was never launched")
+    check(bool(ok_e.all()), "[shard predicate] a bitmask lane differs from "
+          "the masked brute force")
+
+    # ---- streaming: a delta of the config's capacity per shard
+    ins_v, ins_a, n_copy, n_exact = stream_rows(
+        index, di, Q, lo, hi, ids, dev, seed=13, count=SHARD_INSERTS)
+    rng = np.random.default_rng(14)
+    top1 = np.unique(ids[:, 0][ids[:, 0] >= 0])
+    rest = np.setdiff1d(np.arange(n), top1)
+    base_dels = np.concatenate([top1, rng.choice(rest, SHARD_BASE_DELETES,
+                                                 replace=False)])
+    delta_dels = n + rng.choice(SHARD_INSERTS, SHARD_DELTA_DELETES,
+                                replace=False)
+    dels = rng.permutation(np.concatenate([base_dels, delta_dels]))
+    dead = np.zeros(n + SHARD_INSERTS, bool)
+    dead[dels] = True
+
+    def vec_of(e):
+        return np.where((e < n)[:, None], index.vecs[np.minimum(e, n - 1)],
+                        ins_v[np.maximum(e - n, 0)])
+
+    def attrs_of(e):
+        return np.where((e < n)[:, None], index.attrs[np.minimum(e, n - 1)],
+                        ins_a[np.maximum(e - n, 0)])
+
+    svc.enable_streaming(capacity=cfg.delta_capacity,
+                         build_config=KHIConfig(M=cfg.M, builder="device"))
+    ins_s, exts = stream_inserts(svc, ins_v, ins_a)
+    check(np.array_equal(exts, np.arange(n, n + SHARD_INSERTS)),
+          "[shard stream] the inserts got other ext ids")
+    del_s = stream_deletes(svc, dels)
+    snap = svc.snapshot()
+    n_live = n + SHARD_INSERTS - len(dels)
+    check(snap["n_live"] == n_live and snap["tombstones"] == len(base_dels)
+          and snap["delta_fill"] == [SHARD_INSERTS // S] * S,
+          f"[shard stream] snapshot after the writes: {snap}")
+    print(f"[shard stream] {S} deltas of {cfg.delta_capacity} rows: "
+          f"{SHARD_INSERTS} inserts ({n_copy} copies of in-box base rows, "
+          f"{n_exact} exact) in {ins_s:.3f}s ({SHARD_INSERTS / ins_s:.0f} "
+          f"rows/s), routed by ext % {S} (fills {snap['delta_fill']}); "
+          f"{len(dels)} deletes ({len(base_dels)} base, {len(delta_dels)} "
+          f"delta) in 8 bursts in {del_s:.3f}s ({len(dels) / del_s:.0f} "
+          f"rows/s); n_live {snap['n_live']}", flush=True)
+    s_ids, s_d, s_launch = timed_serve(svc, serve_bursts, Q,
+                                       "[shard stream] f32:")
+    check(s_launch.get("scan_topk", 0) > 0
+          and s_launch.get("gather_l2_filter", 0) > 0,
+          "[shard stream] a kernel of the path was never launched")
+    stream_lanes_ok(s_ids, s_d, Q, lo, hi, vec_of, attrs_of, dead,
+                    "[shard stream]")
+    use_st = svc._planner.plan(lo, hi).use_scan
+    ssi, sgi = np.nonzero(use_st)[0], np.nonzero(~use_st)[0]
+    # the live truth: each shard's plain scan on its tombstoned attrs,
+    # merged in (dist, shard, local) order, then the live delta's plain
+    # scan by (dist, ext) (the base's ids are its exts in this epoch)
+    t0 = time.perf_counter()
+    b_ids, b_d = per_shard_truth(svc.index, Q, lo, hi, k, dev)
+    d_live = ~dead[n:]
+    d_ids, d_d = delta_truth(ins_v[d_live], ins_a[d_live],
+                             np.arange(n, n + SHARD_INSERTS)[d_live], Q, lo,
+                             hi, k, dev)
+    lt_ids, lt_d = sref.merge_dist_ext([(b_ids, b_d), (d_ids, d_d)], k)
+    ok_st = lanes_exact(s_ids[ssi], s_d[ssi], lt_ids[ssi], lt_d[ssi])
+    # graph lanes: the sharded program on the tombstoned index, merged
+    # with the numpy delta by (dist, ext)
+    g_ids, g_d, _, _ = svc._planner.search(Q[sgi], lo[sgi], hi[sgi])
+    gm = sref.merge_dist_ext([(g_ids.astype(np.int64), g_d),
+                              (d_ids[sgi], d_d[sgi])], k)
+    ok_sg = lanes_exact(s_ids[sgi], s_d[sgi], *gm)
+    share = float((s_ids >= n).any(1).sum() / max(1, (s_ids >= 0).any(1)
+                                                   .sum()))
+    print(f"[shard stream] scan lanes ({len(ssi)}) equal to the live brute "
+          f"force (each shard's plain scan on the tombstoned attrs, merged, "
+          f"+ the live delta's, by (dist, ext)) on "
+          f"{int(ok_st.sum())}; graph lanes ({len(sgi)}) equal to the "
+          f"sharded graph program merged with the live delta's truth on "
+          f"{int(ok_sg.sum())}; lanes holding a delta row {share:.4f} of the "
+          f"answered ({time.perf_counter() - t0:.1f}s on the host)",
+          flush=True)
+    check(bool(ok_st.all()) and bool(ok_sg.all()),
+          "[shard stream] the answers differ from the live corpus")
+    check(share > 0, "[shard stream] no answered lane holds a delta row")
+
+    # ---- one compaction through build_sharded, timed by phase
+    st = svc._stream
+    marks = {}
+    live_corpus, stack = st.live_corpus, sh_mod.stack_shards
+
+    def timed(fn, name):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            marks[name] = time.perf_counter() - t
+            return out
+        return call
+
+    st.live_corpus = timed(live_corpus, "gather")
+    sh_mod.stack_shards = timed(stack, "stack")
+    try:
+        _, cper, comp_s = build_timed(svc.compact)
+    finally:
+        del st.live_corpus
+        sh_mod.stack_shards = stack
+    post = svc.snapshot()
+    builds = sum(t for t, *_ in cper)
+    print(f"[shard stream] compaction through build_sharded in {comp_s:.1f}s:"
+          f" live_corpus gather {marks['gather']:.1f}s, {S} shard builds "
+          f"{builds:.1f}s (" + ", ".join(
+              f"{ix.n} rows {t:.1f}s, l2dist_qn {l2_s(c):.1f}s"
+              for t, ix, c in cper)
+          + f"), stack_shards {marks['stack']:.1f}s, install "
+          f"{comp_s - marks['gather'] - builds - marks['stack']:.1f}s; "
+          f"n_live {snap['n_live']} -> {post['n_live']}, tombstones "
+          f"{post['tombstones']}, delta_fill {post['delta_fill']}, epoch "
+          f"{post['epoch']}", flush=True)
+    check(len(cper) == S and post["tombstones"] == 0
+          and post["delta_fill"] == [0] * S and post["n_live"] == n_live
+          and svc.index.num_shards == S,
+          f"[shard stream] snapshot after the compaction: {post}")
+    for ix in (ix for _, ix, _ in cper):
+        ix.nbrs = None
+    post_scan = svc._planner.plan(lo[ssi], hi[ssi]).use_scan
+    ids2, d2 = svc.search(Q[ssi], lo[ssi], hi[ssi])
+    ok2 = lanes_exact(ids2, d2, s_ids[ssi], s_d[ssi])
+    same2 = (ids2 == s_ids[ssi]).all(1) & (d2 == s_d[ssi]).all(1)
+    print(f"[shard stream] after the compaction, the {len(ssi)} scan lanes "
+          f"({int(post_scan.sum())} still dispatched to the scan): equal to "
+          f"the answers before it on {int(ok2[post_scan].sum())} "
+          f"({int(same2[post_scan].sum())} bit for bit); the pass took "
+          f"{time.perf_counter() - t_pass:.1f}s", flush=True)
+    check(bool(ok2[post_scan].all()),
+          "[shard stream] scan lanes changed across the compaction")
+    s0 = skhi.di.shard(0)
+    s0 = dataclasses.replace(s0, **{
+        f: getattr(s0, f).clone() for f in ("vecs", "attrs", "nbrs", "left",
+                                            "right", "dim", "bl", "lo", "hi",
+                                            "start", "count", "order")})
+    del svc, skhi
+    torch.cuda.empty_cache()
+    return hosts[0], s0
+
 
 SLO_FAULTS = "device_error%0,device_error@3,latency:50ms@5"
 SLO_TRICKLE_S = 0.005          # the first half arrives one every 5 ms
@@ -2345,9 +2900,10 @@ def slo_pass(index, di, params, cfg, Q, lo, hi, is_s, f32_ids, use_scan,
         same_hops += int(hops == h8[j])
     del nbrs
     kq = min(max(p2.k, p2.k * p2.rerank_mult), len(index.vecs))
+    ss = lane_sample(si)
     same_scan = sum(bool((sref.scan_rerank(
         deq, index.vecs, index.attrs, Q[i], lo[i], hi[i], k=p2.k, kq=kq)[0]
-        == ids8[i]).all()) for i in si)
+        == ids8[i]).all()) for i in ss)
     del deq
     rec = {k: recall(ids8[i], t_ids[i]) for k, i in sel.items()}
     print(f"[slo int8] ladder {SLO_INT8_LADDER!r}: the replica ({gib:.3f} "
@@ -2358,11 +2914,12 @@ def slo_pass(index, di, params, cfg, Q, lo, hi, is_s, f32_ids, use_scan,
           + f"; graph lanes equal to the numpy int8 beam search + f32 rerank "
           f"(rr={rr}) on {same_ids} of {len(gi)}, hops on {same_hops}; scan "
           f"lanes equal to the numpy over-fetch (kq={kq}) + rerank on "
-          f"{same_scan} of {len(si)} ({time.perf_counter() - t0:.1f}s on "
+          f"{same_scan} of {len(ss)} sampled (of {len(si)}; "
+          f"{time.perf_counter() - t0:.1f}s on "
           f"the host); launches {launches}; plain-version CUDA calls "
           f"{plain_cuda}", flush=True)
     check(same_ids >= 0.95 * len(gi) and same_hops >= 0.95 * len(gi)
-          and same_scan >= 0.95 * len(si),
+          and same_scan >= 0.95 * len(ss),
           "[slo int8] tier 2 disagrees with the numpy reference")
     del svc8
     print(f"[slo] pass took {time.perf_counter() - t_pass:.1f}s", flush=True)
@@ -2376,7 +2933,8 @@ STREAM_DELTA_DELETES = 4_096
 INSERT_BURSTS = (1, 8192, 37, 4096, 256, 2048, 1000, 8, 512, 64, 3000)
 
 
-def stream_rows(index, di, Q, lo, hi, served_ids, dev, seed: int = 11):
+def stream_rows(index, di, Q, lo, hi, served_ids, dev, seed: int = 11,
+                count: int = 0):
     """The rows the streaming pass inserts, in insertion order: half are
     copies of distinct base rows inside the served boxes (each lane's
     served answer, then other rows of its box), a quarter of them exact
@@ -2384,12 +2942,14 @@ def stream_rows(index, di, Q, lo, hi, served_ids, dev, seed: int = 11):
     per element, so each competes with its base row for the same lanes
     and forces (dist, ext) ties and near-ties; half are fresh rows of the
     same generator at another seed.
-    Returns (vecs, attrs, copies, exact copies)."""
+    ``count`` rows in all (STREAM_INSERTS unless given). Returns (vecs,
+    attrs, copies, exact copies)."""
     from repro_torch.data import DatasetSpec, make_dataset
 
     rng = np.random.default_rng(seed)
     d = index.vecs.shape[1]
-    half = STREAM_INSERTS // 2
+    count = count or STREAM_INSERTS
+    half = count // 2
     per = -(-2 * half // len(Q))
     tl = torch.as_tensor(lo).to(dev)
     th = torch.as_tensor(hi).to(dev)
@@ -2410,13 +2970,13 @@ def stream_rows(index, di, Q, lo, hi, served_ids, dev, seed: int = 11):
     noise = rng.normal(0, 1e-3, (len(picks), d)).astype(np.float32)
     noise[exact] = 0
     cv = index.vecs[picks] + noise
-    spec = DatasetSpec("khi-serve", n=STREAM_INSERTS, d=d,
+    spec = DatasetSpec("khi-serve", n=count, d=d,
                        m=index.attrs.shape[1],
                        attr_kinds=("year", "lognormal", "lognormal",
                                    "lognormal"),
                        attr_corr=0.85, n_clusters=64, seed=5)
     fv, fa = make_dataset(spec)
-    nf = STREAM_INSERTS - len(picks)
+    nf = count - len(picks)
     vecs = np.concatenate([cv, fv[:nf]])
     attrs = np.concatenate([index.attrs[picks], fa[:nf]])
     order = rng.permutation(len(vecs))
@@ -2457,15 +3017,16 @@ def timed_serve(svc, serve_bursts, Q, tag):
     time is inside), and under streaming the delta scan and the merge
     around it; "service" is the rest (keys, cache, padding). Beside them:
     the main thread's CPU time, the collector's and the new card
-    segments. Prints the split; returns (ids, dists, launches)."""
+    segments. Prints the split; returns (ids, dists, launches). Over a
+    sharded index the delta scan sums every shard's segment."""
     from repro_torch.kernels import ops, ref
 
     pl = svc._planner
     layers = [(pl, "plan", "plan"), (pl, "_run_graph", "graph program"),
               (pl, "_run_scan", "scan program")]
     if svc._stream is not None:
-        layers += [(svc._stream.delta, "scan", "delta scan"),
-                   (svc._stream, "merge", "merge")]
+        layers += [(seg, "scan", "delta scan") for seg in svc._stream.deltas]
+        layers += [(svc._stream, "merge", "merge")]
     marks = {name: (0, 0.0) for _, _, name in layers}
 
     def timed(fn, name):
@@ -2531,9 +3092,29 @@ def timed_serve(svc, serve_bursts, Q, tag):
     if svc._stream is not None:
         check(ids.dtype == np.int64, f"{tag} the answers are not int64 ext "
               f"ids")
-        check(marks["delta scan"][0] == batches,
-              f"{tag} a batch skipped the delta scan")
+        check(marks["delta scan"][0] == batches * len(svc._stream.deltas),
+              f"{tag} a batch skipped a delta scan")
     return ids, dists, launches
+
+
+def delta_truth(vecs, attrs, exts, Q, lo, hi, k: int, dev):
+    """The exact in-box top-k over rows carrying the ascending external
+    ids ``exts`` (the live delta rows), by the plain scan on the card:
+    (ext ids (B, k) int64, -1 padded; dists (B, k)); its ties go to the
+    lower row, so to the lower ext."""
+    from repro_torch.kernels import ref
+
+    v = torch.as_tensor(np.ascontiguousarray(vecs)).to(dev)
+    a = torch.as_tensor(np.ascontiguousarray(attrs)).to(dev)
+    out_i, out_d = [], []
+    for s in range(0, len(Q), 64):
+        qq, ql, qh = (torch.as_tensor(x[s:s + 64]).to(dev)
+                      for x in (Q, lo, hi))
+        i, d = ref.scan_topk_ref(v, a, qq, ql, qh, k)
+        i = i.cpu().numpy().astype(np.int64)
+        out_i.append(np.where(i >= 0, exts[np.maximum(i, 0)], -1))
+        out_d.append(d.cpu().numpy())
+    return np.concatenate(out_i), np.concatenate(out_d)
 
 
 def stream_lanes_ok(ids, dists, Q, lo, hi, vec_of, attrs_of, dead, tag):
@@ -2554,10 +3135,14 @@ def stream_lanes_ok(ids, dists, Q, lo, hi, vec_of, attrs_of, dead, tag):
               f"{tag} lane {i}: served distances are not the exact ones")
 
 
-def stream_pass(index, di, params, cfg, Q, lo, hi, serve_bursts, served_ids,
+def stream_pass(index, di, params, cfg, Q, lo, hi, serve_bursts,
                 dev) -> None:
-    """The streaming write path at full width on the khi-serve shard:
-    ``enable_streaming(capacity=cfg.delta_capacity)``; 65,536 inserts in
+    """The streaming write path at full width on ``index``, shard 0 of the
+    shard pass's index (250,000 rows at n = 1M: its scale cut from the
+    main path's 1M rows so that the script fits its time limit; the
+    widths, the config's ``delta_capacity`` and the writes kept; the scan
+    threshold 10% of its n): ``enable_streaming(capacity=
+    cfg.delta_capacity)``; 65,536 inserts in
     bursts of 1 to 8,192 rows (``stream_rows``); deletes of every served
     lane's pre-streaming top-1 row, 16,384 random base rows and 4,096
     inserted rows; the 384 requests served and checked (scan lanes equal
@@ -2588,6 +3173,19 @@ def stream_pass(index, di, params, cfg, Q, lo, hi, serve_bursts, served_ids,
     n, d = index.vecs.shape
     k = cfg.k
     cap = cfg.delta_capacity
+    params = dataclasses.replace(params, scan_threshold=max(1, n // 10))
+    print(f"[stream] the index: {n} rows (d={d}, M={cfg.M}), scan "
+          f"threshold {params.scan_threshold} (10% of n)", flush=True)
+
+    # ---- f32 service: served before streaming (its answers pick the rows
+    # the pass inserts and deletes), after the inserts and after the
+    # deletes, each run split by layer
+    svc = KHIService(di, params, config=ServeConfig(
+        buckets=cfg.buckets, cache_size=cfg.cache_size))
+    print(f"[stream] host per PyTorch launch {launch_us(dev):.2f} us",
+          flush=True)
+    served_ids = timed_serve(svc, serve_bursts, Q,
+                             "[stream] f32, before streaming:")[0]
     t0 = time.perf_counter()
     ins_v, ins_a, n_copy, n_exact = stream_rows(index, di, Q, lo, hi,
                                                 served_ids, dev)
@@ -2620,13 +3218,6 @@ def stream_pass(index, di, params, cfg, Q, lo, hi, serve_bursts, served_ids,
         return np.where((e < n)[:, None], index.attrs[np.minimum(e, n - 1)],
                         ins_a[np.maximum(e - n, 0)])
 
-    # ---- f32 service: served before streaming, after the inserts and
-    # after the deletes, each run split by layer
-    svc = KHIService(di, params, config=ServeConfig(
-        buckets=cfg.buckets, cache_size=cfg.cache_size))
-    print(f"[stream] host per PyTorch launch {launch_us(dev):.2f} us",
-          flush=True)
-    timed_serve(svc, serve_bursts, Q, "[stream] f32, before streaming:")
     svc.enable_streaming(capacity=cap, build_config=KHIConfig(
         M=cfg.M, builder="device"))
     ins_s, exts = stream_inserts(svc, ins_v, ins_a)
@@ -2667,12 +3258,8 @@ def stream_pass(index, di, params, cfg, Q, lo, hi, serve_bursts, served_ids,
         b_ids.append(a.cpu().numpy().astype(np.int64))
         b_d.append(b.cpu().numpy())
     b_ids, b_d = np.concatenate(b_ids), np.concatenate(b_d)
-    dv, da = ins_v[delta_live], ins_a[delta_live]
-    de = delta_exts[delta_live]
-    dl = [sref.live_topk(dv, da, de, Q[i], lo[i], hi[i], k)
-          for i in range(len(Q))]
-    d_ids = np.stack([x[0] for x in dl])
-    d_d = np.stack([x[1] for x in dl])
+    d_ids, d_d = delta_truth(ins_v[delta_live], ins_a[delta_live],
+                             delta_exts[delta_live], Q, lo, hi, k, dev)
     t_ids, t_d = sref.merge_dist_ext([(b_ids, b_d), (d_ids, d_d)], k)
     truth_s = time.perf_counter() - t0
 
@@ -2681,7 +3268,8 @@ def stream_pass(index, di, params, cfg, Q, lo, hi, serve_bursts, served_ids,
     same = (ids[si] == t_ids[si]).all(1)
     share = float(((ids >= n).any(1)).sum() / max(1, (ids >= 0).any(1).sum()))
     print(f"[stream] scan lanes ({len(si)}): equal to the live brute force "
-          f"(base plain scan + numpy delta, merged by (dist, ext)) on "
+          f"(base and live delta by the plain scan, merged by (dist, ext)) "
+          f"on "
           f"{int(ok.sum())} ({int(same.sum())} with every id equal, the rest "
           f"near-ties); lanes holding a delta row {share:.4f} of the "
           f"answered; truth {truth_s:.1f}s", flush=True)
@@ -2839,14 +3427,15 @@ def stream_pass(index, di, params, cfg, Q, lo, hi, serve_bursts, served_ids,
         return np.where(di_ >= 0, di_ + n, -1)[None], dd_[None]
 
     same8 = 0
-    for i in np.nonzero(use8)[0]:
+    si8 = lane_sample(np.nonzero(use8)[0])
+    for i in si8:
         bi, bd = sref.scan_rerank(deq, index.vecs, nan_attrs, Q[i], lo[i],
                                   hi[i], k=k, kq=kq)
         me, _ = sref.merge_dist_ext([(bi[None], bd[None]), delta8(i)], k)
         same8 += bool((me[0] == ids8[i]).all())
     # graph lanes: the numpy int8 beam search on the tombstoned attrs from
     # the numpy DFS's entries, the f32 rerank, merged with the int8 delta
-    gi8 = np.nonzero(~use8)[0]
+    gi8 = lane_sample(np.nonzero(~use8)[0], seed=1)
     ent_of = dict(zip(gi.tolist(), ref_ent))
     g8_hops = svc8._planner.search(Q[gi8], lo[gi8], hi[gi8])[2]
     same8g = same8h = 0
@@ -2865,13 +3454,15 @@ def stream_pass(index, di, params, cfg, Q, lo, hi, serve_bursts, served_ids,
     del deq, nbrs
     share8 = float(((ids8 >= n).any(1)).sum()
                    / max(1, (ids8 >= 0).any(1).sum()))
-    n8s = int(use8.sum())
+    n8s = len(si8)
     print(f"[stream int8] scan lanes: ids equal to the numpy int8 over-fetch "
           f"(kq={kq}, delta {kq_d}) + f32 rerank of base and delta, merged "
-          f"by (dist, ext), on {same8} of {n8s} lanes; graph lanes: ids equal"
+          f"by (dist, ext), on {same8} of {n8s} sampled (of "
+          f"{int(use8.sum())}); graph lanes: ids equal"
           f" to the numpy int8 beam search on the tombstoned attrs + f32 "
           f"rerank (rr={rr}), merged with the same delta, on {same8g} of "
-          f"{len(gi8)}, hops on {same8h}; lanes holding a delta row "
+          f"{len(gi8)} sampled (of {int((~use8).sum())}), hops on "
+          f"{same8h}; lanes holding a delta row "
           f"{share8:.4f}; delta replica equal to numpy's "
           f"({time.perf_counter() - t0:.1f}s on the host)", flush=True)
     check(same8 >= 0.95 * n8s,
@@ -3086,6 +3677,7 @@ def main() -> None:
     rows = kernel_checks(args.n, cfg.d, cfg.m, cfg.k,
                          cfg.k * cfg.rerank_mult, dev,
                          synthetic_windows=args.phases == "kernels")
+    mark("the kernel checks")
     torch.cuda.empty_cache()
     if args.phases != "kernels":
         main_path(args.n, 1_000_000, dev, rows)

@@ -37,6 +37,10 @@ JAX reference itself cannot run.
     delta segment) and ``merge_dist_ext`` (several candidate lists merged
     by (distance, ext), lowest ext first on ties: the service's merge of
     the base engine's answer with the delta's).
+  * the sharded pass (DESIGN.md §14): ``merge_shards`` (per-shard top-k
+    lists over local ids merged into global ids, local j of shard s being
+    j * S + s, in (distance, shard, local) order: the order of the
+    reference's merge-k over the shard-major list).
 
 ``tests/test_torch_reference.py`` pins all of them to the JAX package on
 the CPU.
@@ -106,11 +110,17 @@ def dfs_entries(tree, attrs, lo, hi, c_e: int, scan_budget: int,
 
 
 def beam_search(vecs, attrs, nbrs, entries, q, lo, hi, *, k: int, ef: int,
-                c_n: int, E: int, max_hops: int):
+                c_n: int, E: int, max_hops: int, dist=None):
     """One query's graph search. ``nbrs`` is object-major (n, H, M).
     Returns the first ``k`` pool slots (ids (k,) -1 padded, dists (k,)
     f32) and the hop count; ``k`` may be up to ``ef`` (a rerank's
-    ``rr``)."""
+    ``rr``). ``dist(ids) -> (len(ids),) f32`` replaces the f32 squared
+    distances to ``q`` (numpy's sum order), e.g. by another summation
+    order's, so that a walk can be replayed on those distances."""
+    if dist is None:
+        def dist(ids):
+            dv = vecs[ids] - q
+            return np.einsum("vd,vd->v", dv, dv).astype(np.float32)
     n = vecs.shape[0]
     HM = nbrs.shape[1] * nbrs.shape[2]
     L = E * HM
@@ -126,8 +136,7 @@ def beam_search(vecs, attrs, nbrs, entries, q, lo, hi, *, k: int, ef: int,
 
     if len(entries):
         e = np.asarray(entries, np.int64)
-        dv = vecs[e] - q
-        d0 = np.einsum("ed,ed->e", dv, dv).astype(np.float32)
+        d0 = dist(e)
         ids[:len(e)], dists[:len(e)] = e, d0
         expanded[:len(e)] = ~np.isfinite(d0)
         resort()
@@ -163,8 +172,7 @@ def beam_search(vecs, attrs, nbrs, entries, q, lo, hi, *, k: int, ef: int,
         buf[base[keep] + napp_excl[keep]] = nid[keep]
         bd = np.full(E * c_n, np.inf, np.float32)
         got = buf >= 0
-        dv = vecs[buf[got]] - q
-        bd[got] = np.einsum("vd,vd->v", dv, dv)
+        bd[got] = dist(buf[got])
         ok = np.isfinite(bd)
         ids[ef:] = np.where(ok, buf, -1)
         dists[ef:] = np.where(ok, bd, np.inf)
@@ -410,3 +418,27 @@ def merge_dist_ext(parts, k: int):
         out_e[i, :len(sel)] = ext[i][sel]
         out_d[i, :len(sel)] = d[i][sel]
     return out_e, out_d
+
+
+def merge_shards(ids, dists, n_shards: int, k: int):
+    """Per-shard top-k lists, local ids (S, B, k') -1 padded and their
+    dists (S, B, k'), merged per lane into the global answer: local id j
+    of shard s becomes j * S + s, and the k best are kept in (distance,
+    shard, local) order, i.e. by distance with ties to the earlier entry
+    of the shard-major list. (ids (B, k) int64, -1 padded; dists (B, k)
+    f32, +inf padded)."""
+    ids = np.asarray(ids, np.int64)
+    d = np.asarray(dists, np.float32)
+    S, B, _ = ids.shape
+    shard = np.arange(S, dtype=np.int64)[:, None, None]
+    g = np.where(ids >= 0, ids * n_shards + shard, -1)
+    d = np.where(ids >= 0, d, np.inf).astype(np.float32)
+    out_i = np.full((B, k), -1, np.int64)
+    out_d = np.full((B, k), np.inf, np.float32)
+    for b in range(B):
+        flat_i, flat_d = g[:, b].reshape(-1), d[:, b].reshape(-1)
+        sel = np.argsort(flat_d, kind="stable")[:k]
+        sel = sel[np.isfinite(flat_d[sel])]
+        out_i[b, :len(sel)] = flat_i[sel]
+        out_d[b, :len(sel)] = flat_d[sel]
+    return out_i, out_d

@@ -26,8 +26,13 @@ position-encoded), so writes never touch the graph:
 Merge contract: per query, the base engine's top-k and the delta's are
 concatenated on the host and ranked by ``(dist, ext)``, lowest ext first
 on ties, which is what makes the merged answer equal to a rebuild from
-scratch on exact (scan-served) lanes. One shard: a sharded index raises
-``NotImplementedError`` naming its ROADMAP item.
+scratch on exact (scan-served) lanes.
+
+Over a ``ShardedKHI`` of S shards there is one delta segment per shard,
+each of ``capacity`` rows; an insert goes to shard ``ext % S``, a base
+row's internal id is its global id (local * S + shard), its tombstone
+NaNs the stacked attrs at (shard, local), and the merge folds every
+segment's scan in.
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .engine import (SCAN_BACKENDS, SearchParams, _scan_shard_topk, _todo)
+from .engine import (SCAN_BACKENDS, SearchParams, _is_sharded,
+                     _scan_shard_topk, _shard_counts)
 from .khi import KHIConfig
 from .util import resolve_device
 from ..kernels.quant import QUANTS, quantize_rows_i8
@@ -167,29 +173,37 @@ class DeltaSegment:
 
 
 class StreamingState:
-    """Host coordinator of one service's streaming writes (DESIGN.md §11)
-    over one shard: the ext-id space, the delta segment, the base
-    tombstone bitmap and the merge. ``delete`` returns a new
-    ``DeviceIndex`` with NaN'd attr rows; installing it is the caller's
-    job (``serve.KHIService``)."""
+    """Host coordinator of one service's streaming writes (DESIGN.md §11):
+    the ext-id space, one delta segment per shard, the base tombstone
+    bitmap and the merge. ``delete`` returns a copy of the index (a
+    ``DeviceIndex`` or a ``ShardedKHI``) with NaN'd attr rows; installing
+    it is the caller's job (``serve.KHIService``)."""
 
     def __init__(self, index, *, capacity: int,
                  build_config: Optional[KHIConfig] = None,
                  backend: str = "jnp", quant: str = "none",
                  rerank_mult: int = 4):
-        if hasattr(index, "offsets") and hasattr(index, "di"):
-            raise _todo("sharded indexes", "13")
+        self._sharded = _is_sharded(index)
+        di = index.di if self._sharded else index
+        self.S = index.num_shards if self._sharded else 1
         self.build_config = build_config or KHIConfig(builder="device")
-        self.delta = DeltaSegment(
-            capacity, index.vecs.shape[-1], index.attrs.shape[-1],
-            backend=backend, device=index.vecs.device, quant=quant,
-            rerank_mult=rerank_mult)
+        self.deltas: List[DeltaSegment] = [
+            DeltaSegment(capacity, di.vecs.shape[-1], di.attrs.shape[-1],
+                         backend=backend, device=di.vecs.device,
+                         quant=quant, rerank_mult=rerank_mult)
+            for _ in range(self.S)]
         self._bind_base(index, ext_of_base=None)
         self.next_ext = self.n_total
 
+    @property
+    def delta(self) -> DeltaSegment:
+        """Shard 0's segment: the only one over a single index."""
+        return self.deltas[0]
+
     # ------------------------------------------------------------ base view
     def _bind_base(self, index, ext_of_base: Optional[np.ndarray]) -> None:
-        self.n_total = int(index.count[index.root])
+        self.n_shard = _shard_counts(index.di if self._sharded else index)
+        self.n_total = int(self.n_shard.sum())
         if ext_of_base is None:
             ext_of_base = np.arange(self.n_total, dtype=np.int64)
         if ext_of_base.shape[0] != self.n_total:
@@ -199,24 +213,36 @@ class StreamingState:
         self.ext_of_base = np.asarray(ext_of_base, np.int64)
         self.base_slot = {int(e): g for g, e in enumerate(self.ext_of_base)}
         self.base_deleted = np.zeros(self.n_total, bool)
-        self.delta_loc: dict = {}            # ext -> delta slot
+        self.delta_loc: dict = {}            # ext -> (shard, slot)
 
     @property
     def n_live(self) -> int:
         return (self.n_total - int(self.base_deleted.sum())
-                + self.delta.n_live)
+                + sum(seg.n_live for seg in self.deltas))
 
     # -------------------------------------------------------------- inserts
+    def _route(self, exts: np.ndarray) -> np.ndarray:
+        return exts % self.S
+
     def fits(self, b: int) -> bool:
-        """Would a b-row insert fit the delta right now?"""
-        return b <= self.delta.room()
+        """Would a b-row insert fit the per-shard deltas right now?"""
+        exts = np.arange(self.next_ext, self.next_ext + b, dtype=np.int64)
+        shard = self._route(exts)
+        return all(int((shard == s).sum()) <= self.deltas[s].room()
+                   for s in range(self.S))
 
     def insert(self, vecs: np.ndarray, attrs: np.ndarray) -> np.ndarray:
-        """Append rows to the delta; returns their ext ids."""
+        """Append rows to the per-shard deltas; returns their ext ids."""
         b = vecs.shape[0]
         exts = np.arange(self.next_ext, self.next_ext + b, dtype=np.int64)
-        slots = self.delta.insert(vecs, attrs, exts)
-        self.delta_loc.update(zip(exts.tolist(), slots.tolist()))
+        shard = self._route(exts)
+        for s in range(self.S):
+            sel = np.nonzero(shard == s)[0]
+            if not sel.size:
+                continue
+            slots = self.deltas[s].insert(vecs[sel], attrs[sel], exts[sel])
+            self.delta_loc.update(zip(exts[sel].tolist(),
+                                      zip([s] * sel.size, slots.tolist())))
         self.next_ext += b
         return exts
 
@@ -227,36 +253,47 @@ class StreamingState:
         base row died, None when only delta rows (or nothing) did.
         Unknown and already-deleted ids are skipped."""
         base_rows: List[int] = []
-        slots: List[int] = []
+        per_seg: dict = {}
         for e in np.asarray(ext_ids, np.int64).ravel().tolist():
-            slot = self.delta_loc.get(e)
-            if slot is not None:
-                if self.delta.live[slot]:
-                    slots.append(slot)
+            loc = self.delta_loc.get(e)
+            if loc is not None:
+                s, slot = loc
+                if self.deltas[s].live[slot]:
+                    per_seg.setdefault(s, []).append(slot)
                 continue
             g = self.base_slot.get(e)
             if g is not None and not self.base_deleted[g]:
                 self.base_deleted[g] = True
                 base_rows.append(g)
-        self.delta.delete(np.asarray(slots, np.int64))
-        n_del = len(base_rows) + len(slots)
+        for s, slots in per_seg.items():
+            self.deltas[s].delete(np.asarray(slots, np.int64))
+        n_del = len(base_rows) + sum(len(v) for v in per_seg.values())
         if not base_rows:
             return None, n_del
         return self._nan_base(index, np.asarray(base_rows)), n_del
 
     def _nan_base(self, index, rows: np.ndarray):
         """Functional tombstone write: a copy of ``index`` whose attr rows
-        at ``rows`` are NaN, on a fresh attrs tensor (the other tensors,
-        the replica included, stay shared)."""
-        attrs = index.attrs.clone()
-        attrs[torch.as_tensor(rows, dtype=torch.int64).to(attrs.device)] = \
-            float("nan")
-        return dataclasses.replace(index, attrs=attrs)
+        at ``rows`` (global internal ids) are NaN, on a fresh attrs tensor
+        (the other tensors, the replica included, stay shared)."""
+        di = index.di if self._sharded else index
+        attrs = di.attrs.clone()
+        rows = torch.as_tensor(rows, dtype=torch.int64).to(attrs.device)
+        if self._sharded:
+            attrs[rows % self.S, rows // self.S] = float("nan")
+        else:
+            attrs[rows] = float("nan")
+        di = dataclasses.replace(di, attrs=attrs)
+        return dataclasses.replace(index, di=di) if self._sharded else di
 
-    def deleted_locals(self) -> np.ndarray:
-        """Row ids of the tombstoned base rows, the planner's cardinality
-        adjustment (``Planner.refresh_index``)."""
-        return np.nonzero(self.base_deleted)[0]
+    def deleted_locals(self):
+        """The tombstoned base rows, the planner's cardinality adjustment
+        (``Planner.refresh_index``): their row ids over a single index, a
+        list of each shard's local row ids over a sharded one."""
+        g = np.nonzero(self.base_deleted)[0]
+        if not self._sharded:
+            return g
+        return [g[g % self.S == s] // self.S for s in range(self.S)]
 
     # ---------------------------------------------------------------- merge
     def merge(self, ids: np.ndarray, dists: np.ndarray, qs: np.ndarray,
@@ -269,11 +306,13 @@ class StreamingState:
         safe = np.clip(ids, 0, max(self.n_total - 1, 0))
         parts_i = [np.where(ids >= 0, self.ext_of_base[safe], -1)]
         parts_d = [np.asarray(dists, np.float32)]
-        res = self.delta.scan(qs, qlo, qhi, k)
-        if res is not None:
+        for seg in self.deltas:
+            res = seg.scan(qs, qlo, qhi, k)
+            if res is None:
+                continue
             slots, dd = res
             parts_i.append(np.where(
-                slots >= 0, self.delta.ext_ids[np.maximum(slots, 0)], -1))
+                slots >= 0, seg.ext_ids[np.maximum(slots, 0)], -1))
             parts_d.append(np.where(slots >= 0, dd, np.inf))
         cand_i = np.concatenate(parts_i, axis=1).astype(np.int64)
         cand_d = np.concatenate(parts_d, axis=1)
@@ -291,19 +330,23 @@ class StreamingState:
         """Every live row (base minus tombstones, plus the delta) on the
         host, sorted by ext: (vecs (n', d), attrs (n', m), exts (n',)),
         the corpus a compaction rebuilds from. The base rows are gathered
-        on the device before the copy."""
+        on the device, at (shard, local) over a sharded index, before the
+        copy."""
+        di = index.di if self._sharded else index
         alive = np.nonzero(~self.base_deleted)[0]
-        sel = torch.as_tensor(alive).to(index.vecs.device)
-        dv, da, de = self.delta.live_rows()
-        vecs = np.concatenate([index.vecs[sel].cpu().numpy(), dv])
-        attrs = np.concatenate([index.attrs[sel].cpu().numpy(), da])
-        exts = np.concatenate([self.ext_of_base[alive], de])
+        sel = torch.as_tensor(alive).to(di.vecs.device)
+        at = (sel % self.S, sel // self.S) if self._sharded else (sel,)
+        parts = [(di.vecs[at].cpu().numpy(), di.attrs[at].cpu().numpy(),
+                  self.ext_of_base[alive])]
+        parts += [seg.live_rows() for seg in self.deltas]
+        vecs, attrs, exts = (np.concatenate(c) for c in zip(*parts))
         order = np.argsort(exts, kind="stable")
         return vecs[order], attrs[order], exts[order]
 
     def reset(self, index, exts: np.ndarray) -> None:
         """Rebind to a freshly compacted epoch whose internal row i has
-        ext ``exts[i]``. The delta and the tombstones clear; the ext
+        ext ``exts[i]``. The deltas and the tombstones clear; the ext
         counter keeps counting (ids are never reused)."""
-        self.delta.clear()
+        for seg in self.deltas:
+            seg.clear()
         self._bind_base(index, ext_of_base=exts)

@@ -40,8 +40,9 @@ form), and large ones, walked by the graph program; mixed lanes merge
 both streams with ``_merge_dedup``. ``Planner.search_expr`` serves a
 boolean filter expression (``core/predicate.py``, DESIGN.md §15): each
 disjoint box of its cover through ``search``, or, past ``box_budget``,
-one scan under a host-evaluated row mask (the bitmask kernel). Sharded
-indexes raise ``NotImplementedError`` naming their ROADMAP item.
+one scan under a host-evaluated row mask (the bitmask kernel). Every
+entry point also serves a shard-stacked index (``sharded.ShardedKHI``):
+the programs fan out over its shards and merge into global ids.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import hashlib
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -101,34 +102,72 @@ class DeviceIndex:
     start: torch.Tensor   # (P,) int64
     count: torch.Tensor   # (P,) int64
     order: torch.Tensor   # (n,) int64
-    root: int
+    root: Union[int, Tuple[int, ...]]
     # the compressed score replica, None unless a quantized search asked
     # for it: qvecs (n, d) bf16 or int8, qscale the int8 per-row (n, 1)
     # f32 scale plane (None for bf16)
     qvecs: Optional[torch.Tensor] = None
     qscale: Optional[torch.Tensor] = None
 
+    # A shard-stacked index (``sharded.stack_shards``) holds every tensor
+    # with a leading shard axis, (S, n, d) and so on, and one root per
+    # shard as a tuple; ``shard(s)`` and ``rows()`` are its two views.
+
+    @property
+    def stacked(self) -> bool:
+        return isinstance(self.root, tuple)
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.root) if self.stacked else 1
+
     @property
     def n(self) -> int:
-        return self.vecs.shape[0]
+        """Rows (per shard, padding included, on a stacked index)."""
+        return self.vecs.shape[-2]
 
     @property
     def height(self) -> int:
-        return self.nbrs.shape[1]
+        return self.nbrs.shape[-2]
 
     @property
     def device(self) -> torch.device:
         return self.vecs.device
 
+    def shard(self, s: int) -> "DeviceIndex":
+        """Shard ``s`` of a stacked index as a plain one (views)."""
+        return DeviceIndex(**{
+            f.name: (self.root[s] if f.name == "root" else
+                     None if getattr(self, f.name) is None else
+                     getattr(self, f.name)[s])
+            for f in dataclasses.fields(self)})
 
-def device_put_index(index, *, device=None, quant: str = "none"
-                     ) -> DeviceIndex:
+    def rows(self) -> "DeviceIndex":
+        """The row planes of a stacked index as one (S * n, ...) index
+        (views): row ``s * n + i`` is shard s's row i. Only ``vecs``,
+        ``attrs``, ``nbrs`` and the replica are merged; the tree planes
+        are shard 0's, which nothing that reads this view touches."""
+        flat = {f: None if getattr(self, f) is None else
+                getattr(self, f).reshape((-1,) + getattr(self, f).shape[2:])
+                for f in ("vecs", "attrs", "nbrs", "qvecs", "qscale")}
+        return dataclasses.replace(self.shard(0), **flat)
+
+
+def device_put_index(index, *, device=None, quant: str = "none",
+                     pad_n: Optional[int] = None,
+                     pad_nodes: Optional[int] = None,
+                     pad_height: Optional[int] = None) -> DeviceIndex:
     """Flatten a host index onto ``device`` (default ``cuda``). ``index``
     is anything with the ``KHIIndex`` fields: ``vecs``, ``attrs``,
     ``nbrs`` (H, n, M) and ``tree`` (numpy arrays or tensors), so an
     index built by the JAX package works as it is. ``quant`` ("bf16" /
     "int8") also attaches the compressed replica (``with_quant_replica``).
-    """
+
+    ``pad_n``, ``pad_nodes`` and ``pad_height`` pad the rows, the tree
+    nodes and the graph levels to common sizes, so that shards can be
+    stacked, with the reference's fills: vecs 0, attrs +inf, nbrs -1 past
+    the shard's rows and levels; left, right and dim -1, lo +inf, hi -inf,
+    bl, start and count 0 on pad nodes; order 0 on pad rows."""
     dev = resolve_device(device)
     t = index.tree
 
@@ -136,18 +175,39 @@ def device_put_index(index, *, device=None, quant: str = "none"
         return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a)
                                else a).to(device=dev, dtype=dtype)
 
-    nbrs = up(index.nbrs, torch.int32).permute(1, 0, 2).contiguous()
+    def pad(x, size, fill):
+        if size is None or size == x.shape[0]:
+            return x.contiguous()
+        out = torch.full((size,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
+                         device=dev)
+        out[:x.shape[0]] = x
+        return out
+
+    def rows(a, dtype, fill=0):
+        return pad(up(a, dtype), pad_n, fill)
+
+    def nodes(a, dtype, fill=0):
+        return pad(up(a, dtype), pad_nodes, fill)
+
+    nbrs = up(index.nbrs, torch.int32).permute(1, 0, 2)          # (n, H, M)
+    if pad_height is not None and pad_height != nbrs.shape[1]:
+        nb = torch.full((nbrs.shape[0], pad_height, nbrs.shape[2]), -1,
+                        dtype=torch.int32, device=dev)
+        nb[:, :nbrs.shape[1]] = nbrs
+        nbrs = nb
     root = int(np.nonzero(np.asarray(t.parent) < 0)[0][0])
     di = DeviceIndex(
-        vecs=up(index.vecs, torch.float32).contiguous(),
-        attrs=up(index.attrs, torch.float32).contiguous(),
-        nbrs=nbrs,
-        left=up(t.left, torch.int64), right=up(t.right, torch.int64),
-        dim=up(t.dim, torch.int64),
-        bl=up(np.asarray(t.bl).astype(np.int64), torch.int64),
-        lo=up(t.lo, torch.float32), hi=up(t.hi, torch.float32),
-        start=up(t.start, torch.int64), count=up(t.count, torch.int64),
-        order=up(t.order, torch.int64), root=root)
+        vecs=rows(index.vecs, torch.float32),
+        attrs=rows(index.attrs, torch.float32, _INF),
+        nbrs=pad(nbrs, pad_n, -1),
+        left=nodes(t.left, torch.int64, -1),
+        right=nodes(t.right, torch.int64, -1),
+        dim=nodes(t.dim, torch.int64, -1),
+        bl=nodes(np.asarray(t.bl).astype(np.int64), torch.int64),
+        lo=nodes(t.lo, torch.float32, _INF),
+        hi=nodes(t.hi, torch.float32, -_INF),
+        start=nodes(t.start, torch.int64), count=nodes(t.count, torch.int64),
+        order=rows(t.order, torch.int64), root=root)
     return with_quant_replica(di, quant)
 
 
@@ -516,8 +576,40 @@ def _query_batch(di: DeviceIndex, q: torch.Tensor, qlo: torch.Tensor,
     hops (B,) int64); the reference's ``_query_one`` for every lane. With
     an ``exact_scorer`` (a quantized search) the top ``rr`` pool entries
     are rescored by it and the answer is their (dist, id) top-k."""
+    entries, _ = resolve_router(p.router)(di, qlo, qhi, p)
+    return _walk(di, q, qlo, qhi, entries, p, scorer, exact_scorer, di.n)
+
+
+def _query_batch_sharded(di: DeviceIndex, q: torch.Tensor,
+                         qlo: torch.Tensor, qhi: torch.Tensor,
+                         p: SearchParams, scorer: Scorer,
+                         exact_scorer: Optional[Scorer] = None):
+    """``_query_batch`` on every shard of a stacked index: -> local ids
+    (S, B, k) int64, dists (S, B, k) f32, hops (S, B) int64, each shard's
+    lanes exactly its own walk. Phase A runs per shard; the S * B (shard,
+    lane) pairs then walk as one batch over the ``rows()`` view, each lane
+    holding local ids in its pool, ``seen`` and ``visited`` and adding its
+    shard's row offset only where it addresses a row."""
+    S, n, B = di.num_shards, di.n, q.shape[0]
+    route = resolve_router(p.router)
+    entries = torch.cat([route(di.shard(s), qlo, qhi, p)[0]
+                         for s in range(S)])
+    roff = torch.arange(S, device=q.device).repeat_interleave(B) * n
+    ids, dists, hops = _walk(di.rows(), q.repeat(S, 1), qlo.repeat(S, 1),
+                             qhi.repeat(S, 1), entries, p, scorer,
+                             exact_scorer, n, roff)
+    return ids.view(S, B, -1), dists.view(S, B, -1), hops.view(S, B)
+
+
+def _walk(di: DeviceIndex, q: torch.Tensor, qlo: torch.Tensor,
+          qhi: torch.Tensor, entries: torch.Tensor, p: SearchParams,
+          scorer: Scorer, exact_scorer: Optional[Scorer], n: int,
+          roff: Optional[torch.Tensor] = None):
+    """Phase B from Phase A's ``entries`` (B, c_e): the wide-frontier hop
+    loop over ids in ``[0, n)``. ``roff`` (B,), when given, is each lane's
+    row offset into ``di``'s planes (a shard's rows in the ``rows()``
+    view); ids in the pool and the answer stay lane-local."""
     B = q.shape[0]
-    n = di.n
     H, M = di.nbrs.shape[1], di.nbrs.shape[2]
     HM = H * M
     E = p.expand_width
@@ -525,9 +617,13 @@ def _query_batch(di: DeviceIndex, q: torch.Tensor, qlo: torch.Tensor,
     cap = E * p.c_n
     dev = q.device
 
-    entries, _ = resolve_router(p.router)(di, qlo, qhi, p)
+    def at(ids):                        # lane-local ids -> rows of di
+        if roff is None:
+            return ids
+        return torch.where(ids >= 0, ids + roff[:, None], ids)
+
     e_valid = entries >= 0
-    e_dist = scorer.score(di, q, qlo, qhi, entries)
+    e_dist = scorer.score(di, q, qlo, qhi, at(entries))
     visited = beam.visited_init(B, n, dev)
     beam.visited_mark(visited, entries, e_valid)
     pool = beam.pool_seed(p.ef + cap, entries, e_dist, e_valid)
@@ -536,7 +632,7 @@ def _query_batch(di: DeviceIndex, q: torch.Tensor, qlo: torch.Tensor,
     hops = torch.zeros(B, dtype=torch.int64, device=dev)
     rev = torch.arange(L - 1, -1, -1, device=dev, dtype=torch.int64)
     base = (torch.arange(E, device=dev) * p.c_n).repeat_interleave(HM)
-    nbrs = di.nbrs.view(n, HM)
+    nbrs = di.nbrs.view(-1, HM)
     drop = torch.full((B, L), n, dtype=torch.int64, device=dev)
     max_hops = p.hops()
 
@@ -550,7 +646,7 @@ def _query_batch(di: DeviceIndex, q: torch.Tensor, qlo: torch.Tensor,
 
         # ReconsNbr over the fused E*H*M stream of each lane
         u_safe = torch.where(uvalid, us, torch.zeros_like(us))
-        rows = nbrs[u_safe].to(torch.int64)                  # (B, E, HM)
+        rows = nbrs[at(u_safe)].to(torch.int64)              # (B, E, HM)
         nid = rows.view(B, L)
         valid = ((rows >= 0) & uvalid[:, :, None]).view(B, L)
         nid_safe = torch.where(valid, nid, torch.zeros_like(nid))
@@ -562,7 +658,7 @@ def _query_batch(di: DeviceIndex, q: torch.Tensor, qlo: torch.Tensor,
         is_first = valid & (seen.gather(1, nid_safe) == tag)
 
         fresh = is_first & ~visited.gather(1, nid_safe)
-        in_range = valid & scorer.in_range(di, qlo, qhi, nid_safe)
+        in_range = valid & scorer.in_range(di, qlo, qhi, at(nid_safe))
         append = fresh & in_range
         seg = append.view(B, E, HM).to(torch.int64)
         napp_excl = (torch.cumsum(seg, 2) - seg).view(B, L)
@@ -576,7 +672,7 @@ def _query_batch(di: DeviceIndex, q: torch.Tensor, qlo: torch.Tensor,
         buf = buf[:, :cap].contiguous()
 
         bvalid = buf >= 0
-        bd = scorer.score(di, q, qlo, qhi, buf)
+        bd = scorer.score(di, q, qlo, qhi, at(buf))
         pool = beam.pool_merge_tail(pool, p.ef, buf, bd, bvalid)
         hops = hops + alive.to(torch.int64)
     if exact_scorer is None:
@@ -585,9 +681,53 @@ def _query_batch(di: DeviceIndex, q: torch.Tensor, qlo: torch.Tensor,
     # k boundary may invert against f32: rescore the top rr exactly
     rr = max(p.k, min(p.ef, p.k * p.rerank_mult))
     cand = pool.ids[:, :rr].contiguous()
-    ids_k, dists_k = _lex_topk(cand, exact_scorer.score(di, q, qlo, qhi,
-                                                        cand), p.k)
+    ids_k, dists_k = _lex_topk(cand, exact_scorer.score(
+        di, q, qlo, qhi, at(cand)), p.k)
     return ids_k, dists_k, hops
+
+
+def _local_to_global(local_ids: torch.Tensor, shard,
+                     n_shards: int) -> torch.Tensor:
+    """Round-robin inverse: global = local * S + shard; -1 stays -1.
+    ``shard`` is an int or a tensor broadcasting against the ids."""
+    return torch.where(local_ids >= 0, local_ids * n_shards + shard,
+                       torch.full_like(local_ids, -1))
+
+
+def _merge_topk(gids: torch.Tensor, dists: torch.Tensor, k: int):
+    """gids / dists (S, B, k') -> the global (B, k) by merge-k over the
+    shard-major (S * k') list of each lane, as the reference's
+    ``lax.top_k``: ascending distance, ties to the lower flat position,
+    i.e. (dist, shard, rank in that shard). Pads stay (-1, +inf)."""
+    S, B, kk = gids.shape
+    flat_i = gids.permute(1, 0, 2).reshape(B, S * kk)
+    flat_d = dists.permute(1, 0, 2).reshape(B, S * kk)
+    sel = torch.argsort(flat_d, dim=1, stable=True)[:, :k]
+    return flat_i.gather(1, sel), flat_d.gather(1, sel)
+
+
+def _shard_search(di: DeviceIndex, q, qlo, qhi, p: SearchParams,
+                  scorer: Scorer, exact_scorer: Optional[Scorer] = None):
+    """Every shard's graph walk over a stacked index: -> global ids (S,
+    B, k) int64 (-1 kept), dists (S, B, k) with +inf on -1 lanes, hops
+    (S, B)."""
+    ids, dists, hops = _query_batch_sharded(di, q, qlo, qhi, p, scorer,
+                                            exact_scorer)
+    shard = torch.arange(di.num_shards, device=ids.device)[:, None, None]
+    gids = _local_to_global(ids, shard, di.num_shards)
+    return gids, torch.where(gids >= 0, dists,
+                             torch.full_like(dists, _INF)), hops
+
+
+def _fan_in(per_shard, S: int, k: int):
+    """Merge a list of S per-shard (local ids, dists) top-k lists: ids to
+    global (int64), distances of -1 lanes to +inf, then ``_merge_topk``."""
+    gi, gd = [], []
+    for s, (ids, dd) in enumerate(per_shard):
+        g = _local_to_global(ids.to(torch.int64), s, S)
+        gi.append(g)
+        gd.append(torch.where(g >= 0, dd, torch.full_like(dd, _INF)))
+    return _merge_topk(torch.stack(gi), torch.stack(gd), k)
 
 
 def make_search_fn(p: SearchParams, *, dist_fn=None,
@@ -616,19 +756,35 @@ def make_search_fn(p: SearchParams, *, dist_fn=None,
     return search
 
 
-def _as_device_index(index, device) -> DeviceIndex:
-    if isinstance(index, DeviceIndex):
+def _is_sharded(index) -> bool:
+    """Duck-typed ``sharded.ShardedKHI`` check (sharded.py imports this
+    module)."""
+    return hasattr(index, "offsets") and hasattr(index, "di")
+
+
+def _as_device_index(index, device):
+    """A ``DeviceIndex`` or a ``ShardedKHI`` as it is; a host index
+    flattened onto ``device``."""
+    if isinstance(index, DeviceIndex) or _is_sharded(index):
         return index
-    if hasattr(index, "offsets") and hasattr(index, "di"):
-        raise _todo("sharded indexes", "13")
     return device_put_index(index, device=device)
+
+
+def _shard_counts(di: DeviceIndex) -> np.ndarray:
+    """(S,) int64 real rows per shard, each its tree root's count: the
+    rows past it are padding (S = 1 for a plain index)."""
+    if not di.stacked:
+        return np.asarray([int(di.count[di.root])], np.int64)
+    root = torch.as_tensor(di.root, device=di.count.device)
+    return di.count[torch.arange(len(di.root), device=root.device),
+                    root].cpu().numpy().astype(np.int64)
 
 
 def search_batch(index_or_di, queries: np.ndarray, preds,
                  params: SearchParams, *, dist_fn=None, device=None,
                  on_undersized: str = "adjust"):
-    """Host API: a host index or a DeviceIndex plus a list of
-    ``Predicate``s -> numpy (ids int32, dists, hops int32). A legacy
+    """Host API: a host index, a DeviceIndex or a ShardedKHI plus a list
+    of ``Predicate``s -> numpy (ids int32, dists, hops int32). A legacy
     ``dist_fn(q, rows)`` overrides the graph path's scorer."""
     di = _as_device_index(index_or_di, device)
     qlo = np.stack([pr.lo for pr in preds]).astype(np.float32)
@@ -781,21 +937,30 @@ class Planner:
     routing bound comes from ``HostCardEstimator`` through a plan cache
     keyed on the box bytes plus ``plan_salt``. ``search_expr`` serves a
     predicate expression. A legacy ``dist_fn(q, rows)`` override
-    changes the graph path's scoring only (the scan is exact)."""
+    changes the graph path's scoring only (the scan is exact).
+
+    Over a ``ShardedKHI`` every program fans out over the shards and
+    merges by ``_merge_topk`` into global ids: the graph lanes walk all
+    shards in one batch (hops the max over shards), the scan, window and
+    bitmask programs run once per shard on its NaN-masked rows, and the
+    routing bound sums one estimator per shard, each with its own
+    tombstones."""
 
     def __init__(self, index, params: SearchParams, *, dist_fn=None,
                  device=None, on_undersized: str = "adjust",
                  plan_cache: Optional["collections.OrderedDict"] = None,
                  plan_salt: bytes = b""):
-        di = _as_device_index(index, device)
+        index = _as_device_index(index, device)
+        self._sharded = _is_sharded(index)
+        di = index.di if self._sharded else index
         self.params = p = validate_search_params(params, di,
                                                  on_undersized=on_undersized)
         # a quantized search streams the replica: derive it here when the
         # caller handed a bare f32 index
-        di = _with_replica_for(di, p.quant)
-        self.index = di
+        self._bind(index, _with_replica_for(di, p.quant))
         self.device = di.device
-        self.n_total = int(di.count[di.root])
+        self._n_shard = _shard_counts(di)
+        self.n_total = int(self._n_shard.sum())
         self.scan_threshold = int(p.scan_threshold) or max(
             1, int(DEFAULT_SCAN_FRAC * self.n_total))
         self._build_scan_attrs()
@@ -817,44 +982,74 @@ class Planner:
         # fallback's mask is evaluated over, fetched on first use
         self._host_scan_attrs: Optional[np.ndarray] = None
 
+    def _bind(self, index, di: DeviceIndex) -> None:
+        """Install ``index`` with ``di`` (its replica attached) as its
+        DeviceIndex: ``self.index`` is what the caller handed (a
+        ShardedKHI stays one), ``self._di`` the (stacked) tensors."""
+        self._di = di
+        self.index = (dataclasses.replace(index, di=di) if self._sharded
+                      else di)
+
+    def _shards(self):
+        """The per-shard DeviceIndex views (one for a plain index)."""
+        di = self._di
+        return ([di.shard(s) for s in range(di.num_shards)] if di.stacked
+                else [di])
+
+    def _by_order(self, x: torch.Tensor) -> torch.Tensor:
+        """Rows of ``x`` ((S,) n, c) in each shard's DFS order."""
+        di = self._di
+        if not di.stacked:
+            return x[di.order].contiguous()
+        return torch.stack([x[s][di.order[s]]
+                            for s in range(di.num_shards)])
+
     def _build_pos_replica(self) -> None:
         """Position-ordered copies of the scan corpus: row i is the object
         at DFS rank i (``order[i]``), so an antichain node's objects are
         the contiguous slice ``[start, start + count)``. The attrs come
         from ``_scan_attrs``, so padded rows and tombstones stay NaN.
         Always f32: window lanes scan exactly whatever ``quant`` is."""
-        di = self.index
-        self._pos_vecs = di.vecs[di.order].contiguous()
-        self._pos_attrs = self._scan_attrs[di.order].contiguous()
+        self._pos_vecs = self._by_order(self._di.vecs)
+        self._pos_attrs = self._by_order(self._scan_attrs)
 
     def _build_scan_attrs(self) -> None:
-        """The scan's attrs: padded rows (none unless the caller padded
-        the index) get NaN, which fails every box, so a scan never
+        """The scan's attrs: padded rows (shard stacking pads every shard
+        to the largest) get NaN, which fails every box, so a scan never
         returns them."""
-        di = self.index
-        valid = torch.arange(di.attrs.shape[0], device=self.device) \
-            < self.n_total
-        self._scan_attrs = torch.where(valid[:, None], di.attrs,
+        di = self._di
+        n_real = torch.as_tensor(self._n_shard, device=self.device)
+        valid = torch.arange(di.n, device=self.device) < n_real[:, None]
+        if not di.stacked:
+            valid = valid[0]
+        self._scan_attrs = torch.where(valid[..., None], di.attrs,
                                        torch.full_like(di.attrs, np.nan))
 
     def _build_estimators(self, deleted_rows=None):
-        """The routing-bound estimator from host copies of the tree.
-        ``deleted_rows``, the row ids of streaming tombstones (DESIGN.md
-        §11), subtracts the dead rows from each node's count, so the
-        bound covers live rows only."""
+        """One routing-bound estimator per shard from host copies of its
+        tree. ``deleted_rows``, the row ids of streaming tombstones
+        (DESIGN.md §11; a list of per-shard local ids on a sharded index),
+        subtracts the dead rows from each node's count, so the bound
+        covers live rows only."""
         from .router import deleted_per_node
 
-        di = self.index
-        host = {f: getattr(di, f).cpu().numpy()
-                for f in ("left", "right", "dim", "bl", "lo", "hi", "count")}
-        count = host["count"].astype(np.int64)
-        if deleted_rows is not None and np.asarray(deleted_rows).size:
-            count = count - deleted_per_node(
-                di.order[:self.n_total].cpu().numpy(),
-                di.start.cpu().numpy(), count, deleted_rows)
-        return [HostCardEstimator(host["left"], host["right"], host["dim"],
-                                  host["bl"], host["lo"], host["hi"],
-                                  count, di.root, device=self.device)]
+        if deleted_rows is not None and not self._sharded:
+            deleted_rows = [deleted_rows]
+        ests = []
+        for s, di in enumerate(self._shards()):
+            host = {f: getattr(di, f).cpu().numpy()
+                    for f in ("left", "right", "dim", "bl", "lo", "hi",
+                              "count")}
+            count = host["count"].astype(np.int64)
+            if deleted_rows is not None and np.asarray(
+                    deleted_rows[s]).size:
+                count = count - deleted_per_node(
+                    di.order[:int(self._n_shard[s])].cpu().numpy(),
+                    di.start.cpu().numpy(), count, deleted_rows[s])
+            ests.append(HostCardEstimator(
+                host["left"], host["right"], host["dim"], host["bl"],
+                host["lo"], host["hi"], count, di.root, device=self.device))
+        return ests
 
     def refresh_index(self, index, *, deleted_rows=None) -> None:
         """Rebind to a copy of the installed index with the same shapes,
@@ -863,21 +1058,26 @@ class Planner:
         copy lacks it, rebuilds the scan attrs, the estimators (with
         ``deleted_rows``' tombstone-adjusted counts) and, under hybrid,
         the position-ordered attrs alone (the vectors did not change),
-        and clears the plan cache. A new epoch needs a new Planner."""
-        if not isinstance(index, DeviceIndex):
-            raise TypeError("refresh_index takes a DeviceIndex of the same "
-                            "shapes as the installed one")
-        if index.attrs.shape != self.index.attrs.shape \
-                or index.vecs.shape != self.index.vecs.shape:
+        and clears the plan cache. A new epoch needs a new Planner.
+        ``deleted_rows`` is a list of per-shard local row ids on a sharded
+        index, as ``StreamingState.deleted_locals`` gives it."""
+        if not isinstance(index, DeviceIndex) and not _is_sharded(index):
+            raise TypeError("refresh_index takes a DeviceIndex or a "
+                            "ShardedKHI of the same shapes as the installed "
+                            "one")
+        di = index.di if _is_sharded(index) else index
+        if _is_sharded(index) != self._sharded \
+                or di.attrs.shape != self._di.attrs.shape \
+                or di.vecs.shape != self._di.vecs.shape:
             raise ValueError("refresh_index requires identical index shapes"
                              " (use a new Planner for a new epoch)")
-        self.index = _with_replica_for(index, self.params.quant)
+        self._bind(index, _with_replica_for(di, self.params.quant))
         self._build_scan_attrs()
         self._host_scan_attrs = None
         if self.params.strategy in ("auto", "hybrid"):
             self._estimators = self._build_estimators(deleted_rows)
         if self.params.strategy == "hybrid":
-            self._pos_attrs = self._scan_attrs[index.order].contiguous()
+            self._pos_attrs = self._by_order(self._scan_attrs)
         self._plan_cache.clear()
 
     def _cards(self, qlo: np.ndarray, qhi: np.ndarray) -> np.ndarray:
@@ -932,17 +1132,26 @@ class Planner:
         mode[(n_large > 0) & (n_small > 0)] = 2        # mixed
         return Plan(card=card, use_scan=(mode == 1),
                     threshold=self.scan_threshold, node_threshold=thr,
-                    mode=mode, n_windows=n_small, small_nodes=[pairs])
+                    mode=mode, n_windows=n_small, small_nodes=pairs)
 
     def _classify_nodes(self, qlo: np.ndarray, qhi: np.ndarray, thr: int):
         """Per lane, the antichain's small (0 < count <= thr) and large
-        (count > thr) node counts as numpy int64 (B,), and the small
-        nodes as device (lane, node) int64 pairs, by lane then node. The
-        antichain is evaluated on the device one chunk of lanes at a time
-        (the estimator's ``chunk_elems`` bound), and only the pairs leave
-        each chunk."""
-        est = self._estimators[0]
-        cnt = self.index.count.to(est.device)
+        (count > thr) node counts over every shard as numpy int64 (B,),
+        and per shard the small nodes as device (lane, node) int64 pairs,
+        by lane then node."""
+        n_small, n_large, pairs = 0, 0, []
+        for est, di in zip(self._estimators, self._shards()):
+            a, b, pr = self._classify_shard(est, di, qlo, qhi, thr)
+            n_small, n_large = n_small + a, n_large + b
+            pairs.append(pr)
+        return n_small, n_large, pairs
+
+    def _classify_shard(self, est, di, qlo, qhi, thr: int):
+        """``_classify_nodes`` for one shard's estimator. The antichain is
+        evaluated on the device one chunk of lanes at a time (the
+        estimator's ``chunk_elems`` bound), and only the pairs leave each
+        chunk."""
+        cnt = di.count.to(est.device)
         small_node = (cnt > 0) & (cnt <= thr)
         large_node = cnt > thr
         P = cnt.shape[0]
@@ -979,15 +1188,15 @@ class Planner:
         idx_t = torch.as_tensor(np.asarray(idx, np.int64), device=dev)
         srt = torch.argsort(idx_t)
         idx_s = idx_t[srt]
-        n_pos = int(self.index.order.shape[0]) + 1
+        n_pos = self._di.n + 1
         per_shard = []
         max_w, max_c = 1, 1
-        for lane, node in small_nodes:
+        for (lane, node), di in zip(small_nodes, self._shards()):
             at = torch.searchsorted(idx_s, lane).clamp_max(idx_s.numel() - 1)
             hit = idx_s[at] == lane
             row = srt[at[hit]]
-            st = self.index.start[node[hit]]
-            ct = self.index.count[node[hit]]
+            st = di.start[node[hit]]
+            ct = di.count[node[hit]]
             keep = ct > 0
             row, st, ct = row[keep], st[keep], ct[keep]
             o = torch.argsort(row * n_pos + st)        # (row, start)
@@ -1015,11 +1224,21 @@ class Planner:
         report hops = 0. The port's kernel reads only the rows inside
         each window, so it needs no ``w_cap`` padding of the corpus."""
         q, ql, qh = self._tensors(qs, lo, hi)
-        ids, dd = _windows_one(self._pos_vecs, self._pos_attrs,
-                               self.index.order, q, ql, qh,
-                               starts[0].contiguous(),
-                               counts[0].contiguous(), self.params.k,
-                               use_kernel=self._use_kernel)
+        k = self.params.k
+        if not self._sharded:
+            ids, dd = _windows_one(self._pos_vecs, self._pos_attrs,
+                                   self._di.order, q, ql, qh,
+                                   starts[0].contiguous(),
+                                   counts[0].contiguous(), k,
+                                   use_kernel=self._use_kernel)
+        else:
+            ids, dd = _fan_in(
+                [_windows_one(self._pos_vecs[s], self._pos_attrs[s],
+                              self._di.order[s], q, ql, qh,
+                              starts[s].contiguous(), counts[s].contiguous(),
+                              k, use_kernel=self._use_kernel)
+                 for s in range(self._di.num_shards)],
+                self._di.num_shards, k)
         return (ids.to(torch.int32).cpu().numpy(), dd.cpu().numpy(),
                 np.zeros(qs.shape[0], np.int32))
 
@@ -1043,17 +1262,33 @@ class Planner:
                 for a in arrays]
 
     def _run_graph(self, qs, lo, hi):
+        """The graph program; on a sharded index every shard's walk,
+        merged, with each lane's hops the max over shards."""
         q, ql, qh = self._tensors(qs, lo, hi)
-        ids, dists, hops = _query_batch(self.index, q, ql, qh, self.params,
-                                        self._scorer, self._exact)
+        p = self.params
+        if not self._sharded:
+            ids, dists, hops = _query_batch(self._di, q, ql, qh, p,
+                                            self._scorer, self._exact)
+        else:
+            gids, dists, hops = _shard_search(self._di, q, ql, qh, p,
+                                              self._scorer, self._exact)
+            ids, dists = _merge_topk(gids, dists, p.k)
+            hops = hops.amax(0)
         return (ids.to(torch.int32).cpu().numpy(), dists.cpu().numpy(),
                 hops.to(torch.int32).cpu().numpy())
 
     def _run_scan(self, qs, lo, hi):
+        """The exact scan program, once per shard on a sharded index."""
         q, ql, qh = self._tensors(qs, lo, hi)
-        ids, dists = _scan_shard_topk(self.index, self._scan_attrs, q, ql,
-                                      qh, self.params,
-                                      use_kernel=self._use_kernel)
+        p, S = self.params, self._di.num_shards
+        if not self._sharded:
+            ids, dists = _scan_shard_topk(self._di, self._scan_attrs, q, ql,
+                                          qh, p, use_kernel=self._use_kernel)
+        else:
+            ids, dists = _fan_in(
+                [_scan_shard_topk(di, self._scan_attrs[s], q, ql, qh, p,
+                                  use_kernel=self._use_kernel)
+                 for s, di in enumerate(self._shards())], S, p.k)
         return (ids.to(torch.int32).cpu().numpy(), dists.cpu().numpy(),
                 np.zeros(qs.shape[0], np.int32))
 
@@ -1133,9 +1368,17 @@ class Planner:
         qs = queries if bp == B else np.concatenate(
             [queries, np.zeros((bp - B,) + queries.shape[1:], np.float32)])
         q, = self._tensors(qs)
-        ids, dd = _mask_scan_one(self.index.vecs,
-                                 torch.as_tensor(mask).to(self.device), q,
-                                 self.params.k, use_kernel=self._use_kernel)
+        mask = torch.as_tensor(mask).to(self.device)
+        k = self.params.k
+        if not self._sharded:
+            ids, dd = _mask_scan_one(self._di.vecs, mask, q, k,
+                                     use_kernel=self._use_kernel)
+        else:
+            ids, dd = _fan_in(
+                [_mask_scan_one(self._di.vecs[s], mask[s], q, k,
+                                use_kernel=self._use_kernel)
+                 for s in range(self._di.num_shards)],
+                self._di.num_shards, k)
         return (ids.to(torch.int32).cpu().numpy()[:B], dd.cpu().numpy()[:B],
                 np.zeros(B, np.int32))
 
@@ -1165,7 +1408,7 @@ class Planner:
 
         queries = np.ascontiguousarray(queries, np.float32)
         p = self.params
-        m = int(self.index.attrs.shape[-1])
+        m = int(self._di.attrs.shape[-1])
         prog = compile_expr(expr, m, box_budget=p.box_budget)
         B, k = queries.shape[0], p.k
         lanes = {"graph": 0, "scan": 0, "window": 0}

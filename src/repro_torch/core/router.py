@@ -385,7 +385,10 @@ def deleted_per_node(order: np.ndarray, start: np.ndarray,
 
 def required_frontier_cap(di) -> int:
     """Smallest frontier width that can never drop a branch: the max node
-    count over tree levels."""
+    count over tree levels (of every shard of a stacked index)."""
+    if di.stacked:
+        return max(required_frontier_cap(di.shard(s))
+                   for s in range(di.num_shards))
     left = di.left.cpu().numpy()
     right = di.right.cpu().numpy()
     frontier = np.asarray([int(di.root)], dtype=np.int64)

@@ -26,7 +26,10 @@ the SLO scheduler (DESIGN.md §13) with a bursty open-loop replay under
 ``--inject`` faults, at the policy ``--slo-ms``, ``--qdepth`` and
 ``--degrade-ladder`` set, and checks its accounting: nothing dropped,
 the tiers summing to the served total, the injected faults and retries
-reconciled with the injector's log.
+reconciled with the injector's log. ``--shards S`` (S > 1) builds the
+corpus as S round-robin shards (``build_sharded``) and serves the
+stacked index through the same service, every path above included; the
+collective ``--mesh`` of the reference is not ported yet.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import numpy as np
 def serve_khi(args):
     from repro_torch.core import KHIConfig, KHIIndex, SearchParams
     from repro_torch.core.engine import device_put_index
+    from repro_torch.core.sharded import build_sharded
     from repro_torch.core.util import resolve_device
     from repro_torch.data import DatasetSpec, make_dataset, make_queries
     from repro_torch.serve import KHIService, Request, ServeConfig
@@ -50,8 +54,16 @@ def serve_khi(args):
                        attr_corr=0.6)
     vecs, attrs = make_dataset(spec)
     cfg = KHIConfig(M=16, builder="device")
-    print(f"[serve] building KHI over n={args.n} d={args.d} on {dev}")
-    index = KHIIndex.build(vecs, attrs, cfg, device=dev)
+    print(f"[serve] building KHI over n={args.n} d={args.d} on {dev} "
+          f"shards={args.shards}")
+    if args.shards > 1:
+        index = build_sharded(vecs, attrs, args.shards, cfg, device=dev)
+        print(f"[serve] {args.shards} shards of at most "
+              f"{index.di.n} rows; pad waste (rows, nodes, levels) "
+              f"{tuple(round(w, 4) for w in index.pad_waste)}")
+    else:
+        index = device_put_index(KHIIndex.build(vecs, attrs, cfg,
+                                                device=dev), device=dev)
     params = SearchParams(k=10, ef=args.ef, c_e=10, c_n=16,
                           backend=args.backend,
                           expand_width=args.expand_width,
@@ -61,8 +73,7 @@ def serve_khi(args):
                           node_scan_threshold=args.node_scan_threshold,
                           box_budget=args.box_budget)
     buckets = tuple(sorted({1, 8, args.batch}))
-    svc = KHIService(device_put_index(index, device=dev), params,
-                     config=ServeConfig(buckets=buckets))
+    svc = KHIService(index, params, config=ServeConfig(buckets=buckets))
 
     Q, preds = make_queries(vecs, attrs, n_queries=args.batch * args.iters,
                             sigma=1 / 16, seed=1)
@@ -315,6 +326,9 @@ def main(argv=None):
                     help="drive the SLO scheduler with a bursty replay under "
                          "--inject faults and check its no-drop and retry "
                          "accounting")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="serve a corpus of this many round-robin shards "
+                         "(1 = one index)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' for the plain "
                          "versions)")

@@ -32,8 +32,12 @@ one compressed replica serves every quantized tier, and the result cache
 key carries the tier. ``serve/scheduler.py`` steps batches down the
 ladder under load.
 
-Mesh serving and sharded indexes are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+Sharded corpora (``core/sharded.py``): a ``ShardedKHI`` is served by the
+same planners, which fan every program out over its shards and merge
+into global ids; streaming keeps one delta per shard and ``compact``
+rebuilds through ``build_sharded``. Mesh serving (the collective
+fan-out) is not ported yet and raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -47,11 +51,12 @@ from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..core.delta import StreamingState
-from ..core.engine import (DeviceIndex, Planner, SearchParams, _merge_dedup,
-                           _todo, _with_replica_for, device_put_index,
-                           validate_search_params)
+from ..core.engine import (DeviceIndex, Planner, SearchParams, _is_sharded,
+                           _merge_dedup, _todo, _with_replica_for,
+                           device_put_index, validate_search_params)
 from ..core.khi import KHIConfig, KHIIndex
 from ..core.predicate import canonical_key, compile_expr, validate_expr
+from ..core.sharded import build_sharded
 from ..core.util import resolve_device
 
 __all__ = ["ServeConfig", "Request", "Result", "KHIService"]
@@ -112,7 +117,8 @@ class Result:
 
 class KHIService:
     """Micro-batching, caching front-end over one KHI index (a host
-    ``KHIIndex`` or a ``DeviceIndex``) on ``device`` (default ``cuda``).
+    ``KHIIndex``, a ``DeviceIndex`` or a ``ShardedKHI``) on ``device``
+    (default ``cuda``).
     A legacy ``dist_fn(q, rows)`` overrides the graph path's scorer of
     every planner the service builds."""
 
@@ -124,7 +130,8 @@ class KHIService:
             raise ValueError(f"on_undersized must be raise|adjust|ignore, "
                              f"got {on_undersized!r}")
         if mesh is not None:
-            raise _todo("mesh serving", "13")
+            raise _todo("mesh serving (the collective fan-out over "
+                        "torch.distributed)", "13")
         self._tier_user: Tuple[SearchParams, ...] = (
             params or SearchParams(),) + tuple(tiers)
         self._check_tiers(self._tier_user)
@@ -192,19 +199,21 @@ class KHIService:
         the one compressed replica any tier wants (once per epoch), and
         reset the per-tier planners, which share one plan cache. Tier 0's
         planner is built here, the others on first use."""
-        if not isinstance(index, DeviceIndex):
-            if hasattr(index, "offsets") and hasattr(index, "di"):
-                raise _todo("sharded indexes", "13")
+        self._sharded = _is_sharded(index)
+        if not self._sharded and not isinstance(index, DeviceIndex):
             index = device_put_index(index, device=resolve_device(
                 self._device))
+        di = index.di if self._sharded else index
         self._tier_params: Tuple[SearchParams, ...] = tuple(
-            validate_search_params(up, index,
+            validate_search_params(up, di,
                                    on_undersized=self._on_undersized)
             for up in self._tier_user)
         self.params = self._tier_params[0]
         quants = {p.quant for p in self._tier_params if p.quant != "none"}
         if quants:
-            index = _with_replica_for(index, quants.pop())
+            di = _with_replica_for(di, quants.pop())
+            index = (dataclasses.replace(index, di=di) if self._sharded
+                     else di)
         self.index = index
         self._plan_cache: "collections.OrderedDict[bytes, int]" = (
             collections.OrderedDict())
@@ -240,12 +249,17 @@ class KHIService:
         return self._planners[0]
 
     @property
+    def _di(self) -> DeviceIndex:
+        """The installed index's tensors (stacked over a sharded one)."""
+        return self.index.di if self._sharded else self.index
+
+    @property
     def d(self) -> int:
-        return self.index.vecs.shape[-1]
+        return self._di.vecs.shape[-1]
 
     @property
     def m(self) -> int:
-        return self.index.attrs.shape[-1]
+        return self._di.attrs.shape[-1]
 
     def _get_planner(self, tier: int) -> Planner:
         """``tier``'s planner, built on first use: an unused ladder step
@@ -504,11 +518,11 @@ class KHIService:
                          build_config: Optional[KHIConfig] = None
                          ) -> StreamingState:
         """Turn on the streaming write path (DESIGN.md §11): a delta
-        segment of ``capacity`` rows on the index's device, tombstoned
-        deletes and ``compact()`` epoch publishing. Answers switch to
-        stable int64 external ids (the seed corpus keeps ``0..n-1``).
-        ``build_config`` is what compaction rebuilds with, by default the
-        device builder."""
+        segment of ``capacity`` rows per shard on the index's device,
+        tombstoned deletes and ``compact()`` epoch publishing. Answers
+        switch to stable int64 external ids (the seed corpus keeps
+        ``0..n-1``). ``build_config`` is what compaction rebuilds with, by
+        default the device builder."""
         if self._stream is not None:
             raise RuntimeError("streaming is already enabled")
         # the delta is scanned by the box-scan kernel whatever kernel
@@ -549,7 +563,7 @@ class KHIService:
             if not st.fits(b):
                 raise ValueError(
                     f"insert batch of {b} rows cannot fit the per-shard "
-                    f"delta capacity {st.delta.capacity} even after "
+                    f"delta capacity {st.deltas[0].capacity} even after "
                     f"compaction")
         exts = st.insert(vecs, attrs)
         self.stats["inserts"] += b
@@ -578,9 +592,10 @@ class KHIService:
         return n_del
 
     def compact(self) -> dict:
-        """Fold the delta and the tombstones into a fresh epoch: gather
+        """Fold the deltas and the tombstones into a fresh epoch: gather
         the live corpus, rebuild it with the stored build config on the
-        service's device, publish it through ``swap_index`` (queued
+        service's device (through ``build_sharded`` over as many shards
+        as before, when sharded), publish it through ``swap_index`` (queued
         requests flush against the old, delta-merged view first), then
         rebind the ext mapping. Returns the drained {ticket: Result}."""
         st = self._require_stream()
@@ -589,10 +604,14 @@ class KHIService:
         if not vecs.shape[0]:
             raise ValueError("cannot compact an index down to zero live "
                              "rows (delete less or rebuild explicitly)")
-        dev = self.index.device
-        new_index = device_put_index(
-            KHIIndex.build(vecs, attrs, st.build_config, device=dev),
-            device=dev)
+        dev = self._di.device
+        if st.S > 1:
+            new_index = build_sharded(vecs, attrs, st.S, st.build_config,
+                                      device=dev)
+        else:
+            new_index = device_put_index(
+                KHIIndex.build(vecs, attrs, st.build_config, device=dev),
+                device=dev)
         self._compacting = True
         try:
             drained = self.swap_index(new_index)
@@ -619,6 +638,6 @@ class KHIService:
         if self._stream is not None:
             s["streaming"] = True
             s["n_live"] = self._stream.n_live
-            s["delta_fill"] = [self._stream.delta.size]
+            s["delta_fill"] = [seg.size for seg in self._stream.deltas]
             s["tombstones"] = int(self._stream.base_deleted.sum())
         return s

@@ -700,3 +700,60 @@ def test_cuda_scan_and_rerank_bit_equal_at_delta_shapes():
             for B in (1, 37, 256):
                 case(N, 96, live, B, ((N,) if N <= 64 else ()) + (10, 40))
     case(131072, 768, 65536, 256, (10, 40))
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_fanout_matches_plain_versions():
+    """The sharded index on the card: a 1/32-grid corpus (d = 32, every
+    distance exact) built by ``build_sharded`` into 3 shards of unequal
+    size, served by the kernels (``pallas_gather_l2_filter``) and by the
+    plain versions (``jnp``) on the same stacked index, under the graph
+    fan-out (ids and per-shard hops), scan, auto, hybrid and the bitmask
+    expression: ids and distances equal, and every kernel of the path
+    launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    from repro_torch.core import KHIConfig, engine, sharded
+    from repro_torch.core.predicate import parse_expr
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(31)
+    n, d, B = 3001, 32, 40
+    vecs = _grid(rng, (n, d))
+    attrs = rng.integers(0, 16, size=(n, 3)).astype(np.float32)
+    skhi = sharded.build_sharded(vecs, attrs, 3, KHIConfig(M=16,
+                                                           builder="device"),
+                                 device=dev)
+    assert skhi.pad_waste[0] > 0
+    q = _grid(rng, (B, d))
+    lo = rng.integers(0, 8, size=(B, 3)).astype(np.float32)
+    hi = lo + rng.integers(3, 12, size=(B, 3)).astype(np.float32)
+    lo[::4], hi[::4] = -1.0, 16.0                      # wide: graph lanes
+
+    def params(backend, **kw):
+        return engine.SearchParams(k=10, ef=48, c_n=16, expand_width=4,
+                                   backend=backend, scan_threshold=300,
+                                   node_scan_threshold=40, **kw)
+
+    ops.reset_launches()
+    got = sharded.search_sharded_emulated(
+        skhi, q, lo, hi, params("pallas_gather_l2_filter"))
+    want = sharded.search_sharded_emulated(skhi, q, lo, hi, params("jnp"))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert got[2].shape == (3, B) and ops.LAUNCHES["gather_l2_filter"] > 0
+    expr = parse_expr("a0 in [1, 3, 5, 7, 9, 11, 13, 15, 17, 19] and "
+                      "a1 <= 9", 3)
+    for strategy in ("scan", "auto", "hybrid"):
+        ops.reset_launches()
+        pk = engine.Planner(skhi, params("pallas_gather_l2_filter",
+                                         strategy=strategy))
+        pj = engine.Planner(skhi, params("jnp", strategy=strategy))
+        for a, b in zip(pk.search(q, lo, hi)[:3], pj.search(q, lo, hi)[:3]):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(pk.search_expr(q, expr)[:3],
+                        pj.search_expr(q, expr)[:3]):
+            np.testing.assert_array_equal(a, b)
+        want_k = {"scan": "scan_topk", "auto": "scan_topk",
+                  "hybrid": "scan_topk_windows"}[strategy]
+        assert ops.LAUNCHES[want_k] > 0 and ops.LAUNCHES["scan_topk_mask"] > 0

@@ -130,9 +130,14 @@ def test_make_search_fn_and_unported_options(tiny_index):
     assert (ids >= 0).all() and (hops > 0).all()
     for backend in ("pallas_l2", "pallas_gather_l2"):
         assert teng.resolve_scorer(backend).name == backend
-    with pytest.raises(NotImplementedError, match="item 13"):
-        teng.Planner(type("Sharded", (), {"offsets": 0, "di": di})(),
-                     _params(teng))
+    # a sharded index (item 13) is served: one shard answers as the index
+    # itself does (tests/test_torch_sharded.py holds S > 1 to the reference)
+    from repro_torch.core.sharded import stack_shards
+    one = stack_shards([tiny_index], device="cpu")
+    got = teng.Planner(one, _params(teng)).search(q, lo, hi)
+    want = teng.Planner(di, _params(teng)).search(q, lo, hi)
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(a, b)
     # hybrid and predicate expressions are ported (tests/test_torch_hybrid.py,
     # tests/test_torch_predicate.py): an empty expression answers nothing
     from repro_torch.core.predicate import Range

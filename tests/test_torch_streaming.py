@@ -160,10 +160,10 @@ def _jax_compact(js):
 
 
 def _run_interleaving(seed, strategy="scan", n_ops=12, n0=96, capacity=32,
-                      **kw):
+                      pair_cls=None, **kw):
     rng = np.random.default_rng(seed)
     vecs, attrs = _grid_vecs(rng, n0), _grid_attrs(rng, n0)
-    pair = Pair(vecs, attrs, capacity, strategy=strategy, **kw)
+    pair = (pair_cls or Pair)(vecs, attrs, capacity, strategy=strategy, **kw)
     pair.check(np.random.default_rng(seed ^ 0xA5))
     for step in range(n_ops):
         op = ("insert", "dup", "delete", "delete", "query",
