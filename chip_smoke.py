@@ -8,7 +8,11 @@ khi-serve shard's widths on the card and serves mixed-selectivity bursts
 through the auto planner, checking the answers; then serves the same
 bursts again on the quantized score path, quant="int8" and then
 quant="bf16", from a replica attached to the same index; then with
-strategy="hybrid" (per-node windows + graph walk); then two filter
+strategy="hybrid" (per-node windows + graph walk); then the collective
+sharded search (``mesh_pass``): NCCL at world size 1 over the same index
+as one shard, serving the same bursts under auto, hybrid and int8 through
+KHIService(mesh=), each held bit for bit to the single service's answers,
+its device-side routing held to the planner's; then two filter
 expressions through Request(expr=...) under "auto" and "hybrid" (one
 lowers to 3 disjoint boxes, one to the bitmask scan); then with
 strategy="graph" under every scoring backend it takes (the fused filter
@@ -47,8 +51,9 @@ graph pass holds the unfused gather's walk to the fused one's bit for
 bit, pallas_l2's to it on ids and recall, and the DFS router to the same
 file's numpy DFS. Launch counts are reset before each served path (the
 f32 build + serve, the int8 pass, the bf16 pass, the hybrid pass, the
-predicate pass, each graph configuration, the SLO pass's open loop and
-its int8 tier) and read after it; the public
+predicate pass, each graph configuration, each of the mesh pass's
+served runs, the SLO pass's open loop and its int8 tier) and read after
+it; the public
 wrappers' rescoring of the graph pass's answers is counted apart, and
 so is each streaming service's served run.
 
@@ -1029,7 +1034,8 @@ def main_path(n: int, n_full: int, dev, rows: dict) -> None:
     # ---- checks against an exact brute force on the card
     ids = np.stack([r.ids for r in results])
     dists = np.stack([r.dists for r in results])
-    use_scan = svc._planner.plan(lo, hi).use_scan
+    main_plan = svc._planner.plan(lo, hi)
+    use_scan = main_plan.use_scan
     qt = torch.as_tensor(Q).to(dev)
     tl = torch.as_tensor(lo).to(dev)
     th = torch.as_tensor(hi).to(dev)
@@ -1050,15 +1056,23 @@ def main_path(n: int, n_full: int, dev, rows: dict) -> None:
     ref_ent = graph_checks(index, di, svc, Q, lo, hi, ids, use_scan, t_ids,
                            t_d, cfg, dev)
     trace_programs("f32", di, svc.params, Q, lo, hi, split_lanes(use_scan))
+    single = svc._planner
     del svc
     mark("the main path's serving and checks")
+    served = {"auto": (ids, dists)}
     for quant in ("int8", "bf16"):
-        quant_pass(quant, index, di, params, cfg, Q, lo, hi, serve_bursts,
-                   use_scan, t_ids, ref_ent, dev, rows)
+        served[quant] = quant_pass(quant, index, di, params, cfg, Q, lo, hi,
+                                   serve_bursts, use_scan, t_ids, ref_ent,
+                                   dev, rows)
         mark(f"the {quant} pass")
-    hybrid_pass(index, di, params, cfg, Q, lo, hi, perm >= nq, serve_bursts,
-                ids, use_scan, t_ids, t_d, dev, rows)
+    served["hybrid"] = hybrid_pass(index, di, params, cfg, Q, lo, hi,
+                                   perm >= nq, serve_bursts, ids, use_scan,
+                                   t_ids, t_d, dev, rows)
     mark("the hybrid pass")
+    mesh_pass(di, params, cfg, Q, lo, hi, serve_bursts, main_plan.card,
+              served, single, dev, rows)
+    del served, single
+    mark("the mesh pass")
     predicate_pass(index, di, params, cfg, Q, sizes, dev, rows)
     mark("the predicate pass")
     graph_pass(index, di, params, cfg, Q, lo, hi, perm >= nq, serve_bursts,
@@ -1257,6 +1271,30 @@ HAND_KERNELS = {
     "l2dist_qc": ("l2dist_qc_kernel", "l2dist_qc")}
 
 
+def profile_once(fn):
+    """Run ``fn`` once under torch.profiler, then synchronize. -> (wall s,
+    main-thread CPU s, the device-side events as (key, self ms, count),
+    the device-side event names). Device-side events only (kernels,
+    copies, NCCL's): an operator's own entry repeats the device time of
+    the kernels it launched, so nothing counts twice."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0, c0 = time.perf_counter(), time.thread_time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cpu = time.thread_time() - c0
+    evs = [(e.key, e.self_device_time_total / 1e3, e.count)
+           for e in prof.key_averages() if e.device_type != DeviceType.CPU
+           and e.self_device_time_total > 0]
+    dev_names = [e.name for e in prof.events()
+                 if e.device_type != DeviceType.CPU]
+    return wall, cpu, evs, dev_names
+
+
 def trace_programs(tag, di, p, Q, lo, hi, parts, planner=None) -> None:
     """Where a served batch's time goes: for each (strategy, lanes) of
     ``parts``, that strategy's program over those lanes, run once to warm
@@ -1272,30 +1310,16 @@ def trace_programs(tag, di, p, Q, lo, hi, parts, planner=None) -> None:
     served bf16 scan program loses its scan's), the line says so, and the
     program runs once more with CUDA events around the wrappers of the
     missing kernels, whose time is printed beside the profiler's."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.engine import Planner
     from repro_torch.kernels import ops
 
     def traced(pl, lanes):
         saved = dict(ops.LAUNCHES)
         ops.reset_launches()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0, c0 = time.perf_counter(), time.thread_time()
-            pl.search(Q[lanes], lo[lanes], hi[lanes])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            cpu = time.thread_time() - c0
+        wall, cpu, evs, dev_names = profile_once(
+            lambda: pl.search(Q[lanes], lo[lanes], hi[lanes]))
         launched = {k: v for k, v in ops.LAUNCHES.items() if v}
         ops.LAUNCHES.update(saved)
-        # device-side events only: an operator's own entry repeats the
-        # device time of the kernels it launched
-        evs = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages() if e.device_type != DeviceType.CPU
-               and e.self_device_time_total > 0]
-        dev_names = [e.name for e in prof.events()
-                     if e.device_type != DeviceType.CPU]
         return wall, cpu, evs, launched, dev_names
 
     def timed_wrappers(pl, lanes, names):
@@ -1368,13 +1392,14 @@ QUANT_KERNELS = {"int8": ("gather_l2_filter_q8", "scan_topk_q8"),
 
 
 def quant_pass(quant, index, di, params, cfg, Q, lo, hi, serve_bursts,
-               use_scan, t_ids, ref_ent, dev, rows) -> None:
+               use_scan, t_ids, ref_ent, dev, rows):
     """The quantized serving path on the index already built: attach the
     replica on the card, serve the same warm-up pass and requests in the
     same bursts through KHIService, check the launches and the answers
     (graph-lane recall against the f32 brute force, scan lanes against
     the f32 truth), and for int8 hold the replica, the graph lanes and
-    the scan lanes to smoke_reference.py's numpy int8 path."""
+    the scan lanes to smoke_reference.py's numpy int8 path. Returns the
+    served (ids, dists)."""
     import smoke_reference as sref
     from repro_torch.core.engine import Planner, with_quant_replica
     from repro_torch.kernels import ops, ref
@@ -1440,7 +1465,7 @@ def quant_pass(quant, index, di, params, cfg, Q, lo, hi, serve_bursts,
           flush=True)
     trace_programs(quant, dq, svc.params, Q, lo, hi, split_lanes(use_scan))
     if quant != "int8":
-        return
+        return ids, dists
 
     # ---- the int8 path against smoke_reference.py (numpy only)
     t0 = time.perf_counter()
@@ -1491,10 +1516,11 @@ def quant_pass(quant, index, di, params, cfg, Q, lo, hi, serve_bursts,
           flush=True)
     check(same_scan >= 0.95 * len(ss),
           "int8: the scan lanes disagree with the numpy reference")
+    return ids, dists
 
 
 def hybrid_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts,
-                auto_ids, auto_scan, t_ids, t_d, dev, rows) -> None:
+                auto_ids, auto_scan, t_ids, t_d, dev, rows):
     """strategy="hybrid" on the index already built, at the cell's node
     threshold (0: the scan threshold, 10% of n), where every served lane
     takes windows only, and at a hundredth of it, where lanes mix windows
@@ -1509,7 +1535,8 @@ def hybrid_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts,
     lane must reach at least the recall of the graph strategy's own walk
     on it (the merged answer holds the walk's top-k; the windows only add
     exact rows). Mixed lanes' recall beside the auto pass's is printed.
-    Launch counts are those of the cell's threshold."""
+    Launch counts are those of the cell's threshold. Returns the cell
+    threshold's served (ids, dists) and its plan of the requests."""
     import smoke_reference as sref
     from repro_torch.core.engine import Planner
     from repro_torch.kernels import ops, ref
@@ -1609,6 +1636,8 @@ def hybrid_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts,
         ids = np.stack([r.ids for r in results])
         dists = np.stack([r.dists for r in results])
         check_served(ids, dists, index.vecs, index.attrs, Q, lo, hi, tag)
+        if node_thr == 0:
+            cell = (ids, dists, plan)
 
         # pure-window lanes: the f32 truth; the numpy reference on the
         # 1/64 ones (the 1/4 lanes' windows cover ~16x more rows)
@@ -1669,6 +1698,7 @@ def hybrid_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts,
         trace_programs(f"hybrid {thr}", di, svc.params, Q, lo, hi,
                        [("hybrid", np.arange(len(Q)))], planner=pl)
         del svc, pl
+    return cell
 
 
 def masked_truth(vecs, mask, Q, k: int, dev):
@@ -2094,6 +2124,218 @@ def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
 
 
 # -------------------------------------------------------------- the SLO
+
+MESH_HALVING = (8, 256, 10)     # the simulated halving stack (S, B, k)
+
+
+def profiled(fn):
+    """(wall ms, summed device-side ms) of the second of two calls of
+    ``fn``, the second under ``profile_once``."""
+    fn()
+    torch.cuda.synchronize()
+    wall, _, evs, _ = profile_once(fn)
+    return wall * 1e3, sum(t for _, t, _ in evs)
+
+
+def mesh_pass(di, params, cfg, Q, lo, hi, serve_bursts, card, served,
+              single, dev, rows) -> None:
+    """The collective sharded search (``make_sharded_search_fn``) on the
+    card: NCCL at world size 1 (``file://`` rendezvous in a temporary
+    directory) over ``stack_shards([index])``, a view of the main path's
+    1M index as one shard, so the global ids are the local ones. Checks
+    ``route_level_card`` against the main planner's bound on every lane;
+    serves the same warm-up pass and bursts through ``KHIService(mesh=)``
+    at the config (auto), at hybrid at the cell threshold and with
+    quant="int8", each held id for id and bit for bit to the single
+    service's answers of the main path, the hybrid pass and the int8 pass,
+    with its launches counted over the served run alone; holds
+    ``route_level_windows`` to the hybrid pass's planner on every lane;
+    times one 256-lane batch through the collective and through the
+    single planner; and simulates the halving rounds on the card on a
+    ``MESH_HALVING`` stack with planted ties against ``_merge_topk``.
+    ``single`` is the main path's planner. Destroys the process group."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.core import router
+    from repro_torch.core.sharded import (_merge_topk, _pair_merge_k,
+                                          merge_bytes_per_device,
+                                          stack_shards)
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import (init_query_process_group,
+                                         make_query_mesh)
+    from repro_torch.serve import KHIService, ServeConfig
+
+    t_pass = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mesh_")
+    t0 = time.perf_counter()
+    mdev = init_query_process_group(dev, init_method=f"file://{tmp}/rdv",
+                                    rank=0, world_size=1, timeout_s=300)
+    try:
+        mesh = make_query_mesh(1, 1)
+        check(mesh.backend == "nccl" and mesh.device.type == "cuda",
+              f"the mesh runs on {mesh.backend} / {mesh.device}, not NCCL on "
+              f"the card")
+        skhi = stack_shards([di])
+        check(skhi.di.vecs.data_ptr() == di.vecs.data_ptr(),
+              "stack_shards copied the one shard")
+        print(f"[mesh] NCCL process group of 1 rank on {mdev} in "
+              f"{time.perf_counter() - t0:.2f}s; mesh {mesh.shape}; "
+              f"stack_shards([index]) is a view of the main path's index; "
+              f"merge bytes a row at the reference's 16 shards: halving "
+              f"{merge_bytes_per_device(cfg.k, 16, 'halving')}, all-gather "
+              f"{merge_bytes_per_device(cfg.k, 16, 'allgather')}",
+              flush=True)
+        scfg = ServeConfig(buckets=cfg.buckets, cache_size=cfg.cache_size)
+        tl = torch.as_tensor(lo).to(dev)
+        th = torch.as_tensor(hi).to(dev)
+
+        def serve_checked(tag, p, want, kernels):
+            t0 = time.perf_counter()
+            svc = KHIService(skhi, p, config=scfg, mesh=mesh)
+            fn = svc._get_search_fn(0)
+            setup_s = time.perf_counter() - t0
+            serve_bursts(svc, Q + np.float32(1e-3))    # warm-up, other keys
+            ops.reset_launches()
+            ref.reset_calls()
+            before = svc.snapshot()
+            t0 = time.perf_counter()
+            results = serve_bursts(svc, Q)
+            dt = time.perf_counter() - t0
+            after = svc.snapshot()
+            launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+            plain_cuda = {k: v["cuda"] for k, v in ref.CALLS.items()}
+            ids = np.stack([r.ids for r in results])
+            dists = np.stack([r.dists for r in results])
+            same_i = (ids == want[0]).all(1)
+            same_d = (dists.view(np.uint32) == want[1].view(np.uint32)).all(1)
+            ds = after["device_seconds"] - before["device_seconds"]
+            print(f"[mesh {tag}] {len(results)} requests in {dt:.3f}s "
+                  f"({len(results) / dt:.1f} QPS end-to-end; "
+                  f"{after['batches'] - before['batches']} collective "
+                  f"batches over {ds:.3f}s); setup {setup_s:.2f}s (merge "
+                  f"{fn.merge}, static {fn.static}); ids equal to the single "
+                  f"service's on {int(same_i.sum())} of {len(ids)} lanes, "
+                  f"dists bit-equal on {int(same_d.sum())}; launches "
+                  f"{launches}; plain-version CUDA calls {plain_cuda}",
+                  flush=True)
+            check(bool(same_i.all() and same_d.all()),
+                  f"[mesh {tag}] the collective's answers differ from the "
+                  f"single service's")
+            check(all(v == 0 for v in plain_cuda.values()),
+                  f"[mesh {tag}] fell through to a plain version")
+            for name in kernels:
+                check(launches.get(name, 0) > 0,
+                      f"[mesh {tag}] {name} was never launched")
+                rows[name].setdefault("mesh_launches", {})[tag] = \
+                    launches.get(name, 0)
+            return svc, fn
+
+        # ---- the config: auto, the fused gather, level router, E = 4
+        svc, fn = serve_checked("auto", params, served["auto"],
+                                ("gather_l2_filter", "scan_topk"))
+        p = svc.params
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = router.route_level_card(skhi.di.shard(0), tl, th, p)
+        torch.cuda.synchronize()
+        same = int((got.cpu().numpy() == card).sum())
+        print(f"[mesh] route_level_card: equal to the planner's bound on "
+              f"{same} of {len(Q)} lanes ({(time.perf_counter() - t0) * 1e3:.1f}"
+              f" ms for the batch on the card)", flush=True)
+        check(same == len(Q), "route_level_card differs from the planner's "
+              "bound")
+        b = cfg.buckets[-1]
+        m_wall, m_dev = profiled(lambda: fn(skhi, Q[:b], lo[:b], hi[:b]))
+        s_wall, s_dev = profiled(lambda: single.search(Q[:b], lo[:b],
+                                                       hi[:b]))
+        print(f"[mesh] one {b}-lane batch: collective wall {m_wall:.1f} ms, "
+              f"device-side {m_dev:.1f} ms (idle "
+              f"{100 * max(0.0, 1 - m_dev / m_wall):.1f}%); the single "
+              f"planner's (plan cache warm) wall {s_wall:.1f} ms, "
+              f"device-side {s_dev:.1f} ms (idle "
+              f"{100 * max(0.0, 1 - s_dev / s_wall):.1f}%)", flush=True)
+        del svc, fn
+
+        # ---- hybrid at the cell threshold: the windows, then the answers
+        h_ids, h_d, plan = served["hybrid"]
+        svc, fn = serve_checked(
+            "hybrid", dataclasses.replace(params, strategy="hybrid",
+                                          node_scan_threshold=0),
+            (h_ids, h_d), ("scan_topk_windows",))
+        st = fn.static
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c, n_small, n_large, wst, wct = router.route_level_windows(
+            skhi.di.shard(0), tl, th, svc.params, node_thr=st["node_thr"],
+            W=st["W"])
+        torch.cuda.synchronize()
+        w_s = time.perf_counter() - t0
+        lane, node = plan.small_nodes[0]
+        e_st, e_ct = di.start[node], di.count[node]
+        keep = e_ct > 0
+        lane, e_st, e_ct = lane[keep], e_st[keep], e_ct[keep]
+        o = torch.argsort(lane * (di.n + 1) + e_st)
+        lane, e_st, e_ct = lane[o], e_st[o], e_ct[o]
+        nz = torch.nonzero(wct > 0)
+        g_lane, g_st, g_ct = nz[:, 0], wst[wct > 0], wct[wct > 0]
+        same_w = (g_lane.numel() == lane.numel()
+                  and torch.equal(g_lane, lane)
+                  and torch.equal(g_st.long(), e_st)
+                  and torch.equal(g_ct.long(), e_ct))
+        same_n = int((n_small.cpu().numpy() == plan.n_windows).sum())
+        same_c = int((c.cpu().numpy() == plan.card).sum())
+        print(f"[mesh] route_level_windows (node_thr {st['node_thr']}, W "
+              f"{st['W']}, returned {wst.shape[1]} wide): card equal on "
+              f"{same_c}, window counts on {same_n} of {len(Q)} lanes; "
+              f"{g_lane.numel()} windows, the planner's {lane.numel()}, "
+              f"equal: {same_w}; large nodes {int(n_large.sum())}; "
+              f"{w_s * 1e3:.1f} ms for the batch", flush=True)
+        check(same_w and same_n == len(Q) and same_c == len(Q),
+              "route_level_windows differs from the planner's windows")
+        del svc, fn, wst, wct
+
+        # ---- the int8 tier
+        svc, fn = serve_checked("int8", dataclasses.replace(params,
+                                                            quant="int8"),
+                                served["int8"],
+                                ("gather_l2_filter_q8", "scan_topk_q8"))
+        del svc, fn
+
+        # ---- the halving rounds, simulated on the card
+        S, B, k = MESH_HALVING
+        g = torch.Generator().manual_seed(5)
+        dd = torch.randint(0, 6, (S, B, k), generator=g).float().sort(
+            -1).values
+        gi = torch.randint(0, 1 << 20, (S, B, k), generator=g)
+        dd[:, :, -2:], gi[:, :, -2:] = float("inf"), -1
+        dd, gi = dd.to(dev), gi.to(dev)
+        t = (torch.arange(S, device=dev)[:, None, None] * k
+             + torch.arange(k, device=dev)).expand(S, B, k).to(torch.int32)
+        ids, d = gi.to(torch.int32), dd
+        for rnd in range(S.bit_length() - 1):
+            perm = [s ^ (1 << rnd) for s in range(S)]
+            out = [_pair_merge_k(ids[s], d[s], t[s], ids[perm[s]],
+                                 d[perm[s]], t[perm[s]], k)
+                   for s in range(S)]
+            ids, d, t = (torch.stack([o[j] for o in out]) for j in range(3))
+        ei, ed = _merge_topk(gi, dd, k)
+        ok = sum(torch.equal(ids[s].long(), ei) and torch.equal(d[s], ed)
+                 for s in range(S))
+        ties = int(((ed[:, 1:] == ed[:, :-1]) & torch.isfinite(ed[:, 1:]))
+                   .sum())
+        print(f"[mesh] halving simulation on the card, (S, B, k) = "
+              f"{MESH_HALVING}: {ok} of {S} ranks end bit-equal to "
+              f"_merge_topk ({ties} tied neighbours in its answer)",
+              flush=True)
+        check(ok == S and ties > 0, "the halving rounds differ from "
+              "_merge_topk")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[mesh] pass {time.perf_counter() - t_pass:.1f}s", flush=True)
+
 
 SHARDS = 4
 SHARD_INSERTS = 16_384

@@ -1,7 +1,9 @@
 """khi-serve: the paper's own serving configuration, as in
 ``repro.configs.khi_serve`` — a 1M-object shard (d=768, m=4 attrs, M=32)
-served with batched RFANNS queries through the auto planner. The port
-serves one shard on one card; sharding is ROADMAP item 13."""
+served with batched RFANNS queries through the auto planner. The
+reference serves 16 such shards on a (data, model) mesh; the port serves
+them through ``core/sharded.py`` (one process, or the collective over
+``torch.distributed``, one rank a card)."""
 
 import dataclasses
 from typing import Tuple

@@ -1,9 +1,30 @@
 """KHI on PyTorch: the partitioning tree, the device graph builder, the
-batched two-phase search and the selectivity-adaptive planner."""
+batched two-phase search and the selectivity-adaptive planner. The names
+are the reference package's (``repro.core``) where the port has them."""
 
 from .khi import KHIConfig, KHIIndex  # noqa: F401
-from .query_ref import Predicate, brute_force  # noqa: F401
+from .query_ref import (  # noqa: F401
+    Predicate,
+    StreamingOracle,
+    brute_force,
+    brute_force_expr,
+)
+from .predicate import (  # noqa: F401
+    And,
+    Eq,
+    In,
+    Not,
+    Or,
+    Range,
+    PredicateProgram,
+    compile_expr,
+    eval_expr,
+    normalize,
+    parse_expr,
+    validate_expr,
+)
 from .build_device import build_graphs_device  # noqa: F401
+from .delta import DeltaSegment, StreamingState  # noqa: F401
 from .engine import (  # noqa: F401
     BACKENDS,
     ROUTERS,
@@ -11,6 +32,7 @@ from .engine import (  # noqa: F401
     DeviceIndex,
     Plan,
     Planner,
+    PredicatePlan,
     Scorer,
     SearchParams,
     derive_search_params,

@@ -80,12 +80,6 @@ DEFAULT_SCAN_FRAC = 0.1
 _INF = float("inf")
 
 
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md Queue 1 "
-        f"item {item})")
-
-
 @dataclasses.dataclass
 class DeviceIndex:
     """KHI flattened onto tensors of one device."""
@@ -552,14 +546,20 @@ def resolve_scorer_pair(p: SearchParams, *,
 _ID_LAST = np.iinfo(np.int32).max
 
 
+def _lexsort2(minor: torch.Tensor, major: torch.Tensor) -> torch.Tensor:
+    """Row-wise stable order by ``major``, ties by ``minor`` (numpy's
+    ``lexsort((minor, major), axis=-1)``)."""
+    o = torch.argsort(minor, dim=-1, stable=True)
+    return o.gather(-1, torch.argsort(major.gather(-1, o), dim=-1,
+                                      stable=True))
+
+
 def _lex_topk(ids: torch.Tensor, dists: torch.Tensor, k: int):
     """Top-k of (dists, ids) under the (dist, id) order: ascending
     distance, ties to the lowest id, -1 lanes last; ids become -1
     wherever the kept distance is +inf. (..., C) with C >= k."""
     key_id = torch.where(ids >= 0, ids, torch.full_like(ids, _ID_LAST))
-    o = torch.argsort(key_id, dim=-1, stable=True)
-    o = o.gather(-1, torch.argsort(dists.gather(-1, o), dim=-1, stable=True))
-    o = o[..., :k]
+    o = _lexsort2(key_id, dists)[..., :k]
     d = dists.gather(-1, o)
     i = ids.gather(-1, o)
     return torch.where(torch.isinf(d), torch.full_like(i, -1), i), d
@@ -707,10 +707,20 @@ def _merge_topk(gids: torch.Tensor, dists: torch.Tensor, k: int):
 
 
 def _shard_search(di: DeviceIndex, q, qlo, qhi, p: SearchParams,
-                  scorer: Scorer, exact_scorer: Optional[Scorer] = None):
+                  scorer: Scorer, exact_scorer: Optional[Scorer] = None, *,
+                  shard: Optional[int] = None,
+                  n_shards: Optional[int] = None):
     """Every shard's graph walk over a stacked index: -> global ids (S,
     B, k) int64 (-1 kept), dists (S, B, k) with +inf on -1 lanes, hops
-    (S, B)."""
+    (S, B). Over one shard as a plain index (a collective rank's, as the
+    reference's ``_shard_search`` takes it) pass its ``shard`` id and
+    ``n_shards``: -> ids and dists (B, k), hops (B,)."""
+    if not di.stacked:
+        ids, dists, hops = _query_batch(di, q, qlo, qhi, p, scorer,
+                                        exact_scorer)
+        gids = _local_to_global(ids, shard, n_shards)
+        return gids, torch.where(gids >= 0, dists,
+                                 torch.full_like(dists, _INF)), hops
     ids, dists, hops = _query_batch_sharded(di, q, qlo, qhi, p, scorer,
                                             exact_scorer)
     shard = torch.arange(di.num_shards, device=ids.device)[:, None, None]
@@ -883,6 +893,29 @@ def _merge_dedup(ids_a: np.ndarray, d_a: np.ndarray, ids_b: np.ndarray,
     out_i = np.take_along_axis(key, o2, axis=1)
     out_i = np.where(np.isinf(out_d), -1, out_i).astype(out_dtype)
     return out_i, out_d
+
+
+def _merge_dedup_jnp(ids_a: torch.Tensor, d_a: torch.Tensor,
+                     ids_b: torch.Tensor, d_b: torch.Tensor, k: int):
+    """The device twin of ``_merge_dedup`` that the collective hybrid
+    program runs (DESIGN.md §14): the same two stable lexsort passes on
+    tensors, ids int32 out. Global ids fit int32, so the pad key is
+    i32max (the numpy form's int64 changes no comparison)."""
+    ids = torch.cat([ids_a, ids_b], 1).to(torch.int64)
+    d = torch.cat([d_a, d_b], 1).to(torch.float32)
+    key = torch.where(ids >= 0, ids, torch.full_like(ids, _ID_LAST))
+    o1 = _lexsort2(d, key)                  # id-major, best dist first
+    key = key.gather(1, o1)
+    d = d.gather(1, o1)
+    dup = torch.zeros_like(key, dtype=torch.bool)
+    dup[:, 1:] = (key[:, 1:] == key[:, :-1]) & (key[:, 1:] != _ID_LAST)
+    d = torch.where(dup, torch.full_like(d, _INF), d)
+    key = torch.where(dup, torch.full_like(key, _ID_LAST), key)
+    o2 = _lexsort2(key, d)[:, :k]           # (dist, id) rank, take k
+    out_d = d.gather(1, o2)
+    out_i = key.gather(1, o2)
+    return (torch.where(torch.isinf(out_d), torch.full_like(out_i, -1),
+                        out_i).to(torch.int32), out_d)
 
 
 @dataclasses.dataclass

@@ -33,6 +33,12 @@ through the same first-hit window scan as the level router, so no dense
 visited prefix of the antichain, so it is no cardinality bound: the
 planner's ``auto`` and ``hybrid`` need the level router.
 
+``route_level_card`` and ``route_level_windows`` are the collective
+sharded search's device-side planner (DESIGN.md §14): the same sweep
+without entry scans, giving each lane's cardinality bound and, for
+``hybrid``, its small nodes' windows, so every rank of a model group
+can sum its shard's numbers and take the same branch.
+
 ``HostCardEstimator`` keeps the reference's closed-form node-parallel
 computation, with torch tensors on a chosen device and lanes processed
 in chunks, so no ``(B, P)`` plane is built whole at a 1M-object shard.
@@ -45,8 +51,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .util import pow2_at_least
+
 __all__ = ["ROUTERS", "resolve_router", "route_dfs", "route_level_sync",
-           "HostCardEstimator", "deleted_per_node", "required_frontier_cap"]
+           "route_level_card", "route_level_windows", "HostCardEstimator",
+           "deleted_per_node", "required_frontier_cap"]
 
 ROUTERS = ("level", "dfs")
 
@@ -140,34 +149,49 @@ def _first_hits(di, qlo, qhi, lane, node, SB: int) -> torch.Tensor:
     return out
 
 
-def route_level_sync(di, qlo: torch.Tensor, qhi: torch.Tensor, p):
-    """(B, m) boxes -> (entries (B, c_e) int64, -1 padded, DFS order;
-    card (B,) int64 in-range cardinality bound)."""
+def _level_sweep(di, qlo: torch.Tensor, qhi: torch.Tensor, p, on_scan
+                 ) -> torch.Tensor:
+    """The level-synchronous sweep shared by the three level routers: from
+    the root, one ``_frontier_step`` a level over the lane-major frontier,
+    each level's scanned nodes added to the lanes' in-range cardinality
+    bound and handed to ``on_scan(s_lane, s_node)``. -> card (B,) int64."""
     F = p.frontier_cap
     _require_frontier(F)
     B, m = qlo.shape
     full = (1 << m) - 1
-    H = di.nbrs.shape[1]
-    n = di.order.shape[0]
     dev = qlo.device
     lane = torch.arange(B, device=dev)
     node = torch.full((B,), int(di.root), dtype=torch.int64, device=dev)
     fD = _root_D0(di, qlo, qhi)
     card = torch.zeros(B, dtype=torch.int64, device=dev)
-    hit_lane, hit_key, hit_ent = [], [], []
-    for _ in range(H):
+    for _ in range(di.nbrs.shape[1]):
         if not lane.numel():
             break
         do_scan, n_lane, n_node, n_D = _frontier_step(
             di, qlo, qhi, full, F, lane, node, fD)
         s_lane, s_node = lane[do_scan], node[do_scan]
         card.index_add_(0, s_lane, di.count[s_node])
+        on_scan(s_lane, s_node)
+        lane, node, fD = n_lane, n_node, n_D
+    return card
+
+
+def route_level_sync(di, qlo: torch.Tensor, qhi: torch.Tensor, p):
+    """(B, m) boxes -> (entries (B, c_e) int64, -1 padded, DFS order;
+    card (B,) int64 in-range cardinality bound)."""
+    B = qlo.shape[0]
+    n = di.order.shape[0]
+    dev = qlo.device
+    hit_lane, hit_key, hit_ent = [], [], []
+
+    def entry_scans(s_lane, s_node):
         e = _first_hits(di, qlo, qhi, s_lane, s_node, p.scan_budget)
         got = e >= 0
         hit_lane.append(s_lane[got])
         hit_ent.append(e[got])
         hit_key.append(n - (di.start[s_node[got]] + di.count[s_node[got]]))
-        lane, node, fD = n_lane, n_node, n_D
+
+    card = _level_sweep(di, qlo, qhi, p, entry_scans)
     entries = torch.full((B, p.c_e), -1, dtype=torch.int64, device=dev)
     if hit_lane:
         hl = torch.cat(hit_lane)
@@ -181,6 +205,77 @@ def route_level_sync(di, qlo: torch.Tensor, qhi: torch.Tensor, p):
         sel = rank < p.c_e
         entries[hl[sel], rank[sel]] = he[sel]
     return entries, card
+
+
+def route_level_card(di, qlo: torch.Tensor, qhi: torch.Tensor, p
+                     ) -> torch.Tensor:
+    """(B, m) boxes -> card (B,) int64: ``route_level_sync``'s in-range
+    cardinality bound without the entry scans (the reference's
+    estimate-only sweep, which it vmaps over lanes; here one sweep for the
+    batch). The collective ``auto`` dispatch sums it over the shards."""
+    return _level_sweep(di, qlo, qhi, p, lambda s_lane, s_node: None)
+
+
+def route_level_windows(di, qlo: torch.Tensor, qhi: torch.Tensor, p, *,
+                        node_thr: int, W: int):
+    """The ``route_level_card`` sweep that also splits each lane's scanned
+    antichain by raw node count into small (``0 < count <= node_thr``)
+    and large (``count > node_thr``) nodes and collects the small nodes'
+    DFS extents as windows. -> (card, n_small, n_large (B,) int64,
+    starts, counts (B, Wb) int32): each lane's windows ascending by start,
+    pad slots (-1, 0).
+
+    ``W`` is the reference's static bound: a lane keeps its first ``W``
+    small nodes in sweep order (level, then frontier slot), the
+    reference's overflow clamp, which the collective's W (derived from the
+    shards' counts) never reaches. The reference returns all ``W``
+    columns; here ``Wb`` is the smallest power of two that holds the
+    widest lane's windows (at most ``W``): the columns past it are pads
+    in the reference's too. (At a 1M-object shard the static W is ~2^20,
+    and (B, W) planes of it would not fit a card.) ``n_small`` counts
+    every small node, kept or not, as the reference's does."""
+    B = qlo.shape[0]
+    dev = qlo.device
+    n_small = torch.zeros(B, dtype=torch.int64, device=dev)
+    n_large = torch.zeros(B, dtype=torch.int64, device=dev)
+    w_lane, w_start, w_count = [], [], []
+
+    def split(s_lane, s_node):
+        cnt = di.count[s_node]
+        small = (cnt > 0) & (cnt <= node_thr)
+        n_small.index_add_(0, s_lane, small.to(torch.int64))
+        n_large.index_add_(0, s_lane, (cnt > node_thr).to(torch.int64))
+        w_lane.append(s_lane[small])
+        w_start.append(di.start[s_node[small]])
+        w_count.append(cnt[small])
+
+    card = _level_sweep(di, qlo, qhi, p, split)
+
+    def ranks(lanes):
+        per = torch.bincount(lanes, minlength=B)
+        return torch.arange(lanes.numel(), device=dev) \
+            - (torch.cumsum(per, 0) - per)[lanes], per
+
+    if w_lane:
+        wl, ws, wc = torch.cat(w_lane), torch.cat(w_start), torch.cat(w_count)
+    else:
+        wl = ws = wc = torch.zeros(0, dtype=torch.int64, device=dev)
+    # each level's small nodes are lane-major: a stable sort by lane puts
+    # every lane's in sweep order, where the clamp keeps the first W
+    o = torch.argsort(wl, stable=True)
+    wl, ws, wc = wl[o], ws[o], wc[o]
+    keep = ranks(wl)[0] < W
+    wl, ws, wc = wl[keep], ws[keep], wc[keep]
+    # antichain extents are disjoint: starts are unique within a lane
+    o = torch.argsort(wl * (di.order.shape[0] + 1) + ws)
+    wl, ws, wc = wl[o], ws[o], wc[o]
+    rank, per = ranks(wl)
+    Wb = min(int(W), pow2_at_least(int(per.max()) if B else 0))
+    starts = torch.full((B, Wb), -1, dtype=torch.int32, device=dev)
+    counts = torch.zeros((B, Wb), dtype=torch.int32, device=dev)
+    starts[wl, rank] = ws.to(torch.int32)
+    counts[wl, rank] = wc.to(torch.int32)
+    return card, n_small, n_large, starts, counts
 
 
 def route_dfs(di, qlo: torch.Tensor, qhi: torch.Tensor, p, *,

@@ -28,8 +28,25 @@ the SLO scheduler (DESIGN.md §13) with a bursty open-loop replay under
 the tiers summing to the served total, the injected faults and retries
 reconciled with the injector's log. ``--shards S`` (S > 1) builds the
 corpus as S round-robin shards (``build_sharded``) and serves the
-stacked index through the same service, every path above included; the
-collective ``--mesh`` of the reference is not ported yet.
+stacked index through the same service, every path above included.
+``--mesh`` serves the S shards through the collective program
+(``make_sharded_search_fn``) on a ``(1, S)`` query mesh, one process a
+shard under ``torchrun`` (``env://`` rendezvous): NCCL on
+``cuda:LOCAL_RANK``, or gloo with ``--device cpu``. Every rank makes the
+same data and queries from the seed, builds the whole sharded index and
+serves the same requests in the same order; each then checks its answers
+against the one-process fan-out (``search_sharded_emulated``) on the
+index it holds, and rank 0 prints. The filter-expression, streaming and
+load smokes do not run under ``--mesh``: the service refuses the first
+two on a mesh, as the reference does, and the scheduler forms its
+batches by arrival time, which differs between ranks.
+
+    torchrun --nproc-per-node 2 -m -- repro_torch.launch.serve --mode khi \
+        --n 1500 --d 32 --batch 16 --device cpu --shards 2 --mesh
+
+The ``--`` after ``-m`` keeps torchrun versions whose parser takes
+``--n`` and ``--d`` for abbreviations of its own options from reading
+the launcher's.
 """
 
 from __future__ import annotations
@@ -41,26 +58,55 @@ import numpy as np
 
 
 def serve_khi(args):
+    """Build, serve and smoke-test as the module docstring says; with
+    ``--mesh`` inside the rank's process group, which it ends."""
+    if not args.mesh:
+        return _serve(args, None)
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import (init_query_process_group,
+                                         make_query_mesh)
+
+    for flag in ("filter_expr", "stream_smoke", "load_smoke"):
+        if getattr(args, flag):
+            raise ValueError(f"--{flag.replace('_', '-')} does not run under "
+                             f"--mesh (see the module docstring)")
+    init_query_process_group(args.device)
+    try:
+        snap = _serve(args, make_query_mesh(max(args.shards, 1), 1))
+        dist.barrier()
+        return snap
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve(args, mesh):
     from repro_torch.core import KHIConfig, KHIIndex, SearchParams
     from repro_torch.core.engine import device_put_index
-    from repro_torch.core.sharded import build_sharded
+    from repro_torch.core.sharded import (build_sharded,
+                                          search_sharded_emulated)
     from repro_torch.core.util import resolve_device
     from repro_torch.data import DatasetSpec, make_dataset, make_queries
     from repro_torch.serve import KHIService, Request, ServeConfig
 
-    dev = resolve_device(args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    # under a mesh every rank runs this; rank 0 prints
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
+    S = max(args.shards, 1)
     spec = DatasetSpec("serve", n=args.n, d=args.d, m=3, seed=0,
                        attr_kinds=("year", "lognormal", "uniform"),
                        attr_corr=0.6)
     vecs, attrs = make_dataset(spec)
     cfg = KHIConfig(M=16, builder="device")
-    print(f"[serve] building KHI over n={args.n} d={args.d} on {dev} "
-          f"shards={args.shards}")
-    if args.shards > 1:
-        index = build_sharded(vecs, attrs, args.shards, cfg, device=dev)
-        print(f"[serve] {args.shards} shards of at most "
-              f"{index.di.n} rows; pad waste (rows, nodes, levels) "
-              f"{tuple(round(w, 4) for w in index.pad_waste)}")
+    say(f"[serve] building KHI over n={args.n} d={args.d} on {dev} "
+        f"shards={S}" + ("" if mesh is None else
+                         f" (every rank); collective mesh {mesh.shape} "
+                         f"over {mesh.backend}"))
+    if S > 1 or mesh is not None:
+        index = build_sharded(vecs, attrs, S, cfg, device=dev)
+        say(f"[serve] {S} shards of at most {index.di.n} rows; pad waste "
+            f"(rows, nodes, levels) "
+            f"{tuple(round(w, 4) for w in index.pad_waste)}")
     else:
         index = device_put_index(KHIIndex.build(vecs, attrs, cfg,
                                                 device=dev), device=dev)
@@ -73,7 +119,8 @@ def serve_khi(args):
                           node_scan_threshold=args.node_scan_threshold,
                           box_budget=args.box_budget)
     buckets = tuple(sorted({1, 8, args.batch}))
-    svc = KHIService(index, params, config=ServeConfig(buckets=buckets))
+    svc = KHIService(index, params, config=ServeConfig(buckets=buckets),
+                     mesh=mesh)
 
     Q, preds = make_queries(vecs, attrs, n_queries=args.batch * args.iters,
                             sigma=1 / 16, seed=1)
@@ -87,16 +134,29 @@ def serve_khi(args):
     results = list(svc.serve_stream(reqs))
     dt = time.perf_counter() - t0
     snap = svc.snapshot()
-    print(f"[serve] {len(results)} requests in {dt:.2f}s "
-          f"({len(results)/dt:.0f} QPS end-to-end; "
-          f"device {snap['device_qps'] and round(snap['device_qps'])} QPS)")
-    print(f"[serve] backend={args.backend} E={args.expand_width} "
-          f"router={args.router} strategy={args.strategy} "
-          f"quant={args.quant} "
-          f"batches={snap['batches']} "
-          f"scan_lanes={snap['scan_lanes']} pad_lanes={snap['pad_lanes']} "
-          f"cache_hits={snap['cache_hits']} "
-          f"buckets={snap['traced_buckets']}")
+    say(f"[serve] {len(results)} requests in {dt:.2f}s "
+        f"({len(results)/dt:.0f} QPS end-to-end; "
+        f"device {snap['device_qps'] and round(snap['device_qps'])} QPS)")
+    say(f"[serve] backend={args.backend} E={args.expand_width} "
+        f"router={args.router} strategy={args.strategy} "
+        f"quant={args.quant} "
+        f"batches={snap['batches']} "
+        f"scan_lanes={snap['scan_lanes']} pad_lanes={snap['pad_lanes']} "
+        f"cache_hits={snap['cache_hits']} "
+        f"buckets={snap['traced_buckets']}")
+    if mesh is not None:
+        # every rank holds the whole index: the one-process fan-out on it
+        ids = np.stack([r.ids for r in results])
+        dists = np.stack([r.dists for r in results])
+        e_ids, e_d, _ = search_sharded_emulated(svc.index, Q, lo, hi,
+                                                svc.params)
+        if not (np.array_equal(ids, e_ids) and np.array_equal(dists, e_d)):
+            raise AssertionError(
+                f"rank {mesh.rank}: the collective's answers differ from "
+                f"the one-process fan-out's on "
+                f"{int((ids != e_ids).any(1).sum())} lanes")
+        say(f"[serve] merge={svc._get_search_fn(0).merge} on {S} ranks; "
+            f"every rank's answers equal the one-process fan-out's")
     if args.filter_expr:
         filter_expr_smoke(svc, vecs, attrs, Q, args)
         snap = svc.snapshot()
@@ -329,6 +389,11 @@ def main(argv=None):
     ap.add_argument("--shards", type=int, default=1,
                     help="serve a corpus of this many round-robin shards "
                          "(1 = one index)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="serve the --shards shards through the collective "
+                         "program on a (1, shards) query mesh, one rank a "
+                         "shard under torchrun (NCCL on the cards, gloo "
+                         "with --device cpu)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' for the plain "
                          "versions)")

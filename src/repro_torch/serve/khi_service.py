@@ -35,9 +35,18 @@ ladder under load.
 Sharded corpora (``core/sharded.py``): a ``ShardedKHI`` is served by the
 same planners, which fan every program out over its shards and merge
 into global ids; streaming keeps one delta per shard and ``compact``
-rebuilds through ``build_sharded``. Mesh serving (the collective
-fan-out) is not ported yet and raises ``NotImplementedError`` naming its
-ROADMAP item.
+rebuilds through ``build_sharded``.
+
+Mesh serving (DESIGN.md §14): with ``mesh=`` (``launch.mesh.
+make_query_mesh``) every tier's micro-batches run through its own
+collective program (``sharded.make_sharded_search_fn``), whose dispatch
+runs inside the collective, so there is no host ``Plan`` and
+``scan_lanes`` is not tracked. The service runs as one program on every
+rank (SPMD, as ``torchrun`` runs it): each rank must drive the same
+requests in the same order, so that every rank forms the same batches
+from the same cache; each batch's agreement check turns a rank out of
+step into an error. ``search_expr`` and streaming refuse a mesh, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -52,7 +61,7 @@ import numpy as np
 
 from ..core.delta import StreamingState
 from ..core.engine import (DeviceIndex, Planner, SearchParams, _is_sharded,
-                           _merge_dedup, _todo, _with_replica_for,
+                           _merge_dedup, _with_replica_for,
                            device_put_index, validate_search_params)
 from ..core.khi import KHIConfig, KHIIndex
 from ..core.predicate import canonical_key, compile_expr, validate_expr
@@ -118,9 +127,10 @@ class Result:
 class KHIService:
     """Micro-batching, caching front-end over one KHI index (a host
     ``KHIIndex``, a ``DeviceIndex`` or a ``ShardedKHI``) on ``device``
-    (default ``cuda``).
+    (default ``cuda``); with ``mesh=`` a ``ShardedKHI`` served by the
+    collective program on every rank of the mesh.
     A legacy ``dist_fn(q, rows)`` overrides the graph path's scorer of
-    every planner the service builds."""
+    every planner or collective program the service builds."""
 
     def __init__(self, index, params: Optional[SearchParams] = None, *,
                  config: Optional[ServeConfig] = None, mesh=None,
@@ -129,9 +139,7 @@ class KHIService:
         if on_undersized not in ("raise", "adjust", "ignore"):
             raise ValueError(f"on_undersized must be raise|adjust|ignore, "
                              f"got {on_undersized!r}")
-        if mesh is not None:
-            raise _todo("mesh serving (the collective fan-out over "
-                        "torch.distributed)", "13")
+        self._mesh = mesh
         self._tier_user: Tuple[SearchParams, ...] = (
             params or SearchParams(),) + tuple(tiers)
         self._check_tiers(self._tier_user)
@@ -200,6 +208,11 @@ class KHIService:
         reset the per-tier planners, which share one plan cache. Tier 0's
         planner is built here, the others on first use."""
         self._sharded = _is_sharded(index)
+        if self._mesh is not None and not self._sharded:
+            raise ValueError(
+                "mesh= serving needs a ShardedKHI (the collective program "
+                "serves shard s of the stacked index on model rank s — "
+                "DESIGN.md §14)")
         if not self._sharded and not isinstance(index, DeviceIndex):
             index = device_put_index(index, device=resolve_device(
                 self._device))
@@ -218,7 +231,11 @@ class KHIService:
         self._plan_cache: "collections.OrderedDict[bytes, int]" = (
             collections.OrderedDict())
         self._planners: dict = {}
-        self._get_planner(0)
+        self._search_fns: dict = {}
+        if self._mesh is not None:
+            self._get_search_fn(0)
+        else:
+            self._get_planner(0)
 
     def swap_index(self, index, *, params: Optional[SearchParams] = None,
                    drain: bool = True) -> dict:
@@ -280,6 +297,18 @@ class KHIService:
             self._planners[tier] = planner
         return planner
 
+    def _get_search_fn(self, tier: int):
+        """``tier``'s collective program (mesh serving), built on first
+        use against the installed index."""
+        fn = self._search_fns.get(tier)
+        if fn is None:
+            from ..core.sharded import make_sharded_search_fn
+            fn = self._search_fns[tier] = make_sharded_search_fn(
+                self._tier_params[tier], self._mesh,
+                dist_fn=self._legacy_dist_fn, skhi=self.index,
+                on_undersized=self._on_undersized, tier=tier)
+        return fn
+
     def _check_tier(self, tier: int) -> None:
         if not 0 <= tier < len(self._tier_params):
             raise ValueError(f"tier must be in [0, {len(self._tier_params)})"
@@ -340,9 +369,16 @@ class KHIService:
             his = np.concatenate(
                 [his, np.full((pad, self.m), -np.inf, np.float32)])
         t0 = time.perf_counter()
-        # results come back as numpy, so the device work has finished
-        ids, dists, _hops, plan = self._get_planner(tier).search(qs, los, his)
-        self.stats["scan_lanes"] += int(plan.use_scan.sum())
+        if self._mesh is not None:
+            # the dispatch runs inside the collective: no host Plan
+            ids, dists = self._get_search_fn(tier)(self.index, qs, los, his)
+            ids, dists = ids.cpu().numpy(), dists.cpu().numpy()
+            plan = None
+        else:
+            # results come back as numpy, so the device work has finished
+            ids, dists, _hops, plan = self._get_planner(tier).search(
+                qs, los, his)
+            self.stats["scan_lanes"] += int(plan.use_scan.sum())
         if self._pred_lanes is not None:
             # every device lane of a predicate box, pads included (a
             # graph strategy's plan makes them all graph lanes)
@@ -412,6 +448,15 @@ class KHIService:
         ``stats["predicate_lanes"]`` counts the lanes either way.
         ``tier`` selects the degradation tier, as in ``search``."""
         self._check_tier(tier)
+        if self._mesh is not None:
+            raise ValueError(
+                "search_expr with mesh=: compiled predicates do not lower "
+                "through the collective program yet — the per-disjunct "
+                "dispatch and the dedup merge run host-side. Serve "
+                "predicates without a mesh (the one-process fan-out answers "
+                "a ShardedKHI with the same semantics), or pre-lower the "
+                "expression with core.predicate.compile_expr and issue its "
+                "boxes as plain search() calls (DESIGN.md §15)")
         validate_expr(expr, self.m)
         queries = np.ascontiguousarray(queries, np.float32)
         B, k = queries.shape[0], self.params.k
@@ -525,6 +570,11 @@ class KHIService:
         default the device builder."""
         if self._stream is not None:
             raise RuntimeError("streaming is already enabled")
+        if self._mesh is not None:
+            raise ValueError(
+                "streaming with mesh=: the delta merge runs on the host "
+                "after the collective fan-out returns — serve without a "
+                "mesh (the one-process fan-out) to stream (DESIGN.md §11)")
         # the delta is scanned by the box-scan kernel whatever kernel
         # scores the graph (the graph-only backends have no scan form;
         # on a CPU tensor its wrapper computes the plain version), unless

@@ -28,6 +28,7 @@ def test_import_every_module_without_jax_or_reference():
     assert "repro_torch.core.delta" in mods
     assert "repro_torch.core.sharded" in mods
     assert "repro_torch.distributed.elastic" in mods
+    assert "repro_torch.launch.mesh" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "

@@ -116,7 +116,7 @@ def test_khi_serve_config_and_rejections(tiny_index):
     assert khi_serve.smoke_config().search_params().backend == "jnp"
     with pytest.raises(ValueError):
         ServeConfig(buckets=(8, 1))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="needs a ShardedKHI"):
         KHIService(tiny_index, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="exactly one filter form"):
         Request(np.zeros(3), lo=np.zeros(3), hi=np.ones(3),

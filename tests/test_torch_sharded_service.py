@@ -144,10 +144,12 @@ def test_sharded_service_search_expr_matches_reference(sharded, text, mode,
 
 
 def test_sharded_service_mesh_still_raises(sharded):
+    """``mesh=`` takes a query mesh (``launch.mesh.make_query_mesh``);
+    anything else raises before a collective is built."""
     _, tk, *_ = sharded
-    with pytest.raises(NotImplementedError, match="item 13") as e:
+    with pytest.raises(TypeError, match="make_query_mesh") as e:
         KHIService(tk, teng.SearchParams(), device="cpu", mesh=object())
-    assert "collective" in str(e.value)
+    assert "QueryMesh" in str(e.value)
 
 
 class ShardPair(Pair):
