@@ -17,8 +17,18 @@ expressions through Request(expr=...) under "auto" and "hybrid" (one
 lowers to 3 disjoint boxes, one to the bitmask scan); then with
 strategy="graph" under every scoring backend it takes (the fused filter
 gather, the unfused gather, pallas_l2) and both routers (level, dfs);
-then the sharded index (``shard_pass``): the same corpus as 4
-round-robin shards through ``build_sharded``, the same bursts served
+then the builders' pass (``builders_pass``): Algorithm 5
+(``builder="incremental"``) over every 20th row of the corpus, timed per
+level, its graphs held to the graph invariants and 64 of its nodes to a
+numpy replay of their merge (``smoke_reference.merge_node``), the same
+bursts served over it and held to the numpy beam search beside a
+``builder="device"`` index of the same rows, then the iRangeGraph,
+Postfiltering and Prefiltering baselines on those rows against the boxes
+and the brute force, and the index sizes, after the card's Algorithm 5
+and bulk builds of small grid corpora are held bit for bit to the plain
+versions'; then the sharded index (``shard_pass``): the first quarter
+of the corpus as 4 round-robin shards through ``build_sharded``, the
+same bursts served
 through a KHIService over it and held to per-shard numpy and brute
 forces merged in (dist, shard, local) order, its int8, hybrid, bitmask
 and streaming paths and one compaction; then degradation tiers and the
@@ -1053,8 +1063,8 @@ def main_path(n: int, n_full: int, dev, rows: dict) -> None:
     check(bool(same.all()) and bool(((ids[si] < 0) == (t_ids[si] < 0)).all()),
           f"scan lanes are not exact on {int((~same).sum())} slots")
 
-    ref_ent = graph_checks(index, di, svc, Q, lo, hi, ids, use_scan, t_ids,
-                           t_d, cfg, dev)
+    ref_ent, _ = graph_checks(index, di, svc, Q, lo, hi, ids, use_scan,
+                              t_ids, t_d, cfg, dev)
     trace_programs("f32", di, svc.params, Q, lo, hi, split_lanes(use_scan))
     single = svc._planner
     del svc
@@ -1078,9 +1088,12 @@ def main_path(n: int, n_full: int, dev, rows: dict) -> None:
     graph_pass(index, di, params, cfg, Q, lo, hi, perm >= nq, serve_bursts,
                t_ids, dev, rows)
     mark("the graph pass")
+    builders_pass(index, params, cfg, Q, lo, hi, perm >= nq, serve_bursts,
+                  dev, rows)
+    mark("the builders' pass")
     torch.cuda.empty_cache()
     s_index, s_di = shard_pass(index, di, params, cfg, Q, lo, hi,
-                               serve_bursts, ids, use_scan, dev, rows)
+                               serve_bursts, dev, rows)
     mark("the shard pass")
     slo_pass(index, di, params, cfg, Q, lo, hi, perm >= nq, ids, use_scan,
              t_ids, t_d, ref_ent, dev, rows)
@@ -1129,11 +1142,13 @@ def recall(found: np.ndarray, truth: np.ndarray) -> float:
 
 
 def graph_checks(index, di, svc, Q, lo, hi, ids, use_scan, t_ids, t_d, cfg,
-                 dev) -> None:
+                 dev) -> tuple:
     """Graph lanes: recall@10 against the brute force, held to the bar;
     the router and the hop loop against the numpy reference
     (smoke_reference.py, which shares no code with the port) on this
-    index; recall as ef grows; how far the true neighbours stand out."""
+    index; recall as ef grows; how far the true neighbours stand out.
+    Returns (the numpy DFS's entries, recall@k of the graph lanes by
+    ef)."""
     import smoke_reference as sref
     from repro_torch.core.engine import Planner
     from repro_torch.core.router import route_level_sync
@@ -1218,7 +1233,7 @@ def graph_checks(index, di, svc, Q, lo, hi, ids, use_scan, t_ids, t_d, cfg,
     print(f"[check] graph lanes: true {cfg.k}th-nearest squared distance / "
           f"mean squared distance over the box = "
           f"{float(np.mean(np.concatenate(ratio))):.4f}", flush=True)
-    return ref_ent
+    return ref_ent, rec_ef
 
 
 def check_served(ids, dists, vecs, attrs, Q, lo, hi, what: str,
@@ -2125,6 +2140,450 @@ def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
 
 # -------------------------------------------------------------- the SLO
 
+# ------------------------------------------------------ the builders' pass
+
+# rows 0, 20, 40, ... of the main corpus (50,000; cut from 1M, and from
+# 100,000, for the time limit: Algorithm 5 is n / 64 sequential rounds
+# of ~54 launches a hop)
+BUILD_EVERY = 20
+# card-vs-CPU cases on a 1/32-grid corpus at d = 768, m = 4, M = 32:
+# (n, merge_chunk, symmetric_reverse), cut from 4,096 rows for the time
+# limit: the plain versions take ~300 s on the CPU at 4,096 and
+# merge_chunk 64, and merge_chunk 1 runs about n sequential rounds (163 s
+# on the card at 4,096)
+BUILD_GRID_CASES = {"inc64": (512, 64, False), "inc1": (128, 1, True)}
+BUILD_GRID_D = 768
+# the reference's fixed float seeds of its bulk-builder parity test
+# (tests/test_build_device.py:27-31): (n, d, m, M, ef_b, seed)
+BULK_SEEDS = ((600, 16, 2, 8, None, 1), (900, 24, 3, 8, None, 0),
+              (700, 24, 3, 8, 24, 0))
+REPLAY_NODES = 64
+BASELINE_REQUESTS = 32   # per selectivity, through every baseline
+# Postfiltering's one graph takes n / 64 sequential rounds: it is built
+# over every 4th of the pass's rows (12,500), cut for the time limit
+POST_EVERY = 4
+
+
+def grid_case(n: int, seed: int = 5):
+    """A 1/32-grid corpus (every squared distance exact in f32, in any
+    order) at the cell's d = 768, m = 4, and its tree."""
+    from repro_torch.core.tree import build_tree
+
+    rng = np.random.default_rng(seed)
+    vecs = (rng.integers(-64, 64, size=(n, BUILD_GRID_D)) / 32).astype(
+        np.float32)
+    attrs = rng.random((n, 4)).astype(np.float32)
+    return vecs, build_tree(attrs)
+
+
+def float_case(n, d, m, seed):
+    from repro_torch.core.tree import build_tree
+
+    rng = np.random.default_rng(seed)
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    return vecs, build_tree(rng.random((n, m)).astype(np.float32))
+
+
+def builder_cases(device):
+    """{name: (nbrs as numpy, seconds)} of every card-vs-CPU case built on
+    ``device``: Algorithm 5 on the grid cases, the bulk builder on the
+    first case's grid and the float seeds."""
+    from repro_torch.core import hnsw
+
+    out = {}
+    for key, (n, mc, sym) in BUILD_GRID_CASES.items():
+        vecs, tree = grid_case(n)
+        t0 = time.perf_counter()
+        nb = hnsw.build_graphs(tree, vecs, M=32, merge_chunk=mc,
+                               symmetric_reverse=sym, device=device)
+        out[key] = (nb.cpu().numpy(), time.perf_counter() - t0)
+    vecs, tree = grid_case(BUILD_GRID_CASES["inc64"][0])
+    cases = [("bulk_grid", vecs, tree, 32, None)] + [
+        (f"bulk_seed{i}", *float_case(n, d, m, sd), M, ef)
+        for i, (n, d, m, M, ef, sd) in enumerate(BULK_SEEDS)]
+    for key, vecs, tree, M, ef in cases:
+        t0 = time.perf_counter()
+        nb = hnsw.build_graphs_bulk(tree, vecs, M=M, ef_b=ef, device=device)
+        out[key] = (nb.cpu().numpy(), time.perf_counter() - t0)
+    return out
+
+
+def projected_seconds(stats, big_tree, mc: int = 64) -> float:
+    """The seconds Algorithm 5 would take on ``big_tree``: each of its
+    levels' rounds (the largest insert count of a node over ``mc``) at the
+    measured seconds a round of the built tree's level with as many nodes
+    (so as many lanes a round) or, past its depth, its deepest level's."""
+    by_lvl = {s["level"]: s["seconds"] / max(1, s["rounds"]) for s in stats}
+    deepest = max(by_lvl)
+    count = np.asarray(big_tree.count, np.int64)
+    left = np.asarray(big_tree.left, np.int64)
+    right = np.asarray(big_tree.right, np.int64)
+    level = np.asarray(big_tree.level, np.int64)
+    ins = np.where(left < 0, count - 1, count[np.maximum(right, 0)])
+    total = 0.0
+    for lvl in range(int(level.max()) + 1):
+        sel = level == lvl
+        rounds = -(-int(ins[sel].max()) // mc) if sel.any() else 0
+        total += rounds * by_lvl.get(lvl, by_lvl[deepest])
+    return total
+
+
+def graph_invariants(nbrs: np.ndarray, tree, M: int) -> dict:
+    """The graph invariants of tests/test_hnsw.py over every level: degree
+    <= M, rows empty off each object's path, neighbours inside the node,
+    no self-loops, no duplicates. Returns the count of violations of
+    each."""
+    path = np.asarray(tree.path)
+    n = nbrs.shape[1]
+    bad = {"degree": 0, "off path": 0, "outside node": 0, "self loop": 0,
+           "duplicate": 0}
+    for lvl in range(nbrs.shape[0]):
+        rows = nbrs[lvl]
+        ok = rows >= 0
+        bad["degree"] += int((ok.sum(1) > M).sum())
+        bad["off path"] += int(ok[path[:, lvl] < 0].any(1).sum())
+        src = np.broadcast_to(path[:, lvl][:, None], rows.shape)[ok]
+        bad["outside node"] += int((path[rows[ok], lvl] != src).sum())
+        bad["self loop"] += int((rows == np.arange(n)[:, None]).sum())
+        srt = np.sort(rows, axis=1)
+        bad["duplicate"] += int(((srt[:, 1:] == srt[:, :-1])
+                                 & (srt[:, 1:] >= 0)).sum())
+    return bad
+
+
+def replay_nodes(inc, vecs_t, M: int, dev, seed: int = 0):
+    """REPLAY_NODES internal nodes of 64-2,048 members, taken round-robin
+    over the levels that have such nodes, each merge replayed by
+    smoke_reference.merge_node from the card's rows one level down, on the
+    card's own pair distances (the blocked gather_l2 over the node's
+    members: the distances every decision of the build read). Returns
+    (per node (level, members, rows equal, near-tie decisions), the
+    largest error of those distances against float64 relative to the
+    pair's squared norms, host seconds)."""
+    import smoke_reference as sref
+    from repro_torch.kernels import ops
+
+    t = inc.tree
+    count = np.asarray(t.count, np.int64)
+    left = np.asarray(t.left, np.int64)
+    level = np.asarray(t.level, np.int64)
+    order = np.asarray(t.order, np.int64)
+    pool = np.nonzero((left >= 0) & (count >= 64) & (count <= 2048))[0]
+    rng = np.random.default_rng(seed)
+    queues = [list(rng.permutation(pool[level[pool] == lv]))
+              for lv in np.unique(level[pool])]
+    picks = []
+    while len(picks) < REPLAY_NODES and any(queues):
+        for qu in queues:
+            if qu and len(picks) < REPLAY_NODES:
+                picks.append(int(qu.pop()))
+    nb = inc.nbrs_numpy()
+    loc = np.full(inc.n, -1, np.int64)
+    out, worst = [], 0.0
+    t0 = time.perf_counter()
+    for p in picks:
+        lvl = int(level[p])
+        s, c = int(t.start[p]), int(count[p])
+        mem = order[s:s + c]
+        loc[mem] = np.arange(c)
+        low = nb[lvl + 1][mem]
+        low = np.where(low >= 0, loc[np.maximum(low, 0)], -1)
+        want = nb[lvl][mem]
+        mt = torch.as_tensor(mem, device=dev)
+        d32 = ops.gather_l2(mt[None].expand(c, c).contiguous(), vecs_t,
+                            vecs_t[mt], c_blk=128).cpu().numpy()
+        v64 = inc.vecs[mem].astype(np.float64)
+        n2 = (v64 * v64).sum(1)
+        d64 = n2[:, None] + n2[None, :] - 2.0 * (v64 @ v64.T)
+        worst = max(worst, float((np.abs(d32 - d64)
+                                  / (n2[:, None] + n2[None, :])).max()))
+        rows_l, ties = sref.merge_node(
+            low, int(count[left[p]]), d32, M=M, ef_b=M, merge_chunk=64,
+            symmetric_reverse=False, rel_tol=NEAR_TIE)
+        got = np.where(rows_l >= 0, mem[np.maximum(rows_l, 0)], -1)
+        out.append((lvl, c, int((got == want).all(1).sum()), ties))
+        loc[mem] = -1
+    return out, worst, time.perf_counter() - t0
+
+
+def graph_recall(di, p, Q, lo, hi, gi, t_ids, efs) -> dict:
+    """recall@k of the graph lanes ``gi`` walked with strategy="graph" at
+    each ef."""
+    from repro_torch.core.engine import Planner
+
+    out = {}
+    for ef in efs:
+        pl = Planner(di, dataclasses.replace(p, strategy="graph", ef=ef))
+        out[ef] = recall(pl.search(Q[gi], lo[gi], hi[gi])[0], t_ids[gi])
+    return out
+
+
+def builders_pass(index, params, cfg, Q, lo, hi, is_s, serve_bursts, dev,
+                  rows) -> None:
+    """Algorithm 5 (``builder="incremental"``, core/hnsw.py) and the bulk
+    builder on the card, and the baselines: (1) the card's builds equal
+    the CPU's (the plain versions) bit for bit on the grid cases and the
+    bulk seeds; (2) ``KHIIndex.build`` with ``KHIConfig(M=32)`` over rows 0,
+    10, 20, ... of the main corpus, timed per level with its gather_l2
+    launches, projected to the main corpus's tree, its graphs held to
+    the invariants of tests/test_hnsw.py; (3) REPLAY_NODES of its nodes
+    replayed by smoke_reference.merge_node; (4) the main path's 384
+    requests served over it under auto, every graph lane held to the
+    numpy beam search (graph_checks), its recall beside a
+    ``builder="device"`` index of the same rows; (5) IRangeGraph and
+    Postfiltering built on the card and held, with Prefiltering, to the
+    boxes and the brute force on 2 x BASELINE_REQUESTS requests, beside
+    KHI; the indexes' sizes."""
+    from repro_torch.core import KHIConfig, KHIIndex, hnsw
+    from repro_torch.core.baselines import (IRangeGraph, Postfiltering,
+                                            Prefiltering)
+    from repro_torch.core.engine import Planner, device_put_index
+    from repro_torch.core.query_ref import Predicate
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve import KHIService, ServeConfig
+
+    t_pass = time.perf_counter()
+    M, k = cfg.M, cfg.k
+
+    # ---- (1) the card's builds against the CPU's, bit for bit
+    card, cpu = builder_cases(dev), builder_cases("cpu")
+    for key, (nb, sec) in card.items():
+        check(np.array_equal(cpu[key][0], nb),
+              f"[build] {key}: the card's nbrs differ from the CPU's")
+    print(f"[check] card against CPU, nbrs bit for bit: " + "; ".join(
+        f"{key} equal (card {sec:.1f}s, CPU {cpu[key][1]:.1f}s)"
+        for key, (_, sec) in card.items())
+        + f" (grid cases {BUILD_GRID_CASES}: (n, merge_chunk, "
+        f"symmetric_reverse) at d={BUILD_GRID_D}, M=32; bulk on the first "
+        f"case's grid and the seeds {BULK_SEEDS})", flush=True)
+    mark("[build] the card-vs-CPU builds")
+
+    # ---- (2) Algorithm 5 over rows 0, BUILD_EVERY, ... on the card
+    bv = np.ascontiguousarray(index.vecs[::BUILD_EVERY])
+    ba = np.ascontiguousarray(index.attrs[::BUILD_EVERY])
+    nb_rows = bv.shape[0]
+    stats = []
+    orig = hnsw.build_graphs
+    hnsw.build_graphs = lambda *a, **kw: orig(*a, stats=stats, **kw)
+    ops.reset_launches()
+    ref.reset_calls()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        inc = KHIIndex.build(bv, ba, KHIConfig(M=M), device=dev)
+    finally:
+        hnsw.build_graphs = orig
+    build_s = time.perf_counter() - t0
+    launches = ops.LAUNCHES["gather_l2"]
+    plain = {kk: v["cuda"] for kk, v in ref.CALLS.items() if v["cuda"]}
+    check(launches > 0 and not plain,
+          f"[build] Algorithm 5 did not run on gather_l2 alone: "
+          f"{launches} launches, plain-version CUDA calls {plain}")
+    rows["gather_l2"]["launches_hnsw"] = launches
+    graph_s = sum(st["seconds"] for st in stats)
+    print(f"[build] Algorithm 5 (KHIConfig(M={M}), builder="
+          f"{inc.config.builder!r}, ef_b={M}, merge_chunk 64) over "
+          f"{nb_rows} rows (every {BUILD_EVERY}th of the corpus; d="
+          f"{bv.shape[1]}): {build_s:.1f}s, the graphs {graph_s:.1f}s; "
+          f"{inc.tree.num_nodes} tree nodes, height {inc.height}; "
+          f"gather_l2 launches {launches}; "
+          f"{sum(st['rounds'] for st in stats)} rounds, "
+          f"{sum(st['hops'] for st in stats)} hops, "
+          f"{sum(st['waves'] for st in stats)} reverse waves", flush=True)
+    print("[build] per level (level: nodes, rounds, inserts, hops, waves, "
+          "s): " + "; ".join(
+              f"{st['level']}: {st['nodes']}, {st['rounds']}, "
+              f"{st['lanes']}, {st['hops']}, {st['waves']}, "
+              f"{st['seconds']:.2f}" for st in stats), flush=True)
+    proj = projected_seconds(stats, index.tree)
+    print(f"[build] projected Algorithm 5 over the main corpus's tree "
+          f"({index.n} rows, height {index.tree.height}): {proj:.0f}s "
+          f"(each level's rounds at this build's seconds a round)",
+          flush=True)
+    nbrs = inc.nbrs_numpy()
+    bad = graph_invariants(nbrs, inc.tree, M)
+    print(f"[check] Algorithm 5 graphs: invariant violations {bad}; "
+          f"occupied slots {int((nbrs >= 0).sum())} <= n M H = "
+          f"{nb_rows * M * inc.height}", flush=True)
+    check(not any(bad.values()), "[build] the graphs break an invariant")
+    del nbrs
+    mark("[build] Algorithm 5")
+
+    # ---- (3) replayed nodes
+    vecs_t = torch.as_tensor(bv, device=dev)
+    rep, worst, rep_s = replay_nodes(inc, vecs_t, M, dev)
+    eq_nodes = sum(r[2] == r[1] for r in rep)
+    by_lvl = {}
+    for lvl, c, eq, ties in rep:
+        by_lvl.setdefault(lvl, []).append(c)
+    print(f"[check] replay: {eq_nodes} of {len(rep)} nodes "
+          f"(levels: members {dict(sorted(by_lvl.items()))}) equal row for "
+          f"row to smoke_reference.merge_node on the card's pair "
+          f"distances, {sum(r[2] for r in rep)} of {sum(r[1] for r in rep)}"
+          f" rows; {sum(r[3] for r in rep)} decisions within {NEAR_TIE:g} "
+          f"of going the other way (taken the card's way); those distances"
+          f" against float64: at most {worst:.2e} of the pair's squared "
+          f"norms; {rep_s:.1f}s on the host", flush=True)
+    check(eq_nodes == len(rep) == REPLAY_NODES,
+          "[build] the card's rows differ from the numpy replay")
+    check(worst <= NEAR_TIE, "[build] gather_l2's pair distances are off")
+    mark("[build] the replay")
+
+    # ---- (4) serve the main path's requests over the new index
+    thr = max(1, nb_rows // 10)
+    p_b = dataclasses.replace(params, scan_threshold=thr)
+    di_inc = device_put_index(inc, device=dev)
+    svc = KHIService(di_inc, p_b, config=ServeConfig(
+        buckets=cfg.buckets, cache_size=cfg.cache_size))
+    serve_bursts(svc, Q + np.float32(1e-3))        # warm-up, other keys
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    results = serve_bursts(svc, Q)
+    dt = time.perf_counter() - t0
+    served = {kk: v for kk, v in ops.LAUNCHES.items() if v}
+    ids = np.stack([r.ids for r in results])
+    dists = np.stack([r.dists for r in results])
+    use_scan = svc._planner.plan(lo, hi).use_scan
+    qt, tl, th_ = (torch.as_tensor(a).to(dev) for a in (Q, lo, hi))
+    t_ids, t_d = [], []
+    for s0 in range(0, len(Q), 64):
+        a, b = ref.scan_topk_ref(di_inc.vecs, di_inc.attrs, qt[s0:s0 + 64],
+                                 tl[s0:s0 + 64], th_[s0:s0 + 64], k)
+        t_ids.append(a.cpu().numpy())
+        t_d.append(b.cpu().numpy())
+    t_ids, t_d = np.concatenate(t_ids), np.concatenate(t_d)
+    print(f"[build] the incremental index served {len(Q)} requests in "
+          f"{dt:.3f}s ({len(Q) / dt:.1f} QPS end-to-end) under "
+          f"{p_b.strategy}, scan threshold {thr} (10% of n); graph lanes "
+          f"{int((~use_scan).sum())}, scan lanes {int(use_scan.sum())}; "
+          f"launches {served}", flush=True)
+    check(served.get("gather_l2_filter", 0) > 0
+          and served.get("scan_topk", 0) > 0 and (~use_scan).any(),
+          "[build] the served run skipped the graph or the scan path")
+    check_served(ids, dists, bv, ba, Q, lo, hi, "[build] incremental")
+    si = np.nonzero(use_scan)[0]
+    check(bool(lanes_exact(ids[si], dists[si], t_ids[si], t_d[si]).all()),
+          "[build] scan lanes are not exact")
+    _, rec_inc = graph_checks(inc, di_inc, svc, Q, lo, hi, ids, use_scan,
+                              t_ids, t_d, cfg, dev)
+    del svc
+    gi = np.nonzero(~use_scan)[0]
+    t0 = time.perf_counter()
+    dev_ix = KHIIndex.build(bv, ba, KHIConfig(M=M, builder="device"),
+                            device=dev)
+    dev_s = time.perf_counter() - t0
+    di_dev = device_put_index(dev_ix, device=dev)
+    efs = (p_b.ef, 16 * p_b.ef)
+    rec_dev = graph_recall(di_dev, p_b, Q, lo, hi, gi, t_ids, efs)
+    print(f"[build] recall@{k} of the {len(gi)} graph lanes, incremental "
+          f"(Algorithm 5, {build_s:.1f}s) against builder='device' "
+          f"({dev_s:.1f}s) over the same rows: " + ", ".join(
+              f"ef={ef}: {rec_inc[ef]:.4f} / {rec_dev[ef]:.4f}"
+              for ef in efs), flush=True)
+    check(rec_dev[p_b.ef] >= rec_inc[p_b.ef] - 0.05,
+          "[build] the device index's recall is below the incremental's "
+          "by more than 0.05")
+    mark("[build] serving over the incremental index")
+
+    # ---- (5) the baselines on the same rows
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    irg = IRangeGraph.build(bv, ba, index_attr=0, M=M, leaf_size=32,
+                            builder="bulk", device=dev)
+    torch.cuda.synchronize()
+    irg_s = time.perf_counter() - t0
+    irg_l = ops.LAUNCHES["gather_l2"]
+    pv = np.ascontiguousarray(bv[::POST_EVERY])
+    pa = np.ascontiguousarray(ba[::POST_EVERY])
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    post = Postfiltering.build(pv, pa, M=M, device=dev)
+    post_s = time.perf_counter() - t0
+    post_l = ops.LAUNCHES["gather_l2"]
+    pre = Prefiltering.build(bv, ba, device=dev)
+    check(post_l > 0, "[build] Postfiltering's build skipped gather_l2")
+    rows["gather_l2"]["launches_irange"] = irg_l
+    rows["gather_l2"]["launches_postfilter"] = post_l
+    sel = np.concatenate([np.nonzero(~is_s)[0][:BASELINE_REQUESTS],
+                          np.nonzero(is_s)[0][:BASELINE_REQUESTS]])
+    preds = [Predicate(lo[i], hi[i]) for i in sel]
+    a, _ = ref.scan_topk_ref(torch.as_tensor(pv, device=dev),
+                             torch.as_tensor(pa, device=dev), qt[sel],
+                             tl[sel], th_[sel], k)
+    truth = {"": t_ids[sel], "post": a.cpu().numpy()}
+    res = {}
+    for name, fn, rows_of in (
+            ("Prefiltering", lambda i, pr: pre.query(Q[i], pr, k), ""),
+            ("iRangeGraph", lambda i, pr: irg.query(Q[i], pr, k,
+                                                    ef=p_b.ef), ""),
+            ("Postfiltering", lambda i, pr: post.query(Q[i], pr, k,
+                                                       ef=p_b.ef), "post")):
+        t0 = time.perf_counter()
+        got = [fn(i, pr) for i, pr in zip(sel, preds)]
+        torch.cuda.synchronize()
+        res[name] = (got, time.perf_counter() - t0, rows_of)
+    for name, (got, _, rows_of) in res.items():
+        at = pa if rows_of else ba
+        for i, g in zip(sel, got):
+            check(bool(Predicate(lo[i], hi[i]).matches(at[g]).all())
+                  and len(set(g.tolist())) == len(g),
+                  f"[build] {name} returned an id outside its box")
+    pre_ids = np.full((len(sel), k), -1, np.int64)
+    for j, g in enumerate(res["Prefiltering"][0]):
+        pre_ids[j, :len(g)] = g
+    pre_d = np.where(pre_ids >= 0, ((bv[np.maximum(pre_ids, 0)]
+                                     - Q[sel][:, None]) ** 2).sum(-1),
+                     np.inf).astype(np.float32)
+    same, ties, _ = topk_agree("[build] Prefiltering",
+                               torch.as_tensor(pre_ids),
+                               torch.as_tensor(pre_d),
+                               torch.as_tensor(t_ids[sel]),
+                               torch.as_tensor(t_d[sel]))
+    khi = {}
+    for name, di_x in (("KHI incremental", di_inc), ("KHI device", di_dev)):
+        pl = Planner(di_x, p_b)
+        pl.search(Q[sel] + np.float32(1e-3), lo[sel], hi[sel])   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kid = pl.search(Q[sel], lo[sel], hi[sel])[0]
+        torch.cuda.synchronize()
+        khi[name] = (kid, time.perf_counter() - t0, "")
+    half = {"1/4": slice(0, BASELINE_REQUESTS),
+            "1/64": slice(BASELINE_REQUESTS, None)}
+
+    def rec_line(found, want):
+        fa = np.full((len(sel), k), -1, np.int64)
+        for j, g in enumerate(found):
+            fa[j, :len(g)] = g[:k]
+        return ", ".join(f"{h} {recall(fa[s_], want[s_]):.4f}"
+                         for h, s_ in half.items())
+
+    for name, (got, sec, rows_of) in list(res.items()) + list(khi.items()):
+        print(f"[build] {name}: recall@{k} {rec_line(got, truth[rows_of])}"
+              f"; {len(sel) / sec:.1f} QPS ({len(sel)} requests, "
+              f"{'one batch' if name.startswith('KHI') else 'one at a time'}"
+              f", ef={p_b.ef}; over {len(pv) if rows_of else nb_rows} "
+              f"rows)", flush=True)
+    print(f"[build] builds on the card: iRangeGraph (attribute 0, leaf 32, "
+          f"builder='bulk', as the reference's method comparison builds it)"
+          f" {irg_s:.1f}s, {irg.height} levels, gather_l2 launches {irg_l};"
+          f" Postfiltering (one graph, Algorithm 5's merge, over every "
+          f"{POST_EVERY}th of the pass's rows: {len(pv)}) {post_s:.1f}s, "
+          f"gather_l2 launches {post_l}; Prefiltering equal to the brute "
+          f"force on {same} slots, {ties} near-ties", flush=True)
+    irg_total = irg.graph_size_bytes() + bv.nbytes + ba.nbytes
+    print(f"[build] sizes (bytes): KHI incremental graph "
+          f"{inc.graph_size_bytes()}, total {inc.total_size_bytes()}; KHI "
+          f"device graph {dev_ix.graph_size_bytes()}, total "
+          f"{dev_ix.total_size_bytes()}; iRangeGraph graph "
+          f"{irg.graph_size_bytes()}, total {irg_total}", flush=True)
+
+    del inc, dev_ix, di_inc, di_dev, irg, post, pre, vecs_t
+    torch.cuda.empty_cache()
+    print(f"[build] the builders' pass took {time.perf_counter() - t_pass:.1f}"
+          f"s", flush=True)
+
+
 MESH_HALVING = (8, 256, 10)     # the simulated halving stack (S, B, k)
 
 
@@ -2338,6 +2797,9 @@ def mesh_pass(di, params, cfg, Q, lo, hi, serve_bursts, card, served,
 
 
 SHARDS = 4
+# the shard pass's corpus: the first quarter of the main corpus (cut from
+# 1M for the script's time limit)
+SHARD_ROWS = 250_000
 SHARD_INSERTS = 16_384
 SHARD_BASE_DELETES = 4_096
 SHARD_DELTA_DELETES = 1_024
@@ -2373,11 +2835,11 @@ def per_shard_truth(skhi, Q, lo, hi, k: int, dev):
     return sref.merge_shards(ids, dd, S, k)
 
 
-def shard_pass(index, di, params, cfg, Q, lo, hi, serve_bursts, single_ids,
-               single_scan, dev, rows):
+def shard_pass(index, di, params, cfg, Q, lo, hi, serve_bursts, dev, rows):
     """The sharded index on the card, in one process: ``build_sharded``
-    over the main path's corpus into SHARDS round-robin shards (250,000
-    rows each at n = 1M; the widths kept), served through a ``KHIService`` at
+    over the first SHARD_ROWS rows of the main path's corpus into SHARDS
+    round-robin shards (62,500 rows each at n = 1M; the widths kept),
+    served through a ``KHIService`` at
     the config's params in the main path's bursts. Scan lanes are held to
     the per-shard f32 brute force merged in the merge's (dist, shard,
     local) order; every graph lane's per-shard ids and hops to
@@ -2405,7 +2867,8 @@ def shard_pass(index, di, params, cfg, Q, lo, hi, serve_bursts, single_ids,
     from repro_torch.serve import KHIService, ServeConfig
 
     S, k = SHARDS, cfg.k
-    n, d = index.vecs.shape
+    vecs, attrs = index.vecs[:SHARD_ROWS], index.attrs[:SHARD_ROWS]
+    n, d = vecs.shape
     t_pass = time.perf_counter()
     scfg = ServeConfig(buckets=cfg.buckets, cache_size=cfg.cache_size)
 
@@ -2442,7 +2905,7 @@ def shard_pass(index, di, params, cfg, Q, lo, hi, serve_bursts, single_ids,
     ref.reset_calls()
     torch.cuda.reset_peak_memory_stats()
     skhi, per, build_s = build_timed(
-        sh_mod.build_sharded, index.vecs, index.attrs, S,
+        sh_mod.build_sharded, vecs, attrs, S,
         KHIConfig(M=cfg.M, builder="device"), device=dev)
     hosts = [ix for _, ix, _ in per]
     for ix in hosts:
@@ -2487,7 +2950,7 @@ def shard_pass(index, di, params, cfg, Q, lo, hi, serve_bursts, single_ids,
           f"version: {plain_cuda}")
     ids = np.stack([r.ids for r in results])
     dists = np.stack([r.dists for r in results])
-    check_served(ids, dists, index.vecs, index.attrs, Q, lo, hi, "[shard]")
+    check_served(ids, dists, vecs, attrs, Q, lo, hi, "[shard]")
     plan = svc._planner.plan(lo, hi)
     use_scan = plan.use_scan
     si, gi = np.nonzero(use_scan)[0], np.nonzero(~use_scan)[0]
@@ -2555,9 +3018,7 @@ def shard_pass(index, di, params, cfg, Q, lo, hi, serve_bursts, single_ids,
     ref_s = time.perf_counter() - t0
     n_ids, _ = sref.merge_shards(np.stack(r_ids), np.stack(r_d), S, k)
     same_m = (n_ids == ids[gi]).all(1)
-    both = np.nonzero(~use_scan & ~single_scan)[0]
-    rec_sh = recall(ids[both], st_ids[both])
-    rec_1 = recall(single_ids[both], st_ids[both])
+    rec_sh = recall(ids[gi], st_ids[gi])
     print(f"[shard] graph lanes ({len(gi)}): per shard, ids and hops equal "
           f"to the numpy DFS + beam search over the shard's arrays on "
           + ", ".join(f"{a} / {b}" for a, b, _ in per_shard)
@@ -2566,9 +3027,8 @@ def shard_pass(index, di, params, cfg, Q, lo, hi, serve_bursts, single_ids,
           f"{[r for *_, r in per_shard]}; mean hops per shard "
           f"{[round(float(h.mean()), 1) for h in l_hops]}; {ref_s:.1f}s on "
           f"the host); served answers equal to the numpy merge in (dist, "
-          f"shard, local) order on {int(same_m.sum())}; recall@{k} on the "
-          f"{len(both)} lanes both services walked: sharded {rec_sh:.4f}, "
-          f"single index {rec_1:.4f}", flush=True)
+          f"shard, local) order on {int(same_m.sum())}; recall@{k} "
+          f"{rec_sh:.4f}", flush=True)
     check(all(a == len(gi) and b == len(gi) for a, b, _ in per_shard),
           "[shard] a shard's walk differs from the numpy beam search")
     check(bool(same_m.all()), "[shard] served graph lanes differ from the "
@@ -2677,7 +3137,7 @@ def shard_pass(index, di, params, cfg, Q, lo, hi, serve_bursts, single_ids,
     # ---- the bitmask expression E2 against the masked brute force
     years = tuple(range(2005, 2024, 2))
     expr = parse_expr("a0 in [" + ", ".join(map(str, years)) + "]", cfg.m)
-    mask = sref.year_mask(index.attrs, years)
+    mask = sref.year_mask(attrs, years)
     mt_i = np.full((S, len(Q), k), -1, np.int64)
     mt_d = np.full((S, len(Q), k), np.inf, np.float32)
     for s, ix in enumerate(hosts):
@@ -2716,11 +3176,11 @@ def shard_pass(index, di, params, cfg, Q, lo, hi, serve_bursts, single_ids,
     dead[dels] = True
 
     def vec_of(e):
-        return np.where((e < n)[:, None], index.vecs[np.minimum(e, n - 1)],
+        return np.where((e < n)[:, None], vecs[np.minimum(e, n - 1)],
                         ins_v[np.maximum(e - n, 0)])
 
     def attrs_of(e):
-        return np.where((e < n)[:, None], index.attrs[np.minimum(e, n - 1)],
+        return np.where((e < n)[:, None], attrs[np.minimum(e, n - 1)],
                         ins_a[np.maximum(e - n, 0)])
 
     svc.enable_streaming(capacity=cfg.delta_capacity,

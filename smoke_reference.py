@@ -37,6 +37,11 @@ JAX reference itself cannot run.
     delta segment) and ``merge_dist_ext`` (several candidate lists merged
     by (distance, ext), lowest ext first on ties: the service's merge of
     the base engine's answer with the delta's).
+  * the builders' pass: ``merge_node`` (one tree node's Algorithm 5
+    merge, as the reference's ``_insert_incremental`` runs it: chunked
+    greedy searches, the RNG prune over the results and the right child's
+    rows, reverse edges object by object), on a given matrix of pair
+    distances over the node's members.
   * the sharded pass (DESIGN.md §14): ``merge_shards`` (per-shard top-k
     lists over local ids merged into global ids, local j of shard s being
     j * S + s, in (distance, shard, local) order: the order of the
@@ -55,7 +60,7 @@ import numpy as np
 __all__ = ["dfs_entries", "beam_search", "sq_dists_f64", "graph_rows",
            "graph_shape", "quantize_rows_i8", "dequant_rows", "rerank",
            "scan_rerank", "antichain", "window_scan", "year_mask",
-           "live_topk", "merge_dist_ext"]
+           "live_topk", "merge_dist_ext", "merge_node"]
 
 
 def _matches(attrs: np.ndarray, lo: np.ndarray, hi: np.ndarray):
@@ -442,3 +447,104 @@ def merge_shards(ids, dists, n_shards: int, k: int):
         out_i[b, :len(sel)] = flat_i[sel]
         out_d[b, :len(sel)] = flat_d[sel]
     return out_i, out_d
+
+
+def _greedy(plane, dist, q, entry: int, ef: int):
+    """One greedy best-first search of the reference's builder (pool of
+    ``ef``: expand the closest unexpanded slot, add the fresh neighbours,
+    keep the ``ef`` closest by a stable sort, the pool before the new ones
+    in row order) over local ids. Returns (ids, dists) ascending."""
+    pool = [[float(dist[q, entry]), entry, False]]
+    seen = {entry}
+    while True:
+        f = next((j for j, s in enumerate(pool) if not s[2]), None)
+        if f is None:
+            return ([s[1] for s in pool],
+                    np.asarray([s[0] for s in pool], np.float32))
+        pool[f][2] = True
+        new = [v for v in plane[pool[f][1]].tolist()
+               if v >= 0 and v not in seen]
+        seen.update(new)
+        if new:
+            dn = dist[q, new].tolist()
+            pool = sorted(pool + [[d, v, False] for d, v in zip(dn, new)],
+                          key=lambda s: s[0])[:ef]
+
+
+def _prune(o: int, cand, cd, dist, M: int, tol: float, ties: list) -> list:
+    """The reference's rng_prune over local ids: ascending (stable),
+    skip o, -1 and an id already kept, keep e unless a kept r has
+    d(e, r) < d(e, o), stop at M. Counts into ``ties[0]`` the decisions
+    (neighbours in the sort, shield tests) within ``tol`` x the larger
+    distance of going the other way."""
+    order = np.argsort(cd, kind="stable")
+    sd, sc = cd[order], cand[order]
+    ties[0] += int(((np.diff(sd) <= tol * sd[1:])
+                    & (sc[1:] != sc[:-1])).sum())
+    kept: list = []
+    for j in order:
+        e = int(cand[j])
+        if e == o or e < 0 or e in kept:
+            continue
+        if kept:
+            dr = dist[e, kept]
+            ties[0] += int((np.abs(dr - cd[j]) <= tol * np.maximum(
+                dr, cd[j])).sum())
+            if (dr < cd[j]).any():
+                continue
+        kept.append(e)
+        if len(kept) >= M:
+            break
+    return kept
+
+
+def merge_node(lower, n_left: int, dist, *, M: int, ef_b: int,
+               merge_chunk: int = 64, symmetric_reverse: bool = False,
+               rel_tol: float = 0.0):
+    """One internal tree node's Algorithm 5 merge (the reference's
+    ``build_graphs`` for a node: its left child's rows copied up, then
+    ``_insert_incremental`` of the right child's objects), over local
+    ids: members 0..n_left-1 are the left child's objects and the rest
+    the right child's, both in ``tree.order``. ``lower`` (c, M) holds
+    their rows one level down (local ids, -1 padded), ``dist`` (c, c) the
+    pair distances every decision reads (d(a, b) = dist[a, b]). Returns
+    (rows (c, M) local ids at the node's level, the number of decisions
+    within ``rel_tol`` of going the other way)."""
+    c = dist.shape[0]
+    plane = np.full((c, M), -1, np.int64)
+    plane[:n_left] = lower[:n_left]
+    present = np.zeros(c, bool)
+    present[:n_left] = True
+    todo = list(range(n_left, c))
+    if n_left == 0:
+        present[todo[0]] = True
+        todo = todo[1:]
+    entry = 0 if n_left else n_left
+    ties = [0]
+    for s in range(0, len(todo), max(1, merge_chunk)):
+        chunk = todo[s:s + max(1, merge_chunk)]
+        found = [_greedy(plane, dist, o, entry, ef_b) for o in chunk]
+        for o, (cids, cds) in zip(chunk, found):
+            extra = [int(v) for v in lower[o] if v >= 0]
+            cand = np.asarray(cids + extra, np.int64)
+            cd = np.concatenate([cds, dist[o, extra].astype(np.float32)])
+            kept = _prune(o, cand, cd, dist, M, rel_tol, ties)
+            plane[o] = -1
+            plane[o, :len(kept)] = kept
+            for nb in kept:
+                if not present[nb] or (not symmetric_reverse
+                                       and nb >= n_left):
+                    continue
+                cur = [int(v) for v in plane[nb] if v >= 0]
+                if o in cur:
+                    continue
+                if len(cur) < M:
+                    plane[nb, len(cur)] = o
+                    continue
+                allc = np.asarray(cur + [o], np.int64)
+                kept2 = _prune(nb, allc, dist[nb, allc], dist, M, rel_tol,
+                               ties)
+                plane[nb] = -1
+                plane[nb, :len(kept2)] = kept2
+            present[o] = True
+    return plane, ties[0]

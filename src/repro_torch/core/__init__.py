@@ -1,6 +1,9 @@
-"""KHI on PyTorch: the partitioning tree, the device graph builder, the
-batched two-phase search and the selectivity-adaptive planner. The names
-are the reference package's (``repro.core``) where the port has them."""
+"""KHI on PyTorch: the partitioning tree, the graph builders (Algorithm 5
+in ``hnsw``, the bulk and device builders), the batched two-phase search
+and the selectivity-adaptive planner; the baselines are in
+``baselines``. The names are the reference package's (``repro.core``)
+where the port has them: its ``estimate_cardinality`` and ``query`` (the
+host Algorithms 1-3) are not ported yet."""
 
 from .khi import KHIConfig, KHIIndex  # noqa: F401
 from .query_ref import (  # noqa: F401

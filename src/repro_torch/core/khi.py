@@ -1,10 +1,12 @@
 """KHI index container: partitioning tree + per-level graphs, ported from
 ``repro.core.khi``.
 
-``KHIIndex.build`` runs Algorithm 4 (the tree, on the host) and the
-device bulk builder (``builder="device"``). ``save``/``load`` use the
-reference's ``.npz`` layout, so an index saved by either package loads
-in the other.
+``KHIIndex.build`` runs Algorithm 4 (the tree, on the host) and then the
+graphs on the device: Algorithm 5 (``builder="incremental"``, the
+default; ``core/hnsw.py``), the bulk builder (``"bulk"``) or the device
+bulk builder (``"device"``; ``core/build_device.py``). ``save``/``load``
+use the reference's ``.npz`` layout, so an index saved by either package
+loads in the other.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import hnsw
+from .build_device import build_graphs_device
 from .tree import PartitionTree, build_tree
 
 __all__ = ["KHIConfig", "KHIIndex"]
@@ -61,16 +65,9 @@ class KHIIndex:
         attrs = np.ascontiguousarray(attrs, dtype=np.float32)
         if vecs.shape[0] != attrs.shape[0]:
             raise ValueError("vecs/attrs length mismatch")
-        if config.builder in ("incremental", "bulk"):
-            raise NotImplementedError(
-                f"builder={config.builder!r} is a host builder that is not "
-                f"ported to repro_torch yet (ROADMAP.md Queue 1 item 15); "
-                f"use KHIConfig(builder='device')")
-        if config.builder != "device":
+        if config.builder not in KHIConfig.BUILDERS:
             raise ValueError(f"unknown builder {config.builder!r}; "
                              f"expected one of {KHIConfig.BUILDERS}")
-        from .build_device import build_graphs_device
-
         t0 = time.perf_counter()
         tree = build_tree(attrs, tau=config.tau,
                           leaf_capacity=config.leaf_capacity)
@@ -78,8 +75,20 @@ class KHIIndex:
             print(f"[khi] tree: {tree.num_nodes} nodes, height "
                   f"{tree.height}, {time.perf_counter() - t0:.1f}s",
                   flush=True)
-        nbrs = build_graphs_device(tree, vecs, M=config.M, ef_b=config.ef_b,
-                                   device=device, verbose=verbose)
+        if config.builder == "device":
+            nbrs = build_graphs_device(tree, vecs, M=config.M,
+                                       ef_b=config.ef_b, device=device,
+                                       verbose=verbose)
+        elif config.builder == "bulk":
+            nbrs = hnsw.build_graphs_bulk(tree, vecs, M=config.M,
+                                          ef_b=config.ef_b, device=device,
+                                          verbose=verbose)
+        else:
+            nbrs = hnsw.build_graphs(
+                tree, vecs, M=config.M, ef_b=config.ef_b,
+                merge_chunk=config.merge_chunk,
+                symmetric_reverse=config.symmetric_reverse, device=device,
+                verbose=verbose)
         if nbrs.device.type == "cuda":
             torch.cuda.synchronize(nbrs.device)
         dt = time.perf_counter() - t0
@@ -101,6 +110,20 @@ class KHIIndex:
     @property
     def height(self) -> int:
         return int(self.nbrs.shape[0])
+
+    def graph_size_bytes(self) -> int:
+        """Index size without the raw vectors: the tree's arrays and 4
+        bytes per occupied neighbour slot (the -1 padding compresses away),
+        as the reference counts it; ``total_size_bytes`` adds the vectors
+        and attributes."""
+        t = self.tree
+        tree_bytes = sum(a.nbytes for a in (
+            t.left, t.right, t.parent, t.dim, t.split, t.bl, t.level, t.lo,
+            t.hi, t.order, t.start, t.count, t.path))
+        return int((self.nbrs >= 0).sum()) * 4 + tree_bytes
+
+    def total_size_bytes(self) -> int:
+        return self.graph_size_bytes() + self.vecs.nbytes + self.attrs.nbytes
 
     def nbrs_numpy(self) -> np.ndarray:
         if torch.is_tensor(self.nbrs):

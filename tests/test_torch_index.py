@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import beam as jbeam
 from repro.core import build_device as jbd
 from repro.core import engine as jeng
 from repro.core.khi import KHIConfig as JConfig, KHIIndex as JIndex
@@ -21,6 +22,8 @@ from repro_torch.core import engine as teng
 from repro_torch.core.khi import KHIConfig, KHIIndex
 from repro_torch.core.tree import build_tree
 from repro_torch.data import synthetic as tsyn
+
+from test_torch_hnsw import _marked_visited_fresh
 
 TREE_FIELDS = ("left", "right", "parent", "dim", "split", "bl", "level",
                "lo", "hi", "order", "start", "count", "path")
@@ -76,7 +79,7 @@ def test_build_graphs_device_equal_on_grid(dist, large_node):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_khi_build_device_equal_on_grid():
+def test_khi_build_device_equal_on_grid(monkeypatch):
     vecs, attrs = _grid_corpus(11, n=500)
     want = JIndex.build(vecs, attrs, JConfig(M=8, builder="device"))
     got = KHIIndex.build(vecs, attrs, KHIConfig(M=8, builder="device"),
@@ -85,8 +88,13 @@ def test_khi_build_device_equal_on_grid():
     for f in TREE_FIELDS:
         np.testing.assert_array_equal(getattr(got.tree, f),
                                       getattr(want.tree, f))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KHIIndex.build(vecs, attrs, KHIConfig(M=8), device="cpu")
+    # the default builder (Algorithm 5, "incremental") equals the
+    # reference's run with its visited mark repaired (ROADMAP F6)
+    monkeypatch.setattr(jbeam, "np_visited_fresh_mark", _marked_visited_fresh)
+    default = KHIIndex.build(vecs, attrs, KHIConfig(M=8), device="cpu")
+    np.testing.assert_array_equal(default.nbrs_numpy(),
+                                  JIndex.build(vecs, attrs,
+                                               JConfig(M=8)).nbrs)
 
 
 def test_npz_round_trip_and_device_index(tiny_index, tmp_path):

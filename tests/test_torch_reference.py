@@ -4,7 +4,8 @@ CPU: the DFS router, the wide-frontier beam search with its hop cap, the
 bulk builder's graph rows (also with near-ties taken a build's way), the
 int8 score path (replica, graph-lane
 rerank, scan-lane over-fetch and rerank), the hybrid path's antichain and
-windowed scan, and the predicate pass's row masks and masked top-k. Ids
+windowed scan, the predicate pass's row masks and masked top-k, and
+one node's Algorithm 5 merge (``merge_node``). Ids
 and hops are equal; distances within rtol = atol = 1e-5 (reduce
 order)."""
 
@@ -330,3 +331,45 @@ def test_live_topk_and_merge_match_streaming_oracle():
         for j, e in enumerate(want):
             v = lv[exts == e][0].astype(np.float64)
             assert got_d[0][j] == np.float32(((v - q) ** 2).sum())
+
+
+@pytest.mark.parametrize("merge_chunk,symmetric_reverse", [(64, False),
+                                                           (8, True)])
+def test_merge_node_replays_the_reference_build(monkeypatch, merge_chunk,
+                                                symmetric_reverse):
+    """Every internal node's Algorithm 5 merge, replayed from the
+    reference's rows one level down on a 1/32-grid corpus (exact
+    distances), gives the reference's rows; the reference's visited mark
+    is repaired (ROADMAP F6)."""
+    from repro.core import beam as jbeam
+    from repro.core import hnsw as jh
+    from repro.core.tree import build_tree
+    from test_torch_hnsw import _marked_visited_fresh
+
+    monkeypatch.setattr(jbeam, "np_visited_fresh_mark", _marked_visited_fresh)
+    rng = np.random.default_rng(13)
+    n, M = 700, 8
+    vecs = (rng.integers(-64, 64, size=(n, 16)) / 32).astype(np.float32)
+    tree = build_tree(rng.integers(0, 16, size=(n, 3)).astype(np.float32))
+    nbrs = jh.build_graphs(tree, vecs, M=M, merge_chunk=merge_chunk,
+                           symmetric_reverse=symmetric_reverse)
+    loc = np.full(n, -1, np.int64)
+    replayed = 0
+    for p in np.nonzero((tree.left >= 0) & (tree.count >= 8))[0]:
+        lvl = int(tree.level[p])
+        mem = tree.node_objects(int(p)).astype(np.int64)
+        loc[mem] = np.arange(len(mem))
+        low = nbrs[lvl + 1][mem]
+        low = np.where(low >= 0, loc[np.maximum(low, 0)], -1)
+        diff = vecs[mem][:, None] - vecs[mem][None]
+        dist = np.einsum("abd,abd->ab", diff, diff).astype(np.float32)
+        rows, ties = sref.merge_node(
+            low, int(tree.count[tree.left[p]]), dist, M=M, ef_b=M,
+            merge_chunk=merge_chunk, symmetric_reverse=symmetric_reverse,
+            rel_tol=4e-6)
+        got = np.where(rows >= 0, mem[np.maximum(rows, 0)], -1)
+        np.testing.assert_array_equal(got, nbrs[lvl][mem], err_msg=str(p))
+        assert ties >= 0
+        loc[mem] = -1
+        replayed += 1
+    assert replayed > 20
