@@ -7,7 +7,12 @@ coverage pre-pass timed apart), then builds a KHI index at the
 khi-serve shard's widths on the card and serves mixed-selectivity bursts
 through the auto planner, checking the answers; then serves the same
 bursts again on the quantized score path, quant="int8" and then
-quant="bf16", from a replica attached to the same index; then with
+quant="bf16", from a replica attached to the same index; then the same
+index stored in bf16 (``bf16_corpus_pass``: auto, the graph walk on the
+unfused backends, hybrid on the bf16 windowed scan, the bitmask scan of
+the bf16 corpus, int8 over it, held to smoke_reference.py's bf16
+rounding, float64 top-k and beam search) and a checkpoint of its planes
+saved while it serves (``checkpoint_phase``); then with
 strategy="hybrid" (per-node windows + graph walk); then the collective
 sharded search (``mesh_pass``): NCCL at world size 1 over the same index
 as one shard, serving the same bursts under auto, hybrid and int8 through
@@ -18,8 +23,8 @@ lowers to 3 disjoint boxes, one to the bitmask scan); then with
 strategy="graph" under every scoring backend it takes (the fused filter
 gather, the unfused gather, pallas_l2) and both routers (level, dfs);
 then the builders' pass (``builders_pass``): Algorithm 5
-(``builder="incremental"``) over every 20th row of the corpus, timed per
-level, its graphs held to the graph invariants and 64 of its nodes to a
+(``builder="incremental"``) over every 40th row of the corpus, timed per
+level, its graphs held to the graph invariants and 32 of its nodes to a
 numpy replay of their merge (``smoke_reference.merge_node``), the same
 bursts served over it and held to the numpy beam search beside a
 ``builder="device"`` index of the same rows, then the iRangeGraph,
@@ -83,12 +88,14 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import faulthandler
 import gc
 import json
 import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -437,6 +444,49 @@ def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev, *,
           f"equal on {same} of {ids.numel()} slots ({ties} near-ties), max "
           f"abs err {err:.3g}; ids and dists equal to the box scan's on the "
           f"mask as an attribute", flush=True)
+
+    # the same mask over a bf16 corpus (an index stored in bf16): against
+    # its plain version, and bit for bit against the bf16 box scan on the
+    # mask as a one-attribute box (both widen each row, then run one fmaf
+    # chain)
+    def kern_mask_b():
+        return ops.scan_topk_mask(cb, mask, q, k=k)
+
+    def plain_mask_b():
+        return ref.scan_topk_mask_ref(cb, mask, q, k)
+
+    def lib_mask_b():
+        dist = torch.cdist(q, cb.float())
+        return torch.topk(torch.where(okr[None], dist, float("inf")), k,
+                          largest=False)
+
+    ids, dd = kern_mask_b()
+    rids, rdd = plain_mask_b()
+    bids, bdd = ops.scan_topk(cb, mask, q,
+                              torch.full((B, 1), 1e-30, device=dev),
+                              torch.full((B, 1), float("inf"), device=dev),
+                              k=k)
+    torch.cuda.synchronize()
+    check(torch.equal(ids, bids) and torch.equal(dd, bdd),
+          f"scan_topk_mask_bf16 differs from the bf16 box scan on the mask "
+          f"as an attribute: ids on {int((ids != bids).sum())} slots, dists "
+          f"on {int((dd != bdd).sum())}")
+    same, ties, err = topk_agree("scan_topk_mask_bf16", ids, dd, rids, rdd)
+    nbytes = n * 4 + n_rows * d * 2 + q.numel() * 4 + B * k * 8
+    bms, by = bound_ms(nbytes, n_rows * B * d * 3)
+    r = rows["scan_topk_mask_bf16"] = dict(
+        name="scan_topk_mask_bf16", route="cuda", launches=0,
+        source=SCAN_CU, replaces=SCAN_TPU + ":241", max_abs_err=err,
+        ms=time_ms(kern_mask_b, reps=5),
+        plain_ms=time_ms(plain_mask_b, reps=1, warmup=0),
+        bound_ms=bms, bound_by=by, library_ms=time_ms(lib_mask_b, reps=3))
+    print(f"[kernels] scan_topk_mask_bf16 B={B} N={n} d={d} k={k}: "
+          f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, cdist+mask+topk "
+          f"{r['library_ms']:.3f}, bound {bms:.3f} by {by}, fp32 "
+          f"instruction ceiling {instr_ms:.3f}, {n_rows} rows pass), ids "
+          f"equal on {same} of {ids.numel()} slots ({ties} near-ties), max "
+          f"abs err {err:.3g}; ids and dists equal to the bf16 box scan's on "
+          f"the mask as an attribute", flush=True)
     del mask, okr, bids, bdd
 
     if synthetic_windows:
@@ -453,9 +503,11 @@ def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev, *,
             st[b, :nw] = cut * slot
             ct[b, :nw] = gen.integers(1, slot + 1, size=nw)
         st[-1, 0], ct[-1, 0] = n - 100, 100      # ends at N
+        st, ct = torch.as_tensor(st).to(dev), torch.as_tensor(ct).to(dev)
         rows["scan_topk_windows"] = windows_check(
-            corpus, attrs, q, qlo_s, qhi_s, torch.as_tensor(st).to(dev),
-            torch.as_tensor(ct).to(dev), k, "synthetic windows")
+            corpus, attrs, q, qlo_s, qhi_s, st, ct, k, "synthetic windows")
+        rows["scan_topk_windows_bf16"] = windows_check(
+            cb, attrs, q, qlo_s, qhi_s, st, ct, k, "synthetic windows")
     del corpus, attrs, qv, qs, cb
 
     # -- l2dist_qn at (2048, d) x (65536, d): against the plain version
@@ -771,17 +823,21 @@ def windows_check(pos_vecs, pos_attrs, q, qlo, qhi, starts, counts, k,
     dev = pos_vecs.device
     B, W = starts.shape
     N, d = pos_vecs.shape
+    bf16 = pos_vecs.dtype == torch.bfloat16
+    name = "scan_topk_windows_bf16" if bf16 else "scan_topk_windows"
     m = pos_attrs.shape[1]
     st, ct = starts.cpu().numpy(), counts.cpu().numpy()
     lane_rows, n_pass = [], 0
     cov_any = torch.zeros(N, dtype=torch.bool, device=dev)
     pass_any = torch.zeros(N, dtype=torch.bool, device=dev)
     for b in range(B):
+        # the rows of lane b's windows in order: [s, min(s + c, N)) each
         live = (st[b] >= 0) & (ct[b] > 0)
-        segs = [np.arange(s0, min(int(s0) + int(c0), N))
-                for s0, c0 in zip(st[b][live], ct[b][live])]
-        r = torch.as_tensor(np.concatenate(segs) if segs
-                            else np.zeros(0, np.int64)).to(dev)
+        s0 = st[b][live].astype(np.int64)
+        c0 = np.clip(np.minimum(s0 + ct[b][live], N) - s0, 0, None)
+        first = np.cumsum(c0) - c0
+        r = torch.as_tensor(np.repeat(s0 - first, c0)
+                            + np.arange(int(c0.sum()))).to(dev)
         a = pos_attrs.index_select(0, r)
         ok = ((a >= qlo[b]) & (a <= qhi[b])).all(-1)
         n_pass += int(ok.sum())
@@ -805,7 +861,8 @@ def windows_check(pos_vecs, pos_attrs, q, qlo, qhi, starts, counts, k,
         out = []
         for b, r in enumerate(lane_rows):
             if r.numel():
-                dist = torch.cdist(q[b:b + 1], pos_vecs.index_select(0, r))
+                dist = torch.cdist(q[b:b + 1],
+                                   pos_vecs.index_select(0, r).float())
                 a = pos_attrs.index_select(0, r)
                 ok = ((a >= qlo[b]) & (a <= qhi[b])).all(-1)
                 out.append(torch.topk(torch.where(ok, dist[0], float("inf")),
@@ -813,10 +870,10 @@ def windows_check(pos_vecs, pos_attrs, q, qlo, qhi, starts, counts, k,
         return out
 
     ids, dd = kern()
-    tiles = ops.SCAN_TILES["scan_topk_windows"].tolist()
+    tiles = ops.SCAN_TILES[name].tolist()
     rids, rdd = plain()
     torch.cuda.synchronize()
-    same, ties, err = topk_agree("scan_topk_windows", ids, dd, rids, rdd)
+    same, ties, err = topk_agree(name, ids, dd, rids, rdd)
     # where the time goes: the pre-pass alone (the bitmap's memset and
     # the cover kernel), and the same windows with every box empty, where
     # no pair passes and a covered tile costs only its attrs and box test
@@ -827,18 +884,19 @@ def windows_check(pos_vecs, pos_attrs, q, qlo, qhi, starts, counts, k,
     inf = torch.full_like(qlo, float("inf"))
     empty_ms = time_ms(lambda: ops.scan_topk_windows(
         pos_vecs, pos_attrs, q, inf, -inf, starts, counts, k=k), reps=5)
-    nbytes = (rows_cov * m * 4 + rows_pass * d * 4 + q.numel() * 4
-              + 2 * qlo.numel() * 4 + 2 * starts.numel() * 4 + B * k * 8)
+    nbytes = (rows_cov * m * 4 + rows_pass * d * pos_vecs.element_size()
+              + q.numel() * 4 + 2 * qlo.numel() * 4 + 2 * starts.numel() * 4
+              + B * k * 8)
     bms, by = bound_ms(nbytes, n_pass * d * 3)
     r = dict(
-        name="scan_topk_windows", route="cuda", launches=0, source=SCAN_CU,
+        name=name, route="cuda", launches=0, source=SCAN_CU,
         replaces=SCAN_TPU + ":305", max_abs_err=err,
         ms=time_ms(kern, reps=5),
         plain_ms=time_ms(plain, reps=1, warmup=0),
         bound_ms=bms, bound_by=by, library_ms=time_ms(lib, reps=2),
         tiles=dict(zip(("uncovered", "empty", "sparse", "dense"), tiles)),
         pre_pass_ms=cover_ms, empty_boxes_ms=empty_ms)
-    print(f"[kernels] scan_topk_windows at {what}: B={B} W={W} k={k}, "
+    print(f"[kernels] {name} at {what}: B={B} W={W} k={k}, "
           f"{covered} covered (lane, row) pairs ({n_pass} pass) over "
           f"{rows_cov} distinct rows ({rows_pass} pass some lane), d={d}: "
           f"{r['ms']:.3f} ms "
@@ -861,6 +919,15 @@ def lane_sample(lanes, n: int = 64, seed: int = 0):
         return lanes
     return np.sort(np.random.default_rng(seed).choice(lanes, n,
                                                       replace=False))
+
+
+def pmap(fn, items, workers: int = 8) -> list:
+    """``[fn(x) for x in items]`` on a pool of host threads: numpy lets go
+    of the GIL in its array loops, so a check over the whole corpus runs
+    on several cores."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(min(workers, os.cpu_count() or 1)) as ex:
+        return list(ex.map(fn, items))
 
 
 def lanes_exact(ids, dists, t_ids, t_d):
@@ -917,11 +984,32 @@ def l2dist_events(calls: list):
     return l2dist_qn, timed_l2dist_qn
 
 
-def main_path(n: int, n_full: int, dev, rows: dict) -> None:
+def main_data(n: int, nq: int = 192):
+    """The main path's corpus and its two query sets (1/4 and 1/64), made
+    on the host: -> (vecs, attrs, (Qg, Pg), (Qs, Ps))."""
+    from repro_torch.configs.khi_serve import config
+    from repro_torch.data import DatasetSpec, make_dataset, make_queries
+
+    cfg = config()
+    t0 = time.perf_counter()
+    spec = DatasetSpec("khi-serve", n=n, d=cfg.d, m=cfg.m,
+                       attr_kinds=("year", "lognormal", "lognormal",
+                                   "lognormal"),
+                       attr_corr=0.85, n_clusters=64, seed=0)
+    vecs, attrs = make_dataset(spec)
+    g = make_queries(vecs, attrs, n_queries=nq, sigma=1 / 4, seed=1)
+    s = make_queries(vecs, attrs, n_queries=nq, sigma=1 / 64, seed=2)
+    print(f"[data] corpus ({n}, {cfg.d}) + {2 * nq} queries in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return vecs, attrs, g, s
+
+
+def main_path(n: int, n_full: int, dev, rows: dict, data=None) -> None:
+    """The main path and every later pass over its index; ``data`` is
+    ``main_data(n)``'s output, made here when None."""
     from repro_torch.configs.khi_serve import config
     from repro_torch.core import KHIConfig, KHIIndex
     from repro_torch.core.engine import device_put_index
-    from repro_torch.data import DatasetSpec, make_dataset, make_queries
     from repro_torch.kernels import ops, ref
     from repro_torch.serve import KHIService, Request, ServeConfig
 
@@ -936,17 +1024,8 @@ def main_path(n: int, n_full: int, dev, rows: dict) -> None:
           f"buckets={cfg.buckets}", flush=True)
 
     # ---- phase 3: data, tree on the host, graphs on the card
-    t0 = time.perf_counter()
-    spec = DatasetSpec("khi-serve", n=n, d=cfg.d, m=cfg.m,
-                       attr_kinds=("year", "lognormal", "lognormal",
-                                   "lognormal"),
-                       attr_corr=0.85, n_clusters=64, seed=0)
-    vecs, attrs = make_dataset(spec)
-    nq = 192
-    Qg, Pg = make_queries(vecs, attrs, n_queries=nq, sigma=1 / 4, seed=1)
-    Qs, Ps = make_queries(vecs, attrs, n_queries=nq, sigma=1 / 64, seed=2)
-    print(f"[data] corpus ({n}, {cfg.d}) + {2 * nq} queries in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    vecs, attrs, (Qg, Pg), (Qs, Ps) = data or main_data(n)
+    nq = len(Qg)
 
     ops.reset_launches()
     ref.reset_calls()
@@ -1075,6 +1154,14 @@ def main_path(n: int, n_full: int, dev, rows: dict) -> None:
                                    serve_bursts, use_scan, t_ids, ref_ent,
                                    dev, rows)
         mark(f"the {quant} pass")
+    db, bsvc = bf16_corpus_pass(index, di, params, cfg, Q, lo, hi,
+                                perm >= nq, serve_bursts, sizes, use_scan,
+                                t_ids, ref_ent, len(results) / dt, dev, rows)
+    mark("the bf16 corpus pass")
+    checkpoint_phase(db, bsvc, Q, serve_bursts, dev)
+    del db, bsvc
+    torch.cuda.empty_cache()
+    mark("the checkpoint phase")
     served["hybrid"] = hybrid_pass(index, di, params, cfg, Q, lo, hi,
                                    perm >= nq, serve_bursts, ids, use_scan,
                                    t_ids, t_d, dev, rows)
@@ -1279,34 +1366,42 @@ HAND_KERNELS = {
                        "scan_topk"),
     "scan_topk_q8": (r"box_scan_kernel<signed char, \w+, false>",
                      "scan_topk_q8"),
-    "scan_topk_mask": ("mask_partial_kernel", "scan_topk_mask"),
+    "scan_topk_mask": (r"mask_partial_kernel<float, \w+>",
+                       "scan_topk_mask"),
+    "scan_topk_mask_bf16": (r"mask_partial_kernel<__nv_bfloat16, \w+>",
+                            "scan_topk_mask"),
     "scan_topk_windows": (r"box_scan_kernel<float, \w+, true>",
                           "scan_topk_windows"),
+    "scan_topk_windows_bf16": (r"box_scan_kernel<__nv_bfloat16, \w+, true>",
+                               "scan_topk_windows"),
     "l2dist_qn": ("l2dist_qn_kernel", "l2dist_qn"),
     "l2dist_qc": ("l2dist_qc_kernel", "l2dist_qc")}
 
 
 def profile_once(fn):
     """Run ``fn`` once under torch.profiler, then synchronize. -> (wall s,
-    main-thread CPU s, the device-side events as (key, self ms, count),
-    the device-side event names). Device-side events only (kernels,
-    copies, NCCL's): an operator's own entry repeats the device time of
-    the kernels it launched, so nothing counts twice."""
+    main-thread CPU s, the device-side events as (name, ms, count), the
+    device-side event names). Device-side records only (kernels, copies,
+    NCCL's), so nothing counts twice; the profiler records no host
+    operators, and its records are read raw: parsing a graph program's
+    thousands of launches into FunctionEvents took seconds a trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0, c0 = time.perf_counter(), time.thread_time()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         cpu = time.thread_time() - c0
-    evs = [(e.key, e.self_device_time_total / 1e3, e.count)
-           for e in prof.key_averages() if e.device_type != DeviceType.CPU
-           and e.self_device_time_total > 0]
-    dev_names = [e.name for e in prof.events()
-                 if e.device_type != DeviceType.CPU]
+    agg, dev_names = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            continue
+        ms, n = agg.get(e.name(), (0.0, 0))
+        agg[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+        dev_names.append(e.name())
+    evs = [(key, ms, n) for key, (ms, n) in agg.items() if ms > 0]
     return wall, cpu, evs, dev_names
 
 
@@ -1485,11 +1580,13 @@ def quant_pass(quant, index, di, params, cfg, Q, lo, hi, serve_bursts,
     # ---- the int8 path against smoke_reference.py (numpy only)
     t0 = time.perf_counter()
     qv_card, qs_card = dq.qvecs.cpu().numpy(), dq.qscale.cpu().numpy()
-    diff = 0
-    for s in range(0, len(index.vecs), 1 << 17):
+
+    def differ(s):
         a, b = sref.quantize_rows_i8(index.vecs[s:s + (1 << 17)])
-        diff += int((a != qv_card[s:s + (1 << 17)]).sum())
-        diff += int((b != qs_card[s:s + (1 << 17)]).sum())
+        return (int((a != qv_card[s:s + (1 << 17)]).sum())
+                + int((b != qs_card[s:s + (1 << 17)]).sum()))
+
+    diff = sum(pmap(differ, range(0, len(index.vecs), 1 << 17)))
     deq = sref.dequant_rows(qv_card, qs_card)
     print(f"[int8] replica: {diff} elements differ from numpy's "
           f"quantization ({time.perf_counter() - t0:.1f}s on the host)",
@@ -1522,9 +1619,9 @@ def quant_pass(quant, index, di, params, cfg, Q, lo, hi, serve_bursts,
     kq = min(max(p.k, p.k * p.rerank_mult), len(index.vecs))
     t0 = time.perf_counter()
     ss = lane_sample(si)
-    same_scan = sum(bool((sref.scan_rerank(
+    same_scan = sum(pmap(lambda i: bool((sref.scan_rerank(
         deq, index.vecs, index.attrs, Q[i], lo[i], hi[i], k=p.k, kq=kq)[0]
-        == ids[i]).all()) for i in ss)
+        == ids[i]).all()), ss))
     print(f"[int8] scan lanes: ids equal to the numpy int8 over-fetch "
           f"(kq={kq}) + f32 rerank on {same_scan} of {len(ss)} sampled lanes "
           f"(of {len(si)}; {time.perf_counter() - t0:.1f}s on the host)",
@@ -1532,6 +1629,386 @@ def quant_pass(quant, index, di, params, cfg, Q, lo, hi, serve_bursts,
     check(same_scan >= 0.95 * len(ss),
           "int8: the scan lanes disagree with the numpy reference")
     return ids, dists
+
+
+def served_run(svc, serve, qs):
+    """One served run with the launch counts set to 0 just before it and
+    read just after: -> (ids, dists, seconds, launches, plain-version CUDA
+    calls)."""
+    from repro_torch.kernels import ops, ref
+
+    ops.reset_launches()
+    ref.reset_calls()
+    t0 = time.perf_counter()
+    out = serve(svc, qs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    plain = {k: v["cuda"] for k, v in ref.CALLS.items() if v["cuda"]}
+    if not isinstance(out, tuple):        # a list of Results
+        out = (np.stack([r.ids for r in out]),
+               np.stack([r.dists for r in out]))
+    return (*out, dt, launches, plain)
+
+
+def bf16_corpus_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts,
+                     sizes, use_scan, t_ids, ref_ent, f32_qps, dev, rows):
+    """The index stored in bf16 (``device_put_index(vec_dtype=
+    torch.bfloat16)``) beside the f32 one, from the same host index and
+    graph: the 384 requests served under auto with the fused backend; the
+    same requests under strategy="graph" with pallas_gather_l2 (its graph
+    lanes bit-equal to auto's) and pallas_l2, and the f32 index's fused
+    graph walk for its recall; hybrid at the cell's node threshold (every
+    lane pure-window: the bf16 windowed form, held to its plain version at
+    the served 1/64 windows and at every lane's first); expression E2 (the
+    bitmask: the bf16 bitmask form); and the int8 tier over the bf16
+    corpus, which the reference allows. Truths come from
+    smoke_reference.py alone: the corpus rounded to bf16 by bit
+    arithmetic (which the card's copy must equal), exact float64 top-k of
+    it for 64 sampled lanes of each exact path (scan lanes, 1/64
+    pure-window lanes, E2 lanes; the query unrounded, as those paths pass
+    it), and the numpy DFS + beam search on the rounded corpus with the
+    query rounded to bf16 (as the fused gather rounds it) for the graph
+    lanes, >= 95% equal in ids and hops. Each served run's launches are
+    counted alone. Returns the bf16 DeviceIndex."""
+    import smoke_reference as sref
+    from repro_torch.core.engine import (Planner, device_put_index,
+                                         with_quant_replica)
+    from repro_torch.core.predicate import parse_expr
+    from repro_torch.serve import KHIService, Request, ServeConfig
+
+    k = cfg.k
+    t0 = time.perf_counter()
+    db = device_put_index(dataclasses.replace(
+        index, nbrs=di.nbrs.permute(1, 0, 2)), device=dev,
+        vec_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    put_s = time.perf_counter() - t0
+    check(db.nbrs.data_ptr() == di.nbrs.data_ptr(),
+          "bf16 corpus: the graph was copied, not shared")
+    t0 = time.perf_counter()
+    vb = np.concatenate(pmap(lambda s: sref.round_bf16(
+        index.vecs[s:s + (1 << 17)]), range(0, len(index.vecs), 1 << 17)))
+    round_s = time.perf_counter() - t0
+    diff = 0
+    for s in range(0, len(vb), 1 << 17):
+        diff += int((db.vecs[s:s + (1 << 17)].float() != torch.as_tensor(
+            vb[s:s + (1 << 17)]).to(dev)).sum())
+    print(f"[bf16 corpus] index_gib f32 {index_gib(di):.3f}, bf16 "
+          f"{index_gib(db):.3f} (vectors {di.vecs.numel() * 4 / 2**30:.3f} "
+          f"-> {db.vecs.numel() * 2 / 2**30:.3f} GiB); put on the card in "
+          f"{put_s:.2f}s; numpy's bf16 rounding in {round_s:.1f}s on the "
+          f"host, {diff} elements differ from the card's", flush=True)
+    check(diff == 0, "bf16 corpus: the card's rounding differs from numpy's")
+    Qr = sref.round_bf16(Q)
+    # the query each lane's path scores with: graph walks round it to bf16
+    # (the gathers), scans and windows pass it unrounded
+    Qc = np.where(use_scan[:, None], Q, Qr)
+    gi = np.nonzero(~use_scan)[0]
+    si = np.nonzero(use_scan)[0]
+    sel = {"1/4": np.nonzero(~is_s)[0], "1/64": np.nonzero(is_s)[0]}
+    svc_cfg = ServeConfig(buckets=cfg.buckets, cache_size=cfg.cache_size)
+
+    def box_truth(lanes, q):
+        def one(i):
+            rows_i = np.nonzero(((index.attrs >= lo[i])
+                                 & (index.attrs <= hi[i])).all(1))[0]
+            a, b = sref.topk_f64(vb, rows_i, q[i][None], k)
+            return int(i), (a[0], b[0])
+        return dict(pmap(one, lanes))
+
+    def exact_on(lanes, ids, dists, truth):
+        t_i = np.stack([truth[int(i)][0] for i in lanes])
+        t_dd = np.stack([truth[int(i)][1] for i in lanes])
+        return lanes_exact(ids[lanes], dists[lanes], t_i, t_dd)
+
+    # ---- (a) auto, the fused backend
+    svc = KHIService(db, params, config=svc_cfg)
+    serve_bursts(svc, Q + np.float32(1e-3))        # warm-up, other keys
+    a_ids, a_d, dt, launches, plain = served_run(svc, serve_bursts, Q)
+    print(f"[bf16 corpus] auto: {len(Q)} requests in {dt:.3f}s "
+          f"({len(Q) / dt:.1f} QPS end-to-end, against {f32_qps:.1f} for "
+          f"the f32 index in the main path; passes differ by up to 2x on "
+          f"this host, PERF.md 7); launches {launches}; plain-version "
+          f"CUDA calls {plain}", flush=True)
+    for name in ("gather_l2_filter_bf16", "scan_topk_bf16"):
+        check(launches.get(name, 0) > 0,
+              f"bf16 corpus auto: {name} was never launched")
+    check(not plain, f"bf16 corpus auto: fell through to {plain}")
+    check(launches.get("gather_l2_filter", 0) == 0
+          and launches.get("scan_topk", 0) == 0,
+          "bf16 corpus auto: an f32 form ran on the bf16 index")
+    check(np.array_equal(svc._planner.plan(lo, hi).use_scan, use_scan),
+          "bf16 corpus auto: the planner split the lanes differently")
+    check_served(a_ids, a_d, vb, index.attrs, Qc, lo, hi, "bf16 corpus auto")
+    samp = lane_sample(si)
+    truth = box_truth(samp, Q)
+    ok = exact_on(samp, a_ids, a_d, truth)
+    print(f"[bf16 corpus] scan lanes: {int(ok.sum())} of {len(samp)} sampled "
+          f"(of {len(si)}) equal the float64 top-k of the bf16 corpus",
+          flush=True)
+    check(bool(ok.all()), "bf16 corpus: a scan lane is not exact")
+
+    # graph lanes: the graph program and the numpy DFS + beam search on the
+    # rounded corpus with the rounded query
+    p = svc.params
+    g_ids, _, g_hops, _ = Planner(db, dataclasses.replace(
+        p, strategy="graph")).search(Q[gi], lo[gi], hi[gi])
+    check(bool((g_ids == a_ids[gi]).all()),
+          "bf16 corpus: served graph lanes differ from the graph program's")
+    nbrs = di.nbrs.cpu().numpy()
+    t0 = time.perf_counter()
+    ref_out = [sref.beam_search(vb, index.attrs, nbrs, e, Qr[i], lo[i],
+                                hi[i], k=k, ef=p.ef, c_n=p.c_n,
+                                E=p.expand_width, max_hops=p.hops())
+               for e, i in zip(ref_ent, gi)]
+    del nbrs
+    same_ids = (g_ids == np.stack([r[0] for r in ref_out])).all(1)
+    same_hops = g_hops == np.array([r[2] for r in ref_out])
+    print(f"[bf16 corpus] graph lanes: ids equal to the numpy beam search "
+          f"on the bf16 corpus on {int(same_ids.sum())} of {len(gi)}, hops "
+          f"on {int(same_hops.sum())} ({time.perf_counter() - t0:.1f}s on "
+          f"the host)", flush=True)
+    check(same_ids.mean() >= 0.95 and same_hops.mean() >= 0.95,
+          "bf16 corpus: the hop loop disagrees with the numpy beam search")
+
+    # ---- (b), (c): strategy="graph" on the unfused backends; the f32
+    # index's fused walk for its recall
+    def search_all(svc, qs):
+        return svc.search(qs, lo, hi)
+
+    out = {}
+    for tag, backend, kern in (("b", "pallas_gather_l2", "gather_l2"),
+                               ("c", "pallas_l2", "l2dist_qc")):
+        gsvc = KHIService(db, dataclasses.replace(
+            params, strategy="graph", backend=backend), config=svc_cfg)
+        ids, dists, dt, launches, plain = served_run(gsvc, search_all, Q)
+        out[tag] = ids, dists
+        check(launches.get(kern, 0) > 0 and not plain
+              and not launches.get("gather_l2_filter_bf16", 0),
+              f"bf16 corpus ({tag}): launches {launches}, plain {plain}")
+        check_served(ids, dists, vb, index.attrs, Qr, lo, hi,
+                     f"bf16 corpus ({tag})",
+                     atol=1e-3 if backend == "pallas_l2" else 1e-8)
+        print(f"[bf16 corpus] ({tag}) graph, {backend}: {len(Q)} requests "
+              f"in {dt:.3f}s; launches {launches}", flush=True)
+        del gsvc
+    b_ids, b_d = out["b"]
+    check(np.array_equal(b_ids[gi], a_ids[gi])
+          and np.array_equal(b_d[gi], a_d[gi]),
+          "bf16 corpus: (b) differs from (a) on the graph lanes")
+    c_same = (out["c"][0] == b_ids).all(1)
+    f_ids = Planner(di, dataclasses.replace(p, strategy="graph")).search(
+        Q, lo, hi)[0]
+    rec = {tag: {s: recall(x[0][i], t_ids[i]) for s, i in sel.items()}
+           for tag, x in (("bf16", out["b"]), ("pallas_l2", out["c"]),
+                          ("f32", (f_ids,)))}
+    print(f"[bf16 corpus] (b) equals (a) bit for bit on the {len(gi)} graph "
+          f"lanes; (c) ids equal to (b) on {int(c_same.sum())} of {len(Q)}; "
+          f"recall@{k} of the graph walk against the f32 truth: bf16 "
+          + ", ".join(f"{s} {r:.4f}" for s, r in rec["bf16"].items())
+          + "; f32 " + ", ".join(f"{s} {r:.4f}" for s, r in rec["f32"].items())
+          + "; bf16 pallas_l2 " + ", ".join(
+              f"{s} {r:.4f}" for s, r in rec["pallas_l2"].items()),
+          flush=True)
+    check(c_same.mean() >= 0.95, "bf16 corpus: (c) differs from (b)")
+    del out, f_ids
+
+    # ---- hybrid at the cell's node threshold: every lane pure-window
+    hsvc = KHIService(db, dataclasses.replace(params, strategy="hybrid"),
+                      config=svc_cfg)
+    pl = hsvc._planner
+    check(pl._pos_vecs.dtype == torch.bfloat16,
+          "bf16 corpus: the windowed scan's corpus is not bf16")
+    plan = pl.plan(lo, hi)
+    for part, lanes in (("1/64", is_s & (plan.mode >= 1)),
+                        ("all", plan.mode == 1)):
+        idx = np.nonzero(lanes)[0]
+        qs, ql, qh = pl._pad_pow2(Q[idx], lo[idx], hi[idx])
+        starts, counts, w_cap = pl._build_windows(plan.small_nodes, idx,
+                                                  qs.shape[0])
+        r = windows_check(
+            pl._pos_vecs, pl._pos_attrs,
+            *(torch.as_tensor(a).to(dev) for a in (qs, ql, qh)),
+            starts[0].contiguous(), counts[0].contiguous(), k,
+            f"the windows of {len(idx)} served {part} lanes (w_cap "
+            f"{w_cap}, bf16 corpus)")
+        if part == "1/64":
+            rows["scan_topk_windows_bf16"] = r
+        else:
+            rows["scan_topk_windows_bf16"]["all_lanes"] = {
+                key: r[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err", "tiles", "pre_pass_ms", "empty_boxes_ms")}
+        del starts, counts
+    serve_bursts(hsvc, Q + np.float32(1e-3))
+    h_ids, h_d, dt, launches, plain = served_run(hsvc, serve_bursts, Q)
+    n_pure = int((plan.mode == 1).sum())
+    print(f"[bf16 corpus] hybrid {pl.node_scan_threshold}: {len(Q)} "
+          f"requests in {dt:.3f}s ({len(Q) / dt:.1f} QPS end-to-end); "
+          f"pure-window lanes {n_pure}; launches {launches}", flush=True)
+    check(n_pure == len(Q), "bf16 corpus hybrid: a lane was not pure-window")
+    check(launches.get("scan_topk_windows_bf16", 0) > 0 and not plain
+          and not launches.get("scan_topk_windows", 0),
+          f"bf16 corpus hybrid: launches {launches}, plain {plain}")
+    rows["scan_topk_windows_bf16"]["launches"] = launches.get(
+        "scan_topk_windows_bf16", 0)
+    check_served(h_ids, h_d, vb, index.attrs, Q, lo, hi, "bf16 hybrid")
+    wl = lane_sample(np.nonzero(is_s)[0])
+    truth.update(box_truth([i for i in wl if int(i) not in truth], Q))
+    ok = exact_on(wl, h_ids, h_d, truth)
+    print(f"[bf16 corpus] pure-window lanes: {int(ok.sum())} of {len(wl)} "
+          f"sampled 1/64 ones equal the float64 top-k of the bf16 corpus",
+          flush=True)
+    check(bool(ok.all()), "bf16 corpus: a pure-window lane is not exact")
+    del hsvc, pl
+
+    # ---- E2: the bitmask scan of the bf16 corpus
+    years = tuple(range(2005, 2024, 2))
+    e2 = parse_expr("a0 in [" + ", ".join(map(str, years)) + "]", cfg.m)
+    mask = sref.year_mask(index.attrs, years)
+
+    def serve_e2(svc, qs):
+        res, s = [], 0
+        for b in sizes:
+            tickets = [svc.submit(Request(qs[i], expr=e2))
+                       for i in range(s, s + b)]
+            got = svc.flush()
+            res.extend(got[t] for t in tickets)
+            s += b
+        return res
+
+    esvc = KHIService(db, params, config=svc_cfg)
+    serve_e2(esvc, Q + np.float32(1e-3))
+    e_ids, e_d, dt, launches, plain = served_run(esvc, serve_e2, Q)
+    print(f"[bf16 corpus] E2 ({int(mask.sum())} rows, bitmask): {len(Q)} "
+          f"requests in {dt:.3f}s; launches {launches}", flush=True)
+    check(launches.get("scan_topk_mask_bf16", 0) > 0 and not plain
+          and not launches.get("scan_topk_mask", 0),
+          f"bf16 corpus E2: launches {launches}, plain {plain}")
+    rows["scan_topk_mask_bf16"]["launches"] = launches.get(
+        "scan_topk_mask_bf16", 0)
+    el = lane_sample(np.arange(len(Q)))
+    t0 = time.perf_counter()
+    t_i, t_dd = sref.topk_f64(vb, np.nonzero(mask)[0], Q[el], k)
+    ok = lanes_exact(e_ids[el], e_d[el], t_i, t_dd)
+    print(f"[bf16 corpus] E2 lanes: {int(ok.sum())} of {len(el)} sampled "
+          f"equal the float64 top-k of the bf16 corpus under the mask "
+          f"({time.perf_counter() - t0:.1f}s on the host)", flush=True)
+    check(bool(ok.all()), "bf16 corpus: a bitmask lane is not exact")
+    del esvc
+
+    # ---- the int8 tier over the bf16 corpus (its replica quantized from
+    # the bf16 rows, its rerank on them)
+    dq = with_quant_replica(db, "int8")
+    qsvc = KHIService(dq, dataclasses.replace(params, quant="int8"),
+                      config=svc_cfg)
+    serve_bursts(qsvc, Q + np.float32(1e-3))
+    q_ids, q_d, dt, launches, plain = served_run(qsvc, serve_bursts, Q)
+    for name in ("gather_l2_filter_q8", "scan_topk_q8",
+                 "gather_l2_filter_bf16"):
+        check(launches.get(name, 0) > 0,
+              f"bf16 corpus int8: {name} was never launched")
+    check(not plain, f"bf16 corpus int8: fell through to {plain}")
+    check_served(q_ids, q_d, vb, index.attrs, Qc, lo, hi, "bf16 int8")
+    ok = exact_on(samp, q_ids, q_d, truth)
+    print(f"[bf16 corpus] int8: {len(Q)} requests in {dt:.3f}s "
+          f"({len(Q) / dt:.1f} QPS end-to-end); launches {launches}; graph "
+          f"lanes recall@{k} {recall(q_ids[gi], t_ids[gi]):.4f} (auto over "
+          f"bf16 {recall(a_ids[gi], t_ids[gi]):.4f}); scan lanes equal to "
+          f"the bf16 truth on {int(ok.sum())} of {len(samp)} sampled",
+          flush=True)
+    del qsvc, dq, vb
+    return db, svc
+
+
+def checkpoint_phase(db, svc, Q, serve_bursts, dev) -> None:
+    """The checkpoint manager on card tensors: a tree (a dict holding a
+    NamedTuple, a list and a tuple) of the first 65,536 rows of the bf16
+    index's planes, bf16 vectors included, saved by AsyncCheckpointer
+    while a served burst runs on the bf16 index; then load_checkpoint +
+    restore_into onto a template on the card, and reshard_checkpoint;
+    every leaf must be torch.equal to the original. Prints the snapshot
+    (the synchronous copy to the host), the background write and the
+    restore seconds."""
+    import shutil
+    from typing import NamedTuple
+
+    from repro_torch.checkpoint import (AsyncCheckpointer, load_checkpoint,
+                                        manager, restore_into)
+    from repro_torch.distributed import reshard_checkpoint
+
+    class Planes(NamedTuple):
+        lo: object
+        hi: object
+        count: object
+
+    r = 65536
+
+    def make(fn):
+        """The checkpointed tree (a dict holding a NamedTuple, a list and a
+        tuple) with ``fn`` applied to each plane, and its leaves."""
+        t = {"vecs": fn(db.vecs[:r]), "attrs": fn(db.attrs[:r]),
+             "nbrs": fn(db.nbrs[:r]),
+             "tree": Planes(fn(db.lo), fn(db.hi), fn(db.count)),
+             "order": [fn(db.order[:r])],
+             "live": (fn(torch.isfinite(db.attrs[:r]).all(1)),)}
+        return t, [t["vecs"], t["attrs"], t["nbrs"], *t["tree"],
+                   t["order"][0], t["live"][0]]
+
+    tree, leaves = make(lambda x: x)
+    nbytes = sum(v.numel() * v.element_size() for v in leaves)
+    where = os.path.join(HERE, "build", "smoke_checkpoint")
+    shutil.rmtree(where, ignore_errors=True)
+    writes = []
+    orig = manager.save_checkpoint
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        writes.append(time.perf_counter() - t0)
+        return out
+
+    manager.save_checkpoint = timed_save
+    try:
+        ck = AsyncCheckpointer(where, keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(7, tree, {"rows": r})
+        snap_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serve_bursts(svc, Q + np.float32(2e-3))    # keys not cached yet
+        burst_s = time.perf_counter() - t0
+        ck.wait()
+    finally:
+        manager.save_checkpoint = orig
+    t0 = time.perf_counter()
+    arrays, meta = load_checkpoint(where)
+    template, _ = make(torch.empty_like)
+    out = restore_into(template, arrays)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    again = reshard_checkpoint(arrays, lambda: make(torch.zeros_like)[0])
+    torch.cuda.synchronize()
+    got = [out["vecs"], out["attrs"], out["nbrs"], *out["tree"],
+           out["order"][0], out["live"][0]]
+    got2 = [again["vecs"], again["attrs"], again["nbrs"], *again["tree"],
+            again["order"][0], again["live"][0]]
+    bad = [j for j, (a, b, c) in enumerate(zip(leaves, got, got2))
+           if not (torch.equal(a, b) and torch.equal(a, c)
+                   and b.device == a.device and b.dtype == a.dtype)]
+    on_disk = sum(os.path.getsize(os.path.join(dp, f))
+                  for dp, _, fs in os.walk(where) for f in fs)
+    print(f"[checkpoint] {len(leaves)} leaves ({nbytes / 1e6:.1f} MB, bf16 "
+          f"vectors included) of the bf16 index: snapshot "
+          f"{snap_s:.3f}s, background write {writes[0]:.3f}s "
+          f"({on_disk / 1e6:.1f} MB) while a burst of {len(Q)} requests "
+          f"served in {burst_s:.3f}s, load + restore onto the card "
+          f"{restore_s:.3f}s; step {meta['step']}; every leaf equal after "
+          f"restore_into and reshard_checkpoint: {not bad}", flush=True)
+    check(nbytes >= 100e6, "checkpoint: the tree holds under 100 MB")
+    check(not bad, f"checkpoint: leaves differ after the restore: {bad}")
+    shutil.rmtree(where, ignore_errors=True)
 
 
 def hybrid_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts,
@@ -1877,6 +2354,11 @@ GRAPH_KERNELS = {"a": ("gather_l2_filter",), "b": ("gather_l2",),
 # rescored through afterwards, and the kernel it must launch
 WRAPPER_KERNELS = {"b": "gather_l2_rows", "c": "l2dist_qc",
                    "d": "gather_l2_rows"}
+# (d) serves a seeded sample of this many of the 384 requests, one DFS
+# batch (cut from all 384, two batches, for the time limit), and the
+# uncapped DFS walks DFS_UNCAPPED of them (cut from 128)
+DFS_LANES = 256
+DFS_UNCAPPED = 64
 
 
 def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
@@ -1887,8 +2369,8 @@ def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
     level; (c) pallas_l2 (a PyTorch gather of the candidate rows, then
     l2dist_qc), level; (d) the unfused gather with the stack DFS. Each
     serves the same warm-up pass and the 384 requests in the same bursts
-    through KHIService ((d) all at once, in two batches, to fit the
-    script's time limit), and its launches are counted over the served
+    through KHIService ((d) DFS_LANES of them at once, in one batch, to
+    fit the script's time limit), and its launches are counted over the served
     run alone. Then, under counts of their own, the served answers of (b),
     (c) and (d) are rescored through the public wrappers (the
     row-per-step ops.gather_l2, the rank-dispatching ops.l2dist), which
@@ -1902,7 +2384,7 @@ def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
     max_steps, gives entries equal to smoke_reference.dfs_entries capped
     at the same pops on every lane (the lanes cut are counted), and it
     equals (b) wherever its entries equal the level router's. The DFS
-    router alone then walks 128 sampled boxes with max_steps at the
+    router alone then walks DFS_UNCAPPED sampled boxes with max_steps at the
     tree's node count: entries equal to the uncapped numpy DFS on every
     one, and no lane reaches that cap."""
     import smoke_reference as sref
@@ -1913,10 +2395,13 @@ def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
     from repro_torch.serve import KHIService, ServeConfig
 
     sel = {"1/4": np.nonzero(~is_s)[0], "1/64": np.nonzero(is_s)[0]}
-    qt = torch.as_tensor(Q).to(dev)
+    dl = lane_sample(np.arange(len(Q)), DFS_LANES, seed=7)
     out, svc_params, dfs_run = {}, {}, {}
     for tag, backend, router in GRAPH_CONFIGS:
         name = f"[graph {tag}]"
+        ln = dl if router == "dfs" else np.arange(len(Q))
+        Qx, lox, hix = Q[ln], lo[ln], hi[ln]
+        qt = torch.as_tensor(Qx).to(dev)
         p = dataclasses.replace(params, strategy="graph", backend=backend,
                                 router=router)
         svc = KHIService(di, p, config=ServeConfig(
@@ -1933,9 +2418,9 @@ def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
         ref.reset_calls()
         t0 = time.perf_counter()
         if router == "dfs":
-            # the requests at once (batches of 256 and 128): a DFS batch
-            # costs its longest walk's pops, ~4096 in every burst
-            ids, dists = svc.search(Q, lo, hi)
+            # the sampled requests at once (one batch of 256): a DFS
+            # batch costs its longest walk's pops, ~4096 in every burst
+            ids, dists = svc.search(Qx, lox, hix)
         else:
             results = serve_bursts(svc, Q)
             ids = np.stack([r.ids for r in results])
@@ -1986,15 +2471,16 @@ def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
 
             rt.route_dfs = recording
             try:
-                g_ids, g_d, g_hops, _ = svc._planner.search(Q, lo, hi)
+                g_ids, g_d, g_hops, _ = svc._planner.search(Qx, lox, hix)
             finally:
                 rt.route_dfs = orig_dfs
         else:
-            g_ids, g_d, g_hops, _ = svc._planner.search(Q, lo, hi)
+            g_ids, g_d, g_hops, _ = svc._planner.search(Qx, lox, hix)
         check(np.array_equal(g_ids, ids) and np.array_equal(g_d, dists),
               f"{name} served lanes differ from the graph program's")
         out[tag] = (ids, dists, g_hops)
-        rec = {k: recall(ids[i], t_ids[i]) for k, i in sel.items()}
+        rec = {k: recall(ids[np.isin(ln, i)], t_ids[ln][np.isin(ln, i)])
+               for k, i in sel.items()}
         print(f"{name} backend={backend} router={router}: {len(ids)} "
               f"requests in {dt:.3f}s ({len(ids) / dt:.1f} QPS "
               f"end-to-end); warm-up {warm_s:.1f}s; recall@{cfg.k} "
@@ -2010,8 +2496,8 @@ def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
         if tag != "a":
             check(launches["gather_l2_filter"] == 0,
                   f"{name} launched the fused filter gather")
-        check_served(ids, dists, index.vecs, index.attrs, Q, lo, hi, name,
-                     atol=1e-3 if backend == "pallas_l2" else 1e-8)
+        check_served(ids, dists, index.vecs, index.attrs, Qx, lox, hix,
+                     name, atol=1e-3 if backend == "pallas_l2" else 1e-8)
         if tag == "b":
             rows["gather_l2"]["launches"] = launches["gather_l2"]
         if tag == "c":
@@ -2051,27 +2537,27 @@ def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
                    for i, e in enumerate(ref_ent))
 
     t0 = time.perf_counter()
-    same_ref = n_same(ent, numpy_dfs(pd.max_steps))
+    same_ref = n_same(ent, numpy_dfs(pd.max_steps, dl))
     host_s = time.perf_counter() - t0
     # lanes that max_steps stopped short of c_e entries
     cut = (pops >= pd.max_steps) & ((ent >= 0).sum(1) < pd.c_e)
-    eq_lvl = (ent == lvl).all(1)
-    walk = (d[0] == b[0]).all(1) & (d[2] == b[2])
-    print(f"[graph] (d) DFS router over {len(Q)} lanes (in the graph "
-          f"program's run above) in {dfs_s:.3f}s: entries equal to the numpy "
-          f"DFS capped at max_steps {pd.max_steps} on {same_ref} of "
-          f"{len(Q)} lanes ({host_s:.1f}s on the host); {int(cut.sum())} "
+    eq_lvl = (ent == lvl[dl]).all(1)
+    walk = (d[0] == b[0][dl]).all(1) & (d[2] == b[2][dl])
+    print(f"[graph] (d) DFS router over {len(dl)} sampled lanes (in the "
+          f"graph program's run above) in {dfs_s:.3f}s: entries equal to the "
+          f"numpy DFS capped at max_steps {pd.max_steps} on {same_ref} of "
+          f"{len(dl)} lanes ({host_s:.1f}s on the host); {int(cut.sum())} "
           f"lanes stopped by max_steps short of {pd.c_e} entries; pops per lane max {int(pops.max())}, "
           f"mean {pops.mean():.1f} ({dfs_s / max(1, int(pops.max())) * 1e3:.2f}"
           f" ms a lockstep pop); entries equal to the level router's on "
           f"{int(eq_lvl.sum())}, and ids and hops equal to (b)'s on "
           f"{int(walk[eq_lvl].sum())} of those", flush=True)
-    check(same_ref == len(Q), "(d) the DFS entries differ from numpy's")
+    check(same_ref == len(dl), "(d) the DFS entries differ from numpy's")
     check(bool(walk[eq_lvl].all()),
           "(d) the walk differs from (b)'s on lanes with equal entries")
     # the router alone, uncapped (a DFS pops each node at most once), on
     # a seeded sample of lanes: its cost is the longest walk's pops
-    lu = lane_sample(np.arange(len(Q)), 128, seed=5)
+    lu = lane_sample(np.arange(len(Q)), DFS_UNCAPPED, seed=5)
     p_all = dataclasses.replace(pd, max_steps=int(di.left.numel()))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2142,10 +2628,10 @@ def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
 
 # ------------------------------------------------------ the builders' pass
 
-# rows 0, 20, 40, ... of the main corpus (50,000; cut from 1M, and from
-# 100,000, for the time limit: Algorithm 5 is n / 64 sequential rounds
-# of ~54 launches a hop)
-BUILD_EVERY = 20
+# rows 0, 40, 80, ... of the main corpus (25,000; cut from 1M, then from
+# 100,000 and 50,000, for the time limit: Algorithm 5 is n / 64
+# sequential rounds of ~54 launches a hop)
+BUILD_EVERY = 40
 # card-vs-CPU cases on a 1/32-grid corpus at d = 768, m = 4, M = 32:
 # (n, merge_chunk, symmetric_reverse), cut from 4,096 rows for the time
 # limit: the plain versions take ~300 s on the CPU at 4,096 and
@@ -2157,10 +2643,11 @@ BUILD_GRID_D = 768
 # (tests/test_build_device.py:27-31): (n, d, m, M, ef_b, seed)
 BULK_SEEDS = ((600, 16, 2, 8, None, 1), (900, 24, 3, 8, None, 0),
               (700, 24, 3, 8, 24, 0))
-REPLAY_NODES = 64
-BASELINE_REQUESTS = 32   # per selectivity, through every baseline
+REPLAY_NODES = 32   # cut from 64 for the time limit
+# per selectivity, through every baseline (cut from 32 for the time limit)
+BASELINE_REQUESTS = 16
 # Postfiltering's one graph takes n / 64 sequential rounds: it is built
-# over every 4th of the pass's rows (12,500), cut for the time limit
+# over every 4th of the pass's rows (6,250), cut for the time limit
 POST_EVERY = 4
 
 
@@ -2324,7 +2811,7 @@ def builders_pass(index, params, cfg, Q, lo, hi, is_s, serve_bursts, dev,
     builder on the card, and the baselines: (1) the card's builds equal
     the CPU's (the plain versions) bit for bit on the grid cases and the
     bulk seeds; (2) ``KHIIndex.build`` with ``KHIConfig(M=32)`` over rows 0,
-    10, 20, ... of the main corpus, timed per level with its gather_l2
+    BUILD_EVERY, 2 BUILD_EVERY, ... of the main corpus, timed per level with its gather_l2
     launches, projected to the main corpus's tree, its graphs held to
     the invariants of tests/test_hnsw.py; (3) REPLAY_NODES of its nodes
     replayed by smoke_reference.merge_node; (4) the main path's 384
@@ -4357,6 +4844,9 @@ def main() -> None:
     args = ap.parse_args()
 
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    # a run that nears the 1,200 s limit prints every thread's stack to
+    # stderr, so a stall shows where it was
+    faulthandler.dump_traceback_later(1140)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
@@ -4366,12 +4856,30 @@ def main() -> None:
     print(f"[smoke] card: {card}", flush=True)
     dev = torch.device("cuda")
 
+    # nvcc (one process per source) runs while the host makes the main
+    # path's data; the thread only waits on its processes
     from repro_torch.kernels import _build
-    t0 = time.perf_counter()
-    built = _build.build_all(verbose=True)
-    print(f"[build] kernels built in {time.perf_counter() - t0:.1f}s "
-          f"({json.dumps({k: round(v, 1) for k, v in built.items()})})",
-          flush=True)
+    built = {}
+
+    def build():
+        t0 = time.perf_counter()
+        try:
+            built["seconds"] = _build.build_all(verbose=True)
+        except Exception as e:          # re-raised on the main thread
+            built["error"] = e
+        built["wall"] = time.perf_counter() - t0
+
+    nvcc = threading.Thread(target=build, name="nvcc")
+    nvcc.start()
+    try:
+        data = main_data(args.n) if args.phases != "kernels" else None
+    finally:
+        nvcc.join()
+    if "error" in built:
+        raise built["error"]
+    print(f"[build] kernels built in {built['wall']:.1f}s ("
+          f"{json.dumps({k: round(v, 1) for k, v in built['seconds'].items()})}"
+          f"; beside the main path's data)", flush=True)
     sass_check(_build)
 
     from repro_torch.configs.khi_serve import config
@@ -4382,7 +4890,9 @@ def main() -> None:
     mark("the kernel checks")
     torch.cuda.empty_cache()
     if args.phases != "kernels":
-        main_path(args.n, 1_000_000, dev, rows)
+        main_path(args.n, 1_000_000, dev, rows, data)
+        del data
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -42,6 +42,11 @@ JAX reference itself cannot run.
     greedy searches, the RNG prune over the results and the right child's
     rows, reverse edges object by object), on a given matrix of pair
     distances over the node's members.
+  * the bf16-corpus pass: ``round_bf16`` (float32 values rounded to
+    bfloat16, to nearest with ties to even, by bit arithmetic: the corpus
+    an index stored in bf16 holds, and the query the gathers hand their
+    kernel) and ``topk_f64`` (the exact top-k of a set of rows for many
+    queries, in float64, by (distance, id)).
   * the sharded pass (DESIGN.md §14): ``merge_shards`` (per-shard top-k
     lists over local ids merged into global ids, local j of shard s being
     j * S + s, in (distance, shard, local) order: the order of the
@@ -60,7 +65,8 @@ import numpy as np
 __all__ = ["dfs_entries", "beam_search", "sq_dists_f64", "graph_rows",
            "graph_shape", "quantize_rows_i8", "dequant_rows", "rerank",
            "scan_rerank", "antichain", "window_scan", "year_mask",
-           "live_topk", "merge_dist_ext", "merge_node"]
+           "live_topk", "merge_dist_ext", "merge_node", "round_bf16",
+           "topk_f64"]
 
 
 def _matches(attrs: np.ndarray, lo: np.ndarray, hi: np.ndarray):
@@ -376,6 +382,47 @@ def window_scan(vecs, attrs, tree, nodes, q, lo, hi, k: int):
     cand = np.full(max(k, len(rows)), -1, np.int64)
     cand[:len(rows)] = rows
     return rerank(vecs, cand, q, k)
+
+
+def round_bf16(x):
+    """float32 ``x`` rounded to the nearest bfloat16 (ties to even) and
+    widened back to float32, by bit arithmetic on the float32 words: add
+    0x7FFF plus the lowest kept bit, then clear the low 16 bits. NaN stays
+    NaN; a value past bfloat16's range becomes +-inf, as the cast gives."""
+    x = np.ascontiguousarray(x, np.float32)
+    u = x.view(np.uint32)
+    r = (u + (np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1)))) \
+        & np.uint32(0xFFFF0000)
+    out = r.view(np.float32)
+    return np.where(np.isnan(x), x, out)
+
+
+def topk_f64(vecs, rows, Q, k: int, chunk: int = 1 << 15):
+    """Exact top-k of ``rows`` of ``vecs`` for every query of ``Q`` (B,
+    d), in float64: (ids (B, k) int64, -1 padded; dists (B, k) float32 of
+    the float64 squared distances), by (distance, id). The rows go in
+    chunks; each distance is ``|x|^2 + |q|^2 - 2 x.q`` in float64, whose
+    error (~1e-16 of the norms) lies far below float32's."""
+    rows = np.asarray(rows, np.int64)
+    q = np.asarray(Q, np.float64)
+    qn = (q * q).sum(1)
+    B = len(q)
+    best_d = np.full((B, 0), np.inf)
+    best_i = np.full((B, 0), -1, np.int64)
+    for s in range(0, len(rows), chunk):
+        r = rows[s:s + chunk]
+        x = np.asarray(vecs[r], np.float64)
+        d = (x * x).sum(1)[None] + qn[:, None] - 2.0 * (q @ x.T)
+        cand_d = np.concatenate([best_d, d], 1)
+        cand_i = np.concatenate([best_i, np.broadcast_to(r, d.shape)], 1)
+        o = np.lexsort((cand_i, cand_d), axis=1)[:, :k]
+        best_d = np.take_along_axis(cand_d, o, 1)
+        best_i = np.take_along_axis(cand_i, o, 1)
+    ids = np.full((B, k), -1, np.int64)
+    dd = np.full((B, k), np.inf, np.float32)
+    kk = best_i.shape[1]
+    ids[:, :kk], dd[:, :kk] = best_i, best_d.astype(np.float32)
+    return ids, dd
 
 
 def year_mask(attrs, years, a1_max=None):

@@ -1,9 +1,9 @@
 """KHI on PyTorch: the partitioning tree, the graph builders (Algorithm 5
 in ``hnsw``, the bulk and device builders), the batched two-phase search
 and the selectivity-adaptive planner; the baselines are in
-``baselines``. The names are the reference package's (``repro.core``)
-where the port has them: its ``estimate_cardinality`` and ``query`` (the
-host Algorithms 1-3) are not ported yet."""
+``baselines``. The names are the reference package's (``repro.core``).
+``query`` and ``estimate_cardinality`` are the paper's Algorithms 1-3 on
+the host (``query_ref``), the oracle the batched engine is held to."""
 
 from .khi import KHIConfig, KHIIndex  # noqa: F401
 from .query_ref import (  # noqa: F401
@@ -11,6 +11,8 @@ from .query_ref import (  # noqa: F401
     StreamingOracle,
     brute_force,
     brute_force_expr,
+    estimate_cardinality,
+    query,
 )
 from .predicate import (  # noqa: F401
     And,

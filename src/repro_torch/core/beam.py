@@ -16,6 +16,10 @@ Every sort is stable (``stable=True``), as ``jnp.argsort`` is: tie order
 is insertion order, and it decides ids and hop counts. Scatters that the
 reference drops with ``mode="drop"`` go to one spare column that is
 sliced off (the visited plane carries it permanently as column ``n``).
+
+The ``np_pool_*`` functions are the reference's numpy twins of the same
+pool, copied with their names and semantics: ``query_ref``'s beam form
+of Algorithm 3 runs on them (in place on batched ``(B, pool)`` arrays).
 """
 
 from __future__ import annotations
@@ -23,11 +27,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 __all__ = ["Pool", "pool_seed", "pool_frontier_alive", "pool_top_unexpanded",
            "pool_mark_expanded_many", "pool_merge_tail", "visited_init",
-           "visited_mark"]
+           "visited_mark", "np_pool_alloc", "np_pool_seed",
+           "np_pool_top_unexpanded", "np_pool_mark_expanded_many",
+           "np_pool_merge_tail"]
 
 _INF = float("inf")
 
@@ -121,3 +128,68 @@ def visited_mark(visited: torch.Tensor, ids: torch.Tensor,
     visited.scatter_(1, torch.where(valid, ids, torch.full_like(ids, n)),
                      True)
     return visited
+
+
+# numpy twins (batched (B, pool) arrays; in place on active rows)
+
+def np_pool_alloc(B: int, pool_size: int,
+                  dtype=np.float32) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Empty batched pool: all slots sealed."""
+    ids = np.full((B, pool_size), -1, dtype=np.int64)
+    dists = np.full((B, pool_size), np.inf, dtype=dtype)
+    expanded = np.ones((B, pool_size), dtype=bool)
+    return ids, dists, expanded
+
+
+def np_pool_seed(ids: np.ndarray, dists: np.ndarray, expanded: np.ndarray,
+                 seed_ids: np.ndarray, seed_dists: np.ndarray) -> None:
+    """Seed slots [0:k) of every row and restore the sorted invariant
+    (stable sort keeps insertion order on ties; sealed +inf slots sink)."""
+    k = seed_ids.shape[1]
+    ids[:, :k] = seed_ids
+    dists[:, :k] = seed_dists
+    expanded[:, :k] = ~np.isfinite(seed_dists)
+    srt = np.argsort(dists, axis=1, kind="stable")
+    ar = np.arange(ids.shape[0])[:, None]
+    ids[:] = ids[ar, srt]
+    dists[:] = dists[ar, srt]
+    expanded[:] = expanded[ar, srt]
+
+
+def np_pool_top_unexpanded(ids: np.ndarray, dists: np.ndarray,
+                           expanded: np.ndarray, ef: int,
+                           width: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Batched twin of ``pool_top_unexpanded``: per-row (slots (B, width),
+    valid (B, width)) of the closest unexpanded beam slots, ascending by
+    distance (pool order). Same stable-partition contract as the torch op."""
+    frontier = ~expanded[:, :ef] & np.isfinite(dists[:, :ef])
+    slots = np.argsort(~frontier, axis=1, kind="stable")[:, :width]
+    valid = np.take_along_axis(frontier, slots, axis=1)
+    return slots, valid
+
+
+def np_pool_mark_expanded_many(expanded: np.ndarray, rows: np.ndarray,
+                               slots: np.ndarray,
+                               valid: np.ndarray) -> None:
+    """Mark ``slots[valid]`` of the given rows expanded, in place (twin of
+    ``pool_mark_expanded_many``; invalid lanes are no-ops)."""
+    expanded[rows[:, None], slots] |= valid
+
+
+def np_pool_merge_tail(ids: np.ndarray, dists: np.ndarray,
+                       expanded: np.ndarray, rows: np.ndarray,
+                       new_ids: np.ndarray, new_dists: np.ndarray,
+                       new_valid: np.ndarray, ef: int) -> None:
+    """Batched merge for the ``rows`` still searching (same semantics as the
+    torch ``pool_merge_tail``, in place)."""
+    ids[rows, ef:] = np.where(new_valid, new_ids, -1)
+    dists[rows, ef:] = np.where(new_valid, new_dists, np.inf)
+    expanded[rows, ef:] = ~new_valid
+    srt = np.argsort(dists[rows], axis=1, kind="stable")
+    ar = np.arange(len(rows))[:, None]
+    ids[rows] = ids[rows][ar, srt]
+    dists[rows] = dists[rows][ar, srt]
+    expanded[rows] = expanded[rows][ar, srt]
+    ids[rows, ef:] = -1
+    dists[rows, ef:] = np.inf
+    expanded[rows, ef:] = True

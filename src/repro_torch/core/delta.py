@@ -331,12 +331,14 @@ class StreamingState:
         host, sorted by ext: (vecs (n', d), attrs (n', m), exts (n',)),
         the corpus a compaction rebuilds from. The base rows are gathered
         on the device, at (shard, local) over a sharded index, before the
-        copy."""
+        copy; a bf16 corpus comes back upcast to f32, as the reference
+        reads it, so the rebuilt epoch is stored in f32."""
         di = index.di if self._sharded else index
         alive = np.nonzero(~self.base_deleted)[0]
         sel = torch.as_tensor(alive).to(di.vecs.device)
         at = (sel % self.S, sel // self.S) if self._sharded else (sel,)
-        parts = [(di.vecs[at].cpu().numpy(), di.attrs[at].cpu().numpy(),
+        parts = [(di.vecs[at].to(torch.float32).cpu().numpy(),
+                  di.attrs[at].cpu().numpy(),
                   self.ext_of_base[alive])]
         parts += [seg.live_rows() for seg in self.deltas]
         vecs, attrs, exts = (np.concatenate(c) for c in zip(*parts))

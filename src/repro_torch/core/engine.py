@@ -32,17 +32,20 @@ place. Only the graph strategy takes ``pallas_l2`` and
 ``graph``, ``scan``, ``auto`` and ``hybrid`` are ported, with ``quant``
 in {none, bf16, int8}: a quantized search walks or scans a compressed
 corpus replica (``DeviceIndex.qvecs`` / ``qscale``, DESIGN.md §12) and
-reranks its over-fetched candidates exactly in f32 before answering.
+reranks its over-fetched candidates exactly before answering.
 ``hybrid`` (DESIGN.md §12) classifies each lane's routing antichain on
 the device into small nodes, scanned exactly as contiguous windows of a
-position-ordered f32 replica (``kernels/csrc/scan_topk.cu``'s windowed
-form), and large ones, walked by the graph program; mixed lanes merge
-both streams with ``_merge_dedup``. ``Planner.search_expr`` serves a
+position-ordered copy of the corpus (``kernels/csrc/scan_topk.cu``'s
+windowed form), and large ones, walked by the graph program; mixed lanes
+merge both streams with ``_merge_dedup``. ``Planner.search_expr`` serves a
 boolean filter expression (``core/predicate.py``, DESIGN.md §15): each
 disjoint box of its cover through ``search``, or, past ``box_budget``,
 one scan under a host-evaluated row mask (the bitmask kernel). Every
 entry point also serves a shard-stacked index (``sharded.ShardedKHI``):
-the programs fan out over its shards and merge into global ids.
+the programs fan out over its shards and merge into global ids. The
+corpus may be stored in bf16 (``device_put_index(vec_dtype=)``): every
+path then reads it in bf16, accumulates in f32 and rounds the query as
+its reference call site does.
 """
 
 from __future__ import annotations
@@ -84,7 +87,7 @@ _INF = float("inf")
 class DeviceIndex:
     """KHI flattened onto tensors of one device."""
 
-    vecs: torch.Tensor    # (n, d) float32
+    vecs: torch.Tensor    # (n, d) float32 or bfloat16 (vec_dtype)
     attrs: torch.Tensor   # (n, m) float32
     nbrs: torch.Tensor    # (n, H, M) int32 (object-major: one gather/row)
     left: torch.Tensor    # (P,) int64
@@ -150,12 +153,18 @@ class DeviceIndex:
 def device_put_index(index, *, device=None, quant: str = "none",
                      pad_n: Optional[int] = None,
                      pad_nodes: Optional[int] = None,
-                     pad_height: Optional[int] = None) -> DeviceIndex:
+                     pad_height: Optional[int] = None,
+                     vec_dtype=None) -> DeviceIndex:
     """Flatten a host index onto ``device`` (default ``cuda``). ``index``
     is anything with the ``KHIIndex`` fields: ``vecs``, ``attrs``,
     ``nbrs`` (H, n, M) and ``tree`` (numpy arrays or tensors), so an
     index built by the JAX package works as it is. ``quant`` ("bf16" /
     "int8") also attaches the compressed replica (``with_quant_replica``).
+    ``vec_dtype=torch.bfloat16`` stores the corpus vectors in bf16
+    (rounded to nearest even, as the reference's ``vec_dtype=
+    jnp.bfloat16``), which halves the largest tensor on the device;
+    distances still accumulate in f32, and each scorer and scan rounds
+    the query as its reference call site does (``_round_q``).
 
     ``pad_n``, ``pad_nodes`` and ``pad_height`` pad the rows, the tree
     nodes and the graph levels to common sizes, so that shards can be
@@ -163,6 +172,10 @@ def device_put_index(index, *, device=None, quant: str = "none",
     the shard's rows and levels; left, right and dim -1, lo +inf, hi -inf,
     bl, start and count 0 on pad nodes; order 0 on pad rows."""
     dev = resolve_device(device)
+    vd = vec_dtype or torch.float32
+    if vd not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"vec_dtype must be None, torch.float32 or "
+                         f"torch.bfloat16, got {vec_dtype!r}")
     t = index.tree
 
     def up(a, dtype):
@@ -191,7 +204,7 @@ def device_put_index(index, *, device=None, quant: str = "none",
         nbrs = nb
     root = int(np.nonzero(np.asarray(t.parent) < 0)[0][0])
     di = DeviceIndex(
-        vecs=rows(index.vecs, torch.float32),
+        vecs=rows(index.vecs, vd),
         attrs=rows(index.attrs, torch.float32, _INF),
         nbrs=pad(nbrs, pad_n, -1),
         left=nodes(t.left, torch.int64, -1),
@@ -208,7 +221,9 @@ def device_put_index(index, *, device=None, quant: str = "none",
 def with_quant_replica(di: DeviceIndex, quant: str) -> DeviceIndex:
     """Copy of ``di`` carrying the compressed corpus replica for ``quant``
     (made on ``di``'s device in one pass over ``vecs``); ``quant="none"``
-    drops any replica. The other tensors are shared, not copied."""
+    drops any replica. The other tensors are shared, not copied. Over a
+    bf16 corpus, as in the reference, the bf16 replica is the corpus
+    itself and the int8 one is quantized from its f32 upcast."""
     if quant == "none":
         return dataclasses.replace(di, qvecs=None, qscale=None)
     if quant not in QUANTS:
@@ -430,16 +445,25 @@ def _dist_ids_jnp(vecs, q, ids):
     return _dist_jnp(q, vecs[ids])
 
 
+def _round_q(q: torch.Tensor, dtype) -> torch.Tensor:
+    """``q`` (f32) rounded to ``dtype`` and back: what the reference's
+    ``q.astype(vecs.dtype)`` hands its kernel at the call sites that cast
+    the query (the gathers and ``pallas_l2``); the identity for f32."""
+    if dtype == torch.float32:
+        return q
+    return q.to(dtype).to(torch.float32)
+
+
 def _dist_ids_pallas_l2(vecs, q, ids):
     # the reference materializes the gather outside its kernel too: a
     # (B, C, d) PyTorch index, then the expansion kernel over it
     rows = vecs[ids]
-    return _ops.l2dist_qc(q, rows)
+    return _ops.l2dist_qc(_round_q(q, rows.dtype), rows)
 
 
 def _dist_ids_gather_l2(vecs, q, ids):
     # the blocked form, bitwise equal to the row-per-step one
-    return _ops.gather_l2(ids, vecs, q, c_blk=128)
+    return _ops.gather_l2(ids, vecs, _round_q(q, vecs.dtype), c_blk=128)
 
 
 def resolve_dist_ids(backend: Optional[str] = None, *,
@@ -474,7 +498,8 @@ def _unfused_scorer(name: str, dist_ids: Callable) -> Scorer:
 
 def _filter_score(di, q, qlo, qhi, ids):
     # the kernel consumes -1 lanes itself (emits +inf)
-    return _ops.gather_l2_filter(ids, di.vecs, di.attrs, q, qlo, qhi)
+    return _ops.gather_l2_filter(ids, di.vecs, di.attrs,
+                                 _round_q(q, di.vecs.dtype), qlo, qhi)
 
 
 def _quant_scorer(backend: str, quant: str) -> Scorer:
@@ -485,8 +510,8 @@ def _quant_scorer(backend: str, quant: str) -> Scorer:
     if backend == "pallas_gather_l2_filter":
         if quant == "bf16":
             def score(di, q, qlo, qhi, ids):
-                qb = q.to(torch.bfloat16).to(torch.float32)
-                return _ops.gather_l2_filter(ids, di.qvecs, di.attrs, qb,
+                return _ops.gather_l2_filter(ids, di.qvecs, di.attrs,
+                                             _round_q(q, di.qvecs.dtype),
                                              qlo, qhi)
         else:
             def score(di, q, qlo, qhi, ids):
@@ -821,9 +846,10 @@ def _scan_shard_topk(di: DeviceIndex, attrs_nan, q, qlo, qhi,
                      p: SearchParams, *, use_kernel: bool):
     """One index's scan-path top-k under every quant tier. A quantized
     scan over-fetches ``kq = k * rerank_mult`` candidates from the
-    replica, rescores them on the f32 corpus through the gather path and
+    replica, rescores them on the corpus through the gather path and
     takes the (dist, id) top-k: exact whenever the true top-k survives
-    the over-fetch."""
+    the over-fetch. The scans and this rerank pass the query unrounded
+    over a bf16 corpus, as the reference's do."""
     if p.quant == "none":
         return _scan_exact(di.vecs, attrs_nan, q, qlo, qhi, p.k,
                            use_kernel=use_kernel)
@@ -844,9 +870,10 @@ def _scan_shard_topk(di: DeviceIndex, attrs_nan, q, qlo, qhi,
 
 def _windows_one(pos_vecs, pos_attrs, order, q, qlo, qhi, starts, counts,
                  k: int, *, use_kernel: bool):
-    """One index's windowed scan (DESIGN.md §12): positions from the CUDA
-    kernel (plain version on the CPU) or, on backend 'jnp', the plain
-    version, mapped back through the DFS ``order`` to row ids (int64)."""
+    """One index's windowed scan (DESIGN.md §12) over the corpus's dtype
+    (f32 or bf16, the query unrounded): positions from the CUDA kernel
+    (plain version on the CPU) or, on backend 'jnp', the plain version,
+    mapped back through the DFS ``order`` to row ids (int64)."""
     if use_kernel:
         pos, dd = _ops.scan_topk_windows(pos_vecs, pos_attrs, q, qlo, qhi,
                                          starts, counts, k=k)
@@ -862,7 +889,8 @@ def _windows_one(pos_vecs, pos_attrs, order, q, qlo, qhi, starts, counts,
 def _mask_scan_one(vecs, mask, q, k: int, *, use_kernel: bool):
     """One index's bitmask-fused exact scan (DESIGN.md §15), the predicate
     compiler's dense fallback: the CUDA kernel (plain version on the CPU)
-    or its plain version, always on the f32 corpus."""
+    or its plain version, on the corpus itself in its dtype (f32 or bf16,
+    the query unrounded), never on a quantized replica."""
     if use_kernel:
         return _ops.scan_topk_mask(vecs, mask, q, k=k)
     return _ref.scan_topk_mask_ref(vecs, mask, q, k)
@@ -1002,7 +1030,7 @@ class Planner:
         self._estimators = (self._build_estimators()
                             if p.strategy in ("auto", "hybrid") else None)
         # hybrid per-node state: the node threshold and the
-        # position-ordered f32 replica the windowed scan reads
+        # position-ordered corpus replica the windowed scan reads
         self.node_scan_threshold = (int(p.node_scan_threshold)
                                     or self.scan_threshold)
         if p.strategy == "hybrid":
@@ -1041,8 +1069,9 @@ class Planner:
         """Position-ordered copies of the scan corpus: row i is the object
         at DFS rank i (``order[i]``), so an antichain node's objects are
         the contiguous slice ``[start, start + count)``. The attrs come
-        from ``_scan_attrs``, so padded rows and tombstones stay NaN.
-        Always f32: window lanes scan exactly whatever ``quant`` is."""
+        from ``_scan_attrs``, so padded rows and tombstones stay NaN. The
+        vectors keep the corpus's dtype (f32 or bf16): window lanes scan
+        the corpus itself, never a quantized replica."""
         self._pos_vecs = self._by_order(self._di.vecs)
         self._pos_attrs = self._by_order(self._scan_attrs)
 
@@ -1101,9 +1130,11 @@ class Planner:
         di = index.di if _is_sharded(index) else index
         if _is_sharded(index) != self._sharded \
                 or di.attrs.shape != self._di.attrs.shape \
-                or di.vecs.shape != self._di.vecs.shape:
+                or di.vecs.shape != self._di.vecs.shape \
+                or di.vecs.dtype != self._di.vecs.dtype:
             raise ValueError("refresh_index requires identical index shapes"
-                             " (use a new Planner for a new epoch)")
+                             " and corpus dtype (use a new Planner for a "
+                             "new epoch)")
         self._bind(index, _with_replica_for(di, self.params.quant))
         self._build_scan_attrs()
         self._host_scan_attrs = None
@@ -1389,8 +1420,8 @@ class Planner:
     def _run_mask(self, queries: np.ndarray, prog):
         """Dense-fallback execution (DESIGN.md §15): evaluate the
         normalized expression on the host over the NaN-masked scan attrs
-        into a per-row f32 plane, then one exact f32 bitmask scan. The
-        batch pads to a power of two with zero queries."""
+        into a per-row f32 plane, then one exact bitmask scan of the
+        corpus. The batch pads to a power of two with zero queries."""
         from .predicate import eval_expr
 
         if self._host_scan_attrs is None:
@@ -1436,7 +1467,7 @@ class Planner:
         strategy, plan cache shared) and merge the per-box streams with
         ``_merge_dedup``; the cover is disjoint, so dedup only collapses
         the (+inf, -1) pads. ``hops`` sums over boxes. "bitmask" programs
-        run one exact f32 fallback scan (hops 0)."""
+        run one exact fallback scan of the corpus (hops 0)."""
         from .predicate import compile_expr
 
         queries = np.ascontiguousarray(queries, np.float32)

@@ -129,7 +129,7 @@ def stack_shards(shards: Sequence, *, device=None) -> ShardedKHI:
                       pad_waste=_pad_waste(ns, ps, hs))
 
 
-_DTYPES = {"vecs": torch.float32, "attrs": torch.float32,
+_DTYPES = {"attrs": torch.float32,
            "nbrs": torch.int32, "lo": torch.float32, "hi": torch.float32,
            "qscale": torch.float32}
 
@@ -139,7 +139,8 @@ def sharded_from_stacked(leaves: dict, offsets, pad_waste=(), *,
     """A ShardedKHI from stacked host arrays, as the JAX package's
     ``ShardedKHI`` holds them: ``leaves`` maps each ``DeviceIndex`` field
     to its (S, ...) numpy array (``nbrs`` (S, n, H, M), ``root`` (S,);
-    ``qvecs`` / ``qscale`` optional, a bf16 replica as any float array),
+    ``vecs`` f32, or bf16 where the array is bf16; ``qvecs`` / ``qscale``
+    optional, a bf16 replica as any float array),
     with the shard ids ``offsets`` and the reference's ``pad_waste``."""
     dev = resolve_device(device)
     kw = {}
@@ -149,9 +150,14 @@ def sharded_from_stacked(leaves: dict, offsets, pad_waste=(), *,
             kw["root"] = tuple(int(r) for r in np.asarray(a).ravel())
         elif a is None:
             kw[f.name] = None
-        elif f.name == "qvecs":
+        elif f.name in ("vecs", "qvecs"):
             a = np.array(a)
-            dt = torch.int8 if a.dtype == np.int8 else torch.bfloat16
+            if a.dtype == np.int8:
+                dt = torch.int8
+            elif f.name == "qvecs" or a.dtype.name == "bfloat16":
+                dt = torch.bfloat16
+            else:
+                dt = torch.float32
             kw[f.name] = torch.as_tensor(
                 a if dt == torch.int8 else a.astype(np.float32)).to(
                     device=dev, dtype=dt)

@@ -1,4 +1,9 @@
-"""Elastic resharding of the sharded index (``elastic.py``); the query
-mesh of the collective search lives in ``repro_torch.launch.mesh``."""
+"""Elastic resharding of the sharded index and of checkpoints
+(``elastic.py``); the query mesh of the collective search lives in
+``repro_torch.launch.mesh``."""
 
-from .elastic import elastic_reshard, shard_assignments  # noqa: F401
+from .elastic import (  # noqa: F401
+    elastic_reshard,
+    reshard_checkpoint,
+    shard_assignments,
+)

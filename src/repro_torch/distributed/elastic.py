@@ -5,9 +5,9 @@ The sharded KHI is S independent shards under round-robin object
 assignment. Rescaling S -> S' rebuilds only the shards whose object sets
 change: with S' == S every existing shard is reused as it is, otherwise
 every new shard is built over its new object set. ``sharded.stack_shards``
-restacks the result for serving. (The reference's training-side
-``reshard_checkpoint`` restores a checkpoint through its JAX checkpoint
-manager and is not part of this module.)
+restacks the result for serving. ``reshard_checkpoint`` restores a
+checkpoint's leaves onto a template laid out for the new placement (other
+devices, another shard count) through ``repro_torch.checkpoint``.
 """
 
 from __future__ import annotations
@@ -16,9 +16,10 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
+from ..checkpoint import restore_into
 from ..core.khi import KHIConfig, KHIIndex
 
-__all__ = ["shard_assignments", "elastic_reshard"]
+__all__ = ["shard_assignments", "elastic_reshard", "reshard_checkpoint"]
 
 
 def shard_assignments(n: int, n_shards: int) -> np.ndarray:
@@ -55,3 +56,11 @@ def elastic_reshard(
         ids = np.nonzero(new_assign == s)[0]
         out[s] = build_fn(vecs[ids], attrs[ids])
     return out
+
+
+def reshard_checkpoint(arrays: dict, template_fn: Callable[[], object]):
+    """Restore checkpointed leaves (``load_checkpoint``'s arrays) onto the
+    tree that ``template_fn()`` builds for the new placement: each leaf
+    lands on its template leaf's device and dtype."""
+    template = template_fn()
+    return restore_into(template, arrays)

@@ -1,6 +1,8 @@
 // Exact predicate-masked brute scan with a top-k, for Hopper (sm_90a), over
 // an f32 corpus, its bf16 replica or its int8 replica; its bitmask form; and
-// its windowed form over a position-ordered corpus.
+// its windowed form over a position-ordered corpus. The bitmask and windowed
+// forms also take a bf16 corpus (an index stored in bf16), as the
+// reference's kernels take any corpus dtype and upcast in their bodies.
 //
 // Replaces: src/repro/kernels/scan_topk.py:scan_topk_kernel (the Pallas TPU
 // kernel behind the planner's strategy="scan" lanes, which the reference
@@ -113,7 +115,7 @@
 // ties are the box scan's bit for bit on the same rows; pass 2 is the box
 // scan's.
 //
-// The windowed form is the f32 box scan with a coverage mask. Windows are
+// The windowed form is the box scan (f32 or bf16) with a coverage mask. Windows are
 // DFS extents of tree nodes, so across lanes they nest or do not meet, and
 // a row that many lanes cover would be read once per lane by a block per
 // (lane, window). Instead a pre-pass (window_cover_kernel, a thread per
@@ -123,7 +125,7 @@
 // (and overlapping windows then give their union) -- and marks, per
 // (query block, row tile), whether any lane of the block covers the
 // tile. Pass 1
-// is box_scan_kernel<float, VEC, true>: a tile that no lane of its block
+// is box_scan_kernel<T, VEC, true>: a tile that no lane of its block
 // covers is skipped before its attrs are staged, and each box-test word
 // is ANDed with the lane's coverage word, so everything after (class
 // counts, sparse and dense rounds, fold) is the box scan's and each
@@ -945,10 +947,13 @@ mask_compact_kernel(const float* __restrict__ mask, int N,
 // chunk) takes queries [x * MQ, x * MQ + MQ), so the query tiles of one
 // chunk run side by side and read its rows from memory once. Each (query,
 // row) distance is the box scan's: one fmaf chain of (q_j - row_j)^2 over
-// ascending j.
-template <bool VEC>
+// ascending j. A bf16 corpus's rows come by 16-byte loads (8 elements;
+// scalar ones where d % 8 != 0) held in registers across the previous
+// step's arithmetic and widened to f32 as they are stored, so the stages
+// count elements as f32 words and the inner loop is the f32 one.
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(256)
-mask_partial_kernel(const float* __restrict__ corpus,
+mask_partial_kernel(const T* __restrict__ corpus,
                     const int* __restrict__ list,
                     const int* __restrict__ count_p,
                     const float* __restrict__ q, float* __restrict__ part_d,
@@ -977,7 +982,11 @@ mask_partial_kernel(const float* __restrict__ corpus,
   const int nslab = (d + DS - 1) / DS;
   const int ntiles = (int)((end - beg + MR - 1) / MR);
   const int steps = ntiles * nslab;
-  // stage `s & 1` <- the q slab and the gathered row slab of step s
+  constexpr bool F32 = sizeof(T) == 4;
+  uint4 raw8 = make_uint4(0u, 0u, 0u, 0u);  // a bf16 row slab in flight
+  T raw1[(MR * DS) / 256];
+  // stage `s & 1` <- the q slab and the gathered row slab of step s (an
+  // f32 slab by cp.async, a bf16 one into registers for `put`)
   auto fetch = [&](int s) {
     const int tile = s / nslab;
     const int k0 = (s - tile * nslab) * DS;
@@ -995,16 +1004,26 @@ mask_partial_kernel(const float* __restrict__ corpus,
         cp_async16(Qs + r * MLD + c4,
                    bytes ? q + (size_t)gq * d + gk : q, bytes);
       }
+      if constexpr (F32) {
 #pragma unroll
-      for (int i = 0; i < (MR * DS / 4) / 256; ++i) {
-        const int e = tid + i * 256;
-        const int r = e >> 3, c4 = (e & 7) * 4;
-        const int gk = k0 + c4;
+        for (int i = 0; i < (MR * DS / 4) / 256; ++i) {
+          const int e = tid + i * 256;
+          const int r = e >> 3, c4 = (e & 7) * 4;
+          const int gk = k0 + c4;
+          const int id = t0 + r < end ? __ldg(list + t0 + r) : -1;
+          int bytes = min(16, max(0, (d - gk) * 4));
+          bytes = id >= 0 ? bytes : 0;
+          cp_async16(Rs + r * MLD + c4,
+                     bytes ? corpus + (size_t)id * d + gk : corpus, bytes);
+        }
+      } else {                        // one 8-element load a thread
+        const int r = tid >> 2, c8 = (tid & 3) * 8;
+        const int gk = k0 + c8;
         const int id = t0 + r < end ? __ldg(list + t0 + r) : -1;
-        int bytes = min(16, max(0, (d - gk) * 4));
-        bytes = id >= 0 ? bytes : 0;
-        cp_async16(Rs + r * MLD + c4,
-                   bytes ? corpus + (size_t)id * d + gk : corpus, bytes);
+        raw8 = (id >= 0 && gk < d)
+                   ? __ldg(reinterpret_cast<const uint4*>(
+                         corpus + (size_t)id * d + gk))
+                   : make_uint4(0u, 0u, 0u, 0u);
       }
     } else {
 #pragma unroll 4
@@ -1023,8 +1042,32 @@ mask_partial_kernel(const float* __restrict__ corpus,
         const int gk = k0 + c;
         const int id = t0 + r < end ? __ldg(list + t0 + r) : -1;
         const bool in = id >= 0 && gk < d;
-        cp_async4(Rs + r * MLD + c, in ? corpus + (size_t)id * d + gk : corpus,
-                  in ? 4 : 0);
+        if constexpr (F32)
+          cp_async4(Rs + r * MLD + c,
+                    in ? corpus + (size_t)id * d + gk : corpus, in ? 4 : 0);
+        else
+          raw1[i] = in ? corpus[(size_t)id * d + gk] : zero_of<T>();
+      }
+    }
+  };
+  // bf16 rows of step s, from the registers into stage s & 1, widened
+  auto put = [&](int s) {
+    if constexpr (!F32) {
+      float* Rs = msm + (s & 1) * MSTAGE + MQ * MLD;
+      if (VEC) {
+        const int r = tid >> 2, c8 = (tid & 3) * 8;
+        const T* v = reinterpret_cast<const T*>(&raw8);
+#pragma unroll
+        for (int u = 0; u < 8; u += 4)
+          *reinterpret_cast<float4*>(Rs + r * MLD + c8 + u) =
+              make_float4(widen(v[u], 0.f), widen(v[u + 1], 0.f),
+                          widen(v[u + 2], 0.f), widen(v[u + 3], 0.f));
+      } else {
+#pragma unroll
+        for (int i = 0; i < (MR * DS) / 256; ++i) {
+          const int e = tid + i * 256;
+          Rs[(e >> 5) * MLD + (e & 31)] = widen(raw1[i], 0.f);
+        }
       }
     }
   };
@@ -1032,6 +1075,7 @@ mask_partial_kernel(const float* __restrict__ corpus,
   float acc[8][4];
   if (steps > 0) fetch(0);
   cp_async_commit();
+  if (steps > 0) put(0);
   for (int s = 0; s < steps; ++s) {
     const int tile = s / nslab;
     const int sl = s - tile * nslab;
@@ -1101,6 +1145,7 @@ mask_partial_kernel(const float* __restrict__ corpus,
         }
       }
     }
+    if (s + 1 < steps) put(s + 1);    // stage (s + 1) & 1 is idle here
     __syncthreads();
   }
   cp_async_wait<0>();
@@ -1180,16 +1225,15 @@ SCAN_ENTRY(scan_topk_f32, float, false)
 SCAN_ENTRY(scan_topk_bf16, __nv_bfloat16, false)
 SCAN_ENTRY(scan_topk_q8, int8_t, false)
 SCAN_ENTRY(scan_topk_windows_f32, float, true)
+SCAN_ENTRY(scan_topk_windows_bf16, __nv_bfloat16, true)
 
-// The bitmask scan over an f32 corpus: mask (N) f32, > 0 passes (NaN
-// fails). scratch holds 2 * N + 1 ints, enough for any SEG: the compacted
-// list (N), the per-segment counts (ceil(N / SEG)) and the list's length. part_d/part_i hold
-// B * nchunks * k entries.
-extern "C" int scan_topk_mask_f32(const void* corpus, const void* mask,
-                                  const void* q, void* scratch, void* part_d,
-                                  void* part_i, void* out_i, void* out_d,
-                                  int B, int N, int d, int k, int nchunks,
-                                  void* stream) {
+namespace {
+
+template <typename T>
+int launch_mask(const void* corpus, const void* mask, const void* q,
+                void* scratch, void* part_d, void* part_i, void* out_i,
+                void* out_d, int B, int N, int d, int k, int nchunks,
+                void* stream) {
   if (B == 0) return 0;
   if (k < 1 || k > KMAX || N < 1 || nchunks < 1)
     return (int)cudaErrorInvalidValue;
@@ -1206,16 +1250,17 @@ extern "C" int scan_topk_mask_f32(const void* corpus, const void* mask,
                                            nblk, list, count);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const bool vec = d % 4 == 0 && ((uintptr_t)corpus & 15) == 0 &&
+  const bool vec = d % Vec<T>::V == 0 && ((uintptr_t)corpus & 15) == 0 &&
                    ((uintptr_t)q & 15) == 0;
-  auto kern = vec ? mask_partial_kernel<true> : mask_partial_kernel<false>;
+  auto kern = vec ? mask_partial_kernel<T, true>
+                  : mask_partial_kernel<T, false>;
   const int smem = (2 * MSTAGE + MQ * (MR + 1)) * (int)sizeof(float) +
                    MQ * k * (int)(sizeof(float) + sizeof(int));
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid1((B + MQ - 1) / MQ, nchunks);
-  kern<<<grid1, 256, smem, s>>>((const float*)corpus, list, count,
+  kern<<<grid1, 256, smem, s>>>((const T*)corpus, list, count,
                                 (const float*)q, (float*)part_d,
                                 (int*)part_i, B, d, k);
   e = cudaGetLastError();
@@ -1225,6 +1270,24 @@ extern "C" int scan_topk_mask_f32(const void* corpus, const void* mask,
                                       (float*)out_d, nchunks, k);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// The bitmask scan over an f32 corpus or its bf16 form: mask (N) f32, > 0
+// passes (NaN fails). scratch holds 2 * N + 1 ints, enough for any SEG:
+// the compacted list (N), the per-segment counts (ceil(N / SEG)) and the
+// list's length. part_d/part_i hold B * nchunks * k entries.
+#define MASK_ENTRY(NAME, T)                                                  \
+  extern "C" int NAME(const void* corpus, const void* mask, const void* q,  \
+                      void* scratch, void* part_d, void* part_i,             \
+                      void* out_i, void* out_d, int B, int N, int d, int k,  \
+                      int nchunks, void* stream) {                           \
+    return launch_mask<T>(corpus, mask, q, scratch, part_d, part_i, out_i,   \
+                          out_d, B, N, d, k, nchunks, stream);               \
+  }
+
+MASK_ENTRY(scan_topk_mask_f32, float)
+MASK_ENTRY(scan_topk_mask_bf16, __nv_bfloat16)
 
 // The windowed scan's coverage over N rows and tr-row tiles: starts/counts
 // (B, W) int32; cover holds B * ceil(N / 32) words of bitmap, then

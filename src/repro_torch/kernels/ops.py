@@ -25,14 +25,16 @@ __all__ = ["LAUNCHES", "reset_launches", "gather_l2_filter",
 
 # one count per kernel form: the bf16 forms of gather_l2_filter and
 # scan_topk are the same sources instantiated for a bf16 corpus, counted
-# apart because the bf16 replica's path runs them; the unfused gathers and
-# l2dist_qc count their bf16 instances with their f32 ones (no served path
-# runs those on a bf16 corpus)
+# apart because the bf16 replica's path and a bf16-stored index run them,
+# as are the bitmask and windowed scans' bf16 forms (a bf16-stored index);
+# the unfused gathers and l2dist_qc count their bf16 instances with their
+# f32 ones
 LAUNCHES = {"gather_l2_filter": 0, "gather_l2_filter_bf16": 0,
             "gather_l2_filter_q8": 0, "gather_l2": 0, "gather_l2_rows": 0,
             "scan_topk": 0, "scan_topk_bf16": 0, "scan_topk_q8": 0,
-            "scan_topk_mask": 0, "scan_topk_windows": 0, "l2dist_qn": 0,
-            "l2dist_qc": 0}
+            "scan_topk_mask": 0, "scan_topk_mask_bf16": 0,
+            "scan_topk_windows": 0, "scan_topk_windows_bf16": 0,
+            "l2dist_qn": 0, "l2dist_qc": 0}
 
 # the box scan's last launch per form: a device tensor of its (empty,
 # sparse, dense) tile counts, summed over query blocks; the windowed form's
@@ -89,6 +91,12 @@ def _check_qscale(qcorpus: torch.Tensor, qscale: torch.Tensor) -> None:
                          f"{tuple(qscale.shape)}")
 
 
+def _form(name: str, kind: str) -> str:
+    """The ``LAUNCHES`` key of a kernel form: the f32 form keeps the
+    wrapper's name, the others add their corpus kind."""
+    return name if kind == "f32" else f"{name}_{kind}"
+
+
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {rc}")
@@ -139,8 +147,7 @@ def _launch_gather(kind: str, idx, corpus, scale, attrs, q, qlo, qhi):
            None if scale is None else scale.data_ptr(), attrs.data_ptr(),
            q.data_ptr(), qlo.data_ptr(), qhi.data_ptr(), out.data_ptr(),
            B, C, N, d, attrs.shape[1], _stream(dev))
-    name = "gather_l2_filter" if kind == "f32" \
-        else f"gather_l2_filter_{kind}"
+    name = _form("gather_l2_filter", kind)
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -320,11 +327,10 @@ def _launch_scan(kind: str, corpus, scale, attrs, q, qlo, qhi, k: int,
     dev = corpus.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = _scan_plan(B, N, k, sms)
-    name = "scan_topk" if kind == "f32" else f"scan_topk_{kind}"
-    sym = f"scan_topk_{kind}"
+    base = "scan_topk" if windows is None else "scan_topk_windows"
+    name, sym = _form(base, kind), f"{base}_{kind}"
     if windows is not None:
         scale = _window_cover(*windows, N, plan)
-        name, sym = "scan_topk_windows", "scan_topk_windows_f32"
     part_d, part_i, ids, dists = _scan_buffers(B, plan.blocks, k, dev)
     # the tile counters, the windowed form's uncovered count, then the
     # (empty, sparse, dense) tile counts
@@ -371,12 +377,12 @@ def scan_topk_q8(qcorpus: torch.Tensor, qscale: torch.Tensor,
 def scan_topk_mask(corpus: torch.Tensor, mask: torch.Tensor,
                    q: torch.Tensor, *, k: int):
     """Exact top-k under one row mask shared by the batch: corpus (N, d)
-    f32, mask (N,) or (N, 1) f32 (a row passes iff its value is > 0; NaN
-    fails), q (B, d) f32 -> (ids (B, k) int32, dists (B, k) f32),
-    ascending by (distance, id), (-1, +inf) past the passing count. The
-    kernel takes k <= 64."""
+    f32 or bf16 (upcast), mask (N,) or (N, 1) f32 (a row passes iff its
+    value is > 0; NaN fails), q (B, d) f32 -> (ids (B, k) int32, dists
+    (B, k) f32, accumulated in f32), ascending by (distance, id), (-1,
+    +inf) past the passing count. The kernel takes k <= 64."""
+    kind = _corpus_kind(corpus)
     dev = _device_of(corpus, mask, q)
-    _check(corpus, "corpus", torch.float32, 2)
     _check(q, "q", torch.float32, 2)
     N, d = corpus.shape
     if mask.dtype != torch.float32 or tuple(mask.shape) not in ((N,), (N, 1)) \
@@ -397,13 +403,15 @@ def scan_topk_mask(corpus: torch.Tensor, mask: torch.Tensor,
     part_d, part_i, ids, dists = _scan_buffers(B, nchunks, k, dev)
     # the compacted row list, the per-segment counts and the list's length
     scratch = torch.empty(2 * N + 1, dtype=torch.int32, device=dev)
-    f = _fn("scan_topk", "scan_topk_mask_f32", [_P] * 8 + [_I] * 5 + [_P])
+    name = _form("scan_topk_mask", kind)
+    f = _fn("scan_topk", f"scan_topk_mask_{kind}",
+            [_P] * 8 + [_I] * 5 + [_P])
     rc = f(corpus.data_ptr(), mask.data_ptr(), q.data_ptr(),
            scratch.data_ptr(), part_d.data_ptr(), part_i.data_ptr(),
            ids.data_ptr(), dists.data_ptr(), B, N, d, k, nchunks,
            _stream(dev))
-    _raise_on(rc, "scan_topk_mask")
-    LAUNCHES["scan_topk_mask"] += 1
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return ids, dists
 
 
@@ -430,15 +438,16 @@ def scan_topk_windows(corpus: torch.Tensor, attrs: torch.Tensor,
                       q: torch.Tensor, qlo: torch.Tensor, qhi: torch.Tensor,
                       starts: torch.Tensor, counts: torch.Tensor, *, k: int):
     """Exact masked top-k over each query's windows of a position-ordered
-    corpus: corpus (N, d) f32 and attrs (N, m) f32 in position order,
-    q (B, d), qlo/qhi (B, m) f32, starts/counts (B, W) int32 (start < 0
-    pads a window) -> (positions (B, k) int32, dists (B, k) f32),
+    corpus: corpus (N, d) f32 or bf16 (upcast) and attrs (N, m) f32 in
+    position order, q (B, d), qlo/qhi (B, m) f32, starts/counts (B, W)
+    int32 (start < 0 pads a window) -> (positions (B, k) int32, dists
+    (B, k) f32),
     ascending by (distance, position), (-1, +inf) past the passing count.
-    The kernel is the f32 box scan over the rows the windows cover (a
-    (B, ceil(N / 32)) bitmap, B * N / 8 bytes of scratch) and takes
-    k <= 64 and m <= 8."""
+    The kernel is the box scan of the corpus's dtype over the rows the
+    windows cover (a (B, ceil(N / 32)) bitmap, B * N / 8 bytes of
+    scratch) and takes k <= 64 and m <= 8."""
+    kind = _corpus_kind(corpus)
     dev = _device_of(corpus, attrs, q, qlo, qhi, starts, counts)
-    _check(corpus, "corpus", torch.float32, 2)
     for t, nm in ((attrs, "attrs"), (q, "q"), (qlo, "qlo"), (qhi, "qhi")):
         _check(t, nm, torch.float32, 2)
     _check(starts, "starts", torch.int32, 2)
@@ -461,7 +470,7 @@ def scan_topk_windows(corpus: torch.Tensor, attrs: torch.Tensor,
     if B == 0 or starts.shape[1] == 0:
         ids = torch.full((B, k), -1, dtype=torch.int32, device=dev)
         return ids, torch.full((B, k), _ref._INF, device=dev)
-    return _launch_scan("f32", corpus, None, attrs, q, qlo, qhi, k,
+    return _launch_scan(kind, corpus, None, attrs, q, qlo, qhi, k,
                         windows=(starts, counts))
 
 

@@ -267,15 +267,16 @@ def scan_topk_q8_ref(qcorpus: torch.Tensor, qscale: torch.Tensor,
 def scan_topk_mask_ref(corpus: torch.Tensor, mask: torch.Tensor,
                        q: torch.Tensor, k: int, *, budget: int = 1 << 27):
     """Exact top-k under one row mask shared by the batch: corpus (N, d)
-    f32, mask (N,) or (N, 1) f32 (a row passes iff its value is > 0, so
-    NaN fails), q (B, d) -> (ids (B, k) int32, dists (B, k) f32),
+    f32 or bf16 (rows upcast to f32, as the reference's kernel body does),
+    mask (N,) or (N, 1) f32 (a row passes iff its value is > 0, so NaN
+    fails), q (B, d) -> (ids (B, k) int32, dists (B, k) f32),
     ascending by (distance, id), (-1, +inf) past the passing count. Rows
     stream in chunks of at most ``budget`` elements, as
     ``scan_topk_ref``."""
     _count("scan_topk_mask", corpus)
     ok = mask.reshape(-1).to(torch.float32) > 0.0
     return _scan_topk(corpus.shape[0],
-                      lambda s, e: corpus[s:e].to(torch.float32),
+                      lambda s, e: dequant_rows(corpus[s:e]),
                       lambda s, e: ok[None, s:e], q, k, budget)
 
 
@@ -285,7 +286,9 @@ def scan_topk_windows_ref(corpus: torch.Tensor, attrs: torch.Tensor,
                           counts: torch.Tensor, k: int, *,
                           budget: int = 1 << 27):
     """Exact masked top-k over each query's windows of a position-ordered
-    corpus: corpus (N, d) f32 and attrs (N, m) in position order, q (B, d),
+    corpus: corpus (N, d) f32 or bf16 (rows upcast to f32, as the
+    reference's kernel body does) and attrs (N, m) in position order,
+    q (B, d),
     qlo/qhi (B, m), starts/counts (B, W) int32 (a window with start < 0 is
     a pad) -> (positions (B, k) int32, dists (B, k) f32). A row takes
     part for query b iff it lies in one of b's windows and passes b's box
@@ -337,7 +340,7 @@ def scan_topk_windows_ref(corpus: torch.Tensor, attrs: torch.Tensor,
             dist = torch.empty(key.numel(), dtype=torch.float32, device=dev)
             for s in range(0, key.numel(), step):
                 pl, pp = lane[s:s + step], pos[s:s + step]
-                diff = corpus[pp].to(torch.float32) - q[pl]
+                diff = dequant_rows(corpus[pp]) - q[pl]
                 dd = (diff * diff).sum(-1)
                 a = attrs[pp].to(torch.float32)
                 ok = ((a >= qlo[pl]) & (a <= qhi[pl])).all(-1)

@@ -544,6 +544,66 @@ def test_cuda_kernels_bit_equal_on_grid_corpus():
 
 
 @pytest.mark.gpu
+def test_cuda_bf16_windows_and_mask_bit_equal_on_grid_corpus():
+    """The windowed and bitmask scans' bf16 forms (an index stored in
+    bf16) ``torch.equal`` to their plain versions and to the f32 forms on
+    a 1/32-grid corpus (every grid value is exact in bf16, every f32 sum
+    exact in any order), with ragged shapes: N in {777, 3001}, d in {33,
+    96, 768} (33: the scalar loads, d % 8 != 0), B in {1, 37, 300}, k in
+    {1, 10, 64}, ``_windows``'s windows, a mask with NaN, zero and
+    negative values, and the corpus as a misaligned view (scalar loads at
+    any d). Each call of a bf16 form counts one launch of its own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0xB16)
+    m = 3
+    for N in (777, 3001):
+        for d in (33, 96, 768):
+            flat = torch.zeros(N * d + 1, dtype=torch.bfloat16, device=dev)
+            for view in (False, True):
+                corpus = torch.as_tensor(_grid(rng, (N, d)), device=dev)
+                cb = corpus.to(torch.bfloat16)
+                if view:                         # 2 bytes off 16-byte
+                    flat[1:] = cb.reshape(-1)
+                    cb = flat[1:].view(N, d)
+                attrs = torch.as_tensor(rng.random((N, m)).astype(
+                    np.float32), device=dev)
+                attrs[7::41, 1] = float("nan")
+                mask = torch.as_tensor(rng.random((N, 1)).astype(
+                    np.float32), device=dev) - 0.4
+                mask[::31] = float("nan")
+                mask[::37] = 0.0
+                for B in (1, 37, 300):
+                    q = torch.as_tensor(_grid(rng, (B, d)), device=dev)
+                    lo = torch.as_tensor(rng.random((B, m)).astype(
+                        np.float32) * 0.3, device=dev)
+                    hi = lo + 0.6
+                    st, ct = _windows(rng, B, N, 16, dev)
+                    for k in (1, 10, 64):
+                        ops.reset_launches()
+                        ids, dd = ops.scan_topk_windows(cb, attrs, q, lo, hi,
+                                                        st, ct, k=k)
+                        mi, md = ops.scan_topk_mask(cb, mask, q, k=k)
+                        assert ops.LAUNCHES["scan_topk_windows_bf16"] == 1
+                        assert ops.LAUNCHES["scan_topk_mask_bf16"] == 1
+                        assert ops.LAUNCHES["scan_topk_windows"] == 0
+                        assert ops.LAUNCHES["scan_topk_mask"] == 0
+                        for got, want in (
+                                ((ids, dd), ref.scan_topk_windows_ref(
+                                    cb, attrs, q, lo, hi, st, ct, k)),
+                                ((ids, dd), ops.scan_topk_windows(
+                                    corpus, attrs, q, lo, hi, st, ct, k=k)),
+                                ((mi, md), ref.scan_topk_mask_ref(
+                                    cb, mask, q, k)),
+                                ((mi, md), ops.scan_topk_mask(
+                                    corpus, mask, q, k=k))):
+                            ctx = (N, d, view, B, k)
+                            assert torch.equal(got[0], want[0]), ctx
+                            assert torch.equal(got[1], want[1]), ctx
+
+
+@pytest.mark.gpu
 def test_cuda_window_cover_matches_plain_version():
     """The windowed scan's pre-pass: its bitmap equal to
     ``ref.window_cover_ref`` and its tile flags to the tiles some lane of

@@ -29,6 +29,8 @@ def test_import_every_module_without_jax_or_reference():
     assert "repro_torch.core.sharded" in mods
     assert "repro_torch.distributed.elastic" in mods
     assert "repro_torch.launch.mesh" in mods
+    assert "repro_torch.checkpoint.manager" in mods
+    assert "repro_torch.core.query_ref" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "

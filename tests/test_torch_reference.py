@@ -373,3 +373,33 @@ def test_merge_node_replays_the_reference_build(monkeypatch, merge_chunk,
         loc[mem] = -1
         replayed += 1
     assert replayed > 20
+
+
+def test_round_bf16_matches_jax_cast():
+    """``round_bf16``'s bit arithmetic is the JAX cast to bfloat16 and
+    back: random values, exact ties (both parities), subnormals, values
+    past the range, infinities and NaN."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(0)
+    x = np.concatenate([
+        rng.standard_normal(4096).astype(np.float32) * 10.0 ** rng.integers(
+            -30, 30, 4096),
+        np.array([1 + 2 ** -8, 1 + 3 * 2 ** -8, -(1 + 2 ** -8), 1e-40,
+                  -3e-39, 3.4e38, -3.39e38, 0.0, -0.0, np.inf, -np.inf,
+                  np.nan], np.float32)]).astype(np.float32)
+    want = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    got = sref.round_bf16(x)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.float32
+
+
+def test_topk_f64_matches_brute_force(tiny_index, tiny_queries):
+    Q, preds = tiny_queries
+    rows = np.nonzero(preds[0].matches(tiny_index.attrs))[0]
+    ids, dd = sref.topk_f64(tiny_index.vecs, rows, Q[:6], 10, chunk=64)
+    for i in range(6):
+        d64 = ((tiny_index.vecs[rows].astype(np.float64) - Q[i]) ** 2).sum(1)
+        o = np.lexsort((rows, d64))[:10]
+        np.testing.assert_array_equal(ids[i][:len(o)], rows[o])
+        np.testing.assert_allclose(dd[i][:len(o)], d64[o], rtol=1e-6)
