@@ -3,11 +3,18 @@ holds each against its plain PyTorch version on the card (the gather and
 scan kernels in their f32, bf16 and int8 forms, the unfused gathers in
 both forms, l2dist_qc, the bitmask scan, and the windowed scan at the
 windows of the served 1/64 boxes and of every served lane, its
-coverage pre-pass timed apart), then builds a KHI index at the
-khi-serve shard's widths on the card and serves mixed-selectivity bursts
-through the auto planner, checking the answers; then serves the same
-bursts again on the quantized score path, quant="int8" and then
-quant="bf16", from a replica attached to the same index; then the same
+coverage pre-pass timed apart; the scan family's wide forms, which take
+any k and m, at k = 100 and the over-fetch kq = 400 and on a 1/32-grid
+corpus at k in {65, 100, 400} and m in {4, 9, 12}), then builds a KHI
+index at the khi-serve shard's widths on the card and serves
+mixed-selectivity bursts through the auto planner, checking the answers;
+then serves the same bursts again on the quantized score path,
+quant="int8" and then quant="bf16", from a replica attached to the same
+index; then 64 of the requests at k = 100 under auto and under int8
+(``large_k_pass``: the wide box forms, scan lanes held to the float64
+truth); then a 65,536-row index with 12 attributes (``m12_pass``: auto,
+hybrid and a bitmask expression at k = 100, stored in f32 and in bf16,
+every wide form on a served path); then the same
 index stored in bf16 (``bf16_corpus_pass``: auto, the graph walk on the
 unfused backends, hybrid on the bf16 windowed scan, the bitmask scan of
 the bf16 corpus, int8 over it, held to smoke_reference.py's bf16
@@ -46,11 +53,19 @@ and an int8-bottom ladder; last, the streaming write path
 deletes of base and delta rows, the same bursts are served and checked
 against the live corpus on an f32 and an int8 service, the delta scan is
 timed at the served, a full and an empty delta, and one compaction
-rebuilds the live corpus, timed by phase.
+rebuilds the live corpus, timed by phase. After the KHI passes, the LM
+substrate's decode serving (``lm_pass``): the six archs that fit one
+card at full width and depth, jamba, phi3.5-moe and qwen2-vl at full
+width with their depth cut, from random weights in bf16, 4 prompts of 32
+tokens + 16 greedy tokens each through ``generate`` (tok/s and peak
+memory printed beside the card), each first checked in f32 (decode
+against forward, prefill + decode against the all-decode path); hubert
+runs its forward once and must refuse ``generate``.
 
     python3 chip_smoke.py                 # full run, one GPU
     python3 chip_smoke.py --n 200000      # a smaller corpus (widths kept)
     python3 chip_smoke.py --phases kernels
+    python3 chip_smoke.py --phases lm     # the LM pass alone
 
 The graph lanes are held to ``smoke_reference.py``, a plain numpy router,
 beam search and graph-row rule that shares no code with the port. Their
@@ -487,23 +502,15 @@ def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev, *,
           f"equal on {same} of {ids.numel()} slots ({ties} near-ties), max "
           f"abs err {err:.3g}; ids and dists equal to the bf16 box scan's on "
           f"the mask as an attribute", flush=True)
-    del mask, okr, bids, bdd
+    del okr, bids, bdd
 
+    # -- the wide forms (any k, any m) at the served shape, k = 100 and
+    # the int8 / bf16 over-fetch kq = 400
+    wide_kernel_rows(corpus, cb, qv, qs, attrs, mask, q, qlo_s, qhi_s,
+                     n_pairs, WIDE_K, 4 * WIDE_K, dev, rows)
+    del mask
     if synthetic_windows:
-        # windows as a hybrid planner builds them: per lane a few disjoint
-        # extents, ascending by start, some longer than a block's chunk
-        W = 16
-        slot = max(1, min(8192, n // (2 * W)))
-        gen = np.random.default_rng(5)
-        st = np.full((B, W), -1, np.int32)
-        ct = np.zeros((B, W), np.int32)
-        for b in range(1, B):                   # lane 0: no windows
-            nw = int(gen.integers(1, W + 1))
-            cut = np.sort(gen.choice(n // slot, size=nw, replace=False))
-            st[b, :nw] = cut * slot
-            ct[b, :nw] = gen.integers(1, slot + 1, size=nw)
-        st[-1, 0], ct[-1, 0] = n - 100, 100      # ends at N
-        st, ct = torch.as_tensor(st).to(dev), torch.as_tensor(ct).to(dev)
+        st, ct = make_windows(B, n, dev)
         rows["scan_topk_windows"] = windows_check(
             corpus, attrs, q, qlo_s, qhi_s, st, ct, k, "synthetic windows")
         rows["scan_topk_windows_bf16"] = windows_check(
@@ -568,6 +575,23 @@ def kernel_checks(n: int, d: int, m: int, k: int, kq: int, dev, *,
     del cl, ql
     torch.cuda.empty_cache()
     return rows
+
+
+def make_windows(B: int, n: int, dev, W: int = 16):
+    """(B, W) int32 starts/counts as a hybrid planner builds them: per lane
+    a few disjoint extents, ascending by start, some longer than a block's
+    chunk; lane 0 has none, the last lane's first window ends at N."""
+    slot = max(1, min(8192, n // (2 * W)))
+    gen = np.random.default_rng(5)
+    st = np.full((B, W), -1, np.int32)
+    ct = np.zeros((B, W), np.int32)
+    for b in range(1, B):
+        nw = int(gen.integers(1, W + 1))
+        cut = np.sort(gen.choice(n // slot, size=nw, replace=False))
+        st[b, :nw] = cut * slot
+        ct[b, :nw] = gen.integers(1, slot + 1, size=nw)
+    st[-1, 0], ct[-1, 0] = n - 100, 100
+    return torch.as_tensor(st).to(dev), torch.as_tensor(ct).to(dev)
 
 
 def allpass_check(corpus, attrs, q, k: int, dev) -> None:
@@ -807,6 +831,34 @@ def unfused_checks(corpus, cb, q, rows) -> None:
     l2dist_qc_phases(q, cand, corpus[idx2], r)
 
 
+def window_pairs(pos_attrs, qlo, qhi, starts, counts):
+    """The windows' rows per lane (a device tensor each, in window order),
+    the passing (lane, row) pairs, and the distinct rows some lane covers
+    and some covering lane's box passes (windows of different lanes
+    overlap: a bound counts each row once)."""
+    dev = pos_attrs.device
+    N = pos_attrs.shape[0]
+    st, ct = starts.cpu().numpy(), counts.cpu().numpy()
+    lane_rows, n_pass = [], 0
+    cov_any = torch.zeros(N, dtype=torch.bool, device=dev)
+    pass_any = torch.zeros(N, dtype=torch.bool, device=dev)
+    for b in range(st.shape[0]):
+        # the rows of lane b's windows in order: [s, min(s + c, N)) each
+        live = (st[b] >= 0) & (ct[b] > 0)
+        s0 = st[b][live].astype(np.int64)
+        c0 = np.clip(np.minimum(s0 + ct[b][live], N) - s0, 0, None)
+        first = np.cumsum(c0) - c0
+        r = torch.as_tensor(np.repeat(s0 - first, c0)
+                            + np.arange(int(c0.sum()))).to(dev)
+        a = pos_attrs.index_select(0, r)
+        ok = ((a >= qlo[b]) & (a <= qhi[b])).all(-1)
+        n_pass += int(ok.sum())
+        cov_any[r] = True
+        pass_any[r[ok]] = True
+        lane_rows.append(r)
+    return lane_rows, n_pass, int(cov_any.sum()), int(pass_any.sum())
+
+
 def windows_check(pos_vecs, pos_attrs, q, qlo, qhi, starts, counts, k,
                   what: str) -> dict:
     """The windowed scan against its plain version at (B, W) windows of a
@@ -826,28 +878,9 @@ def windows_check(pos_vecs, pos_attrs, q, qlo, qhi, starts, counts, k,
     bf16 = pos_vecs.dtype == torch.bfloat16
     name = "scan_topk_windows_bf16" if bf16 else "scan_topk_windows"
     m = pos_attrs.shape[1]
-    st, ct = starts.cpu().numpy(), counts.cpu().numpy()
-    lane_rows, n_pass = [], 0
-    cov_any = torch.zeros(N, dtype=torch.bool, device=dev)
-    pass_any = torch.zeros(N, dtype=torch.bool, device=dev)
-    for b in range(B):
-        # the rows of lane b's windows in order: [s, min(s + c, N)) each
-        live = (st[b] >= 0) & (ct[b] > 0)
-        s0 = st[b][live].astype(np.int64)
-        c0 = np.clip(np.minimum(s0 + ct[b][live], N) - s0, 0, None)
-        first = np.cumsum(c0) - c0
-        r = torch.as_tensor(np.repeat(s0 - first, c0)
-                            + np.arange(int(c0.sum()))).to(dev)
-        a = pos_attrs.index_select(0, r)
-        ok = ((a >= qlo[b]) & (a <= qhi[b])).all(-1)
-        n_pass += int(ok.sum())
-        cov_any[r] = True
-        pass_any[r[ok]] = True
-        lane_rows.append(r)
+    lane_rows, n_pass, rows_cov, rows_pass = window_pairs(
+        pos_attrs, qlo, qhi, starts, counts)
     covered = sum(int(r.numel()) for r in lane_rows)
-    # windows of different lanes overlap: the bytes count distinct rows
-    rows_cov, rows_pass = int(cov_any.sum()), int(pass_any.sum())
-    del cov_any, pass_any
 
     def kern():
         return ops.scan_topk_windows(pos_vecs, pos_attrs, q, qlo, qhi,
@@ -935,6 +968,28 @@ def lanes_exact(ids, dists, t_ids, t_d):
     1e-5 relative of the truth's (a near-tie), with the same -1 slots."""
     ok = (ids == t_ids) | np.isclose(dists, t_d, rtol=1e-5, atol=1e-4)
     return ok.all(1) & ((ids < 0) == (t_ids < 0)).all(1)
+
+
+def box_truth_f64(vecs, attrs, Q, lo, hi, lanes, k: int) -> dict:
+    """{lane: float64 top-k (ids, dists)} of the rows in the lane's box, on
+    8 host threads (smoke_reference.topk_f64)."""
+    import smoke_reference as sref
+
+    def one(i):
+        rows_i = np.nonzero(((attrs >= lo[i]) & (attrs <= hi[i])).all(1))[0]
+        a, b = sref.topk_f64(vecs, rows_i, Q[i][None], k)
+        return int(i), (a[0], b[0])
+    return dict(pmap(one, lanes))
+
+
+def exact_lanes(lanes, ids, dists, truth):
+    """``lanes_exact`` of the served ``lanes`` against ``truth``'s
+    {lane: (ids, dists)}."""
+    if len(lanes) == 0:
+        return np.zeros(0, bool)
+    t_i = np.stack([truth[int(i)][0] for i in lanes])
+    t_d = np.stack([truth[int(i)][1] for i in lanes])
+    return lanes_exact(ids[lanes], dists[lanes], t_i, t_d)
 
 
 def launch_us(dev, n: int = 4000) -> float:
@@ -1154,6 +1209,10 @@ def main_path(n: int, n_full: int, dev, rows: dict, data=None) -> None:
                                    serve_bursts, use_scan, t_ids, ref_ent,
                                    dev, rows)
         mark(f"the {quant} pass")
+    large_k_pass(index, di, params, cfg, Q, lo, hi, dev, rows)
+    mark("the large-k pass")
+    m12_pass(cfg, dev, rows)
+    mark("the m = 12 pass")
     db, bsvc = bf16_corpus_pass(index, di, params, cfg, Q, lo, hi,
                                 perm >= nq, serve_bursts, sizes, use_scan,
                                 t_ids, ref_ent, len(results) / dt, dev, rows)
@@ -1374,6 +1433,19 @@ HAND_KERNELS = {
                           "scan_topk_windows"),
     "scan_topk_windows_bf16": (r"box_scan_kernel<__nv_bfloat16, \w+, true>",
                                "scan_topk_windows"),
+    "scan_topk_wide": (r"wide_score_kernel<float, 0>", "scan_topk"),
+    "scan_topk_wide_bf16": (r"wide_score_kernel<__nv_bfloat16, 0>",
+                            "scan_topk"),
+    "scan_topk_wide_q8": (r"wide_score_kernel<signed char, 0>",
+                          "scan_topk_q8"),
+    "scan_topk_windows_wide": (r"wide_score_kernel<float, 1>",
+                               "scan_topk_windows"),
+    "scan_topk_windows_wide_bf16": (r"wide_score_kernel<__nv_bfloat16, 1>",
+                                    "scan_topk_windows"),
+    "scan_topk_mask_wide": (r"wide_score_kernel<float, 2>",
+                            "scan_topk_mask"),
+    "scan_topk_mask_wide_bf16": (r"wide_score_kernel<__nv_bfloat16, 2>",
+                                 "scan_topk_mask"),
     "l2dist_qn": ("l2dist_qn_kernel", "l2dist_qn"),
     "l2dist_qc": ("l2dist_qc_kernel", "l2dist_qc")}
 
@@ -1710,17 +1782,7 @@ def bf16_corpus_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts,
     svc_cfg = ServeConfig(buckets=cfg.buckets, cache_size=cfg.cache_size)
 
     def box_truth(lanes, q):
-        def one(i):
-            rows_i = np.nonzero(((index.attrs >= lo[i])
-                                 & (index.attrs <= hi[i])).all(1))[0]
-            a, b = sref.topk_f64(vb, rows_i, q[i][None], k)
-            return int(i), (a[0], b[0])
-        return dict(pmap(one, lanes))
-
-    def exact_on(lanes, ids, dists, truth):
-        t_i = np.stack([truth[int(i)][0] for i in lanes])
-        t_dd = np.stack([truth[int(i)][1] for i in lanes])
-        return lanes_exact(ids[lanes], dists[lanes], t_i, t_dd)
+        return box_truth_f64(vb, index.attrs, q, lo, hi, lanes, k)
 
     # ---- (a) auto, the fused backend
     svc = KHIService(db, params, config=svc_cfg)
@@ -1743,7 +1805,7 @@ def bf16_corpus_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts,
     check_served(a_ids, a_d, vb, index.attrs, Qc, lo, hi, "bf16 corpus auto")
     samp = lane_sample(si)
     truth = box_truth(samp, Q)
-    ok = exact_on(samp, a_ids, a_d, truth)
+    ok = exact_lanes(samp, a_ids, a_d, truth)
     print(f"[bf16 corpus] scan lanes: {int(ok.sum())} of {len(samp)} sampled "
           f"(of {len(si)}) equal the float64 top-k of the bf16 corpus",
           flush=True)
@@ -1856,7 +1918,7 @@ def bf16_corpus_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts,
     check_served(h_ids, h_d, vb, index.attrs, Q, lo, hi, "bf16 hybrid")
     wl = lane_sample(np.nonzero(is_s)[0])
     truth.update(box_truth([i for i in wl if int(i) not in truth], Q))
-    ok = exact_on(wl, h_ids, h_d, truth)
+    ok = exact_lanes(wl, h_ids, h_d, truth)
     print(f"[bf16 corpus] pure-window lanes: {int(ok.sum())} of {len(wl)} "
           f"sampled 1/64 ones equal the float64 top-k of the bf16 corpus",
           flush=True)
@@ -1911,7 +1973,7 @@ def bf16_corpus_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts,
               f"bf16 corpus int8: {name} was never launched")
     check(not plain, f"bf16 corpus int8: fell through to {plain}")
     check_served(q_ids, q_d, vb, index.attrs, Qc, lo, hi, "bf16 int8")
-    ok = exact_on(samp, q_ids, q_d, truth)
+    ok = exact_lanes(samp, q_ids, q_d, truth)
     print(f"[bf16 corpus] int8: {len(Q)} requests in {dt:.3f}s "
           f"({len(Q) / dt:.1f} QPS end-to-end); launches {launches}; graph "
           f"lanes recall@{k} {recall(q_ids[gi], t_ids[gi]):.4f} (auto over "
@@ -2355,9 +2417,10 @@ GRAPH_KERNELS = {"a": ("gather_l2_filter",), "b": ("gather_l2",),
 WRAPPER_KERNELS = {"b": "gather_l2_rows", "c": "l2dist_qc",
                    "d": "gather_l2_rows"}
 # (d) serves a seeded sample of this many of the 384 requests, one DFS
-# batch (cut from all 384, two batches, for the time limit), and the
+# batch (cut from all 384, two batches, then from 256, for the time
+# limit), and the
 # uncapped DFS walks DFS_UNCAPPED of them (cut from 128)
-DFS_LANES = 256
+DFS_LANES = 128
 DFS_UNCAPPED = 64
 
 
@@ -2628,26 +2691,26 @@ def graph_pass(index, di, params, cfg, Q, lo, hi, is_s, serve_bursts, t_ids,
 
 # ------------------------------------------------------ the builders' pass
 
-# rows 0, 40, 80, ... of the main corpus (25,000; cut from 1M, then from
-# 100,000 and 50,000, for the time limit: Algorithm 5 is n / 64
+# rows 0, 80, 160, ... of the main corpus (12,500; cut from 1M, then from
+# 100,000, 50,000 and 25,000, for the time limit: Algorithm 5 is n / 64
 # sequential rounds of ~54 launches a hop)
-BUILD_EVERY = 40
+BUILD_EVERY = 80
 # card-vs-CPU cases on a 1/32-grid corpus at d = 768, m = 4, M = 32:
 # (n, merge_chunk, symmetric_reverse), cut from 4,096 rows for the time
-# limit: the plain versions take ~300 s on the CPU at 4,096 and
-# merge_chunk 64, and merge_chunk 1 runs about n sequential rounds (163 s
-# on the card at 4,096)
-BUILD_GRID_CASES = {"inc64": (512, 64, False), "inc1": (128, 1, True)}
+# limit (inc64 from 512 too): the plain versions take ~300 s on the CPU
+# at 4,096 and merge_chunk 64, and merge_chunk 1 runs about n sequential
+# rounds (163 s on the card at 4,096)
+BUILD_GRID_CASES = {"inc64": (256, 64, False), "inc1": (128, 1, True)}
 BUILD_GRID_D = 768
 # the reference's fixed float seeds of its bulk-builder parity test
 # (tests/test_build_device.py:27-31): (n, d, m, M, ef_b, seed)
 BULK_SEEDS = ((600, 16, 2, 8, None, 1), (900, 24, 3, 8, None, 0),
               (700, 24, 3, 8, 24, 0))
-REPLAY_NODES = 32   # cut from 64 for the time limit
+REPLAY_NODES = 16   # cut from 64, then 32, for the time limit
 # per selectivity, through every baseline (cut from 32 for the time limit)
 BASELINE_REQUESTS = 16
 # Postfiltering's one graph takes n / 64 sequential rounds: it is built
-# over every 4th of the pass's rows (6,250), cut for the time limit
+# over every 4th of the pass's rows (3,125), cut for the time limit
 POST_EVERY = 4
 
 
@@ -4812,6 +4875,627 @@ def builder_check(index, di, M: int, seed: int = 0) -> None:
           "the builder's graph rows differ from the float64 recomputation")
 
 
+# ---------------------------------------------------------------- the wide
+# scan forms (ROADMAP F8): any 1 <= k <= N and any m on the card
+
+WIDE_K = 100                   # the paper's largest k (benchmarks/vary_k.py)
+WIDE_CU = "src/repro_torch/kernels/csrc/scan_topk_wide.cu"
+WIDE_GRID_KS = (65, 100, 400)
+WIDE_GRID_MS = (4, 9, 12)
+
+
+def timed_once(fn):
+    """(fn's result, its ms by CUDA events): a plain version too slow to
+    run twice gives its answer and its time in one call."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def wide_row(name, line, kern, plain, lib, nbytes, nops, what, rows):
+    """A wide form against its plain version at the served shape, with
+    ``topk_agree``'s rule (random floats: the two sum in other orders);
+    its time, the plain version's, the library's and its bound."""
+    ids, dd = kern()
+    (rids, rdd), plain_ms = timed_once(plain)
+    same, ties, err = topk_agree(name, ids, dd, rids, rdd)
+    bms, by = bound_ms(nbytes, nops)
+    r = rows[name] = dict(
+        name=name, route="cuda", launches=0, source=WIDE_CU,
+        replaces=SCAN_TPU + line, max_abs_err=err, ms=time_ms(kern, reps=3),
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lib, reps=3))
+    print(f"[kernels] {name} {what}: {r['ms']:.3f} ms (plain "
+          f"{plain_ms:.3f}, library {r['library_ms']:.3f}, bound {bms:.3f} "
+          f"by {by}), ids equal on {same} of {ids.numel()} slots ({ties} "
+          f"near-ties), max abs err {err:.3g}", flush=True)
+    return ids, dd
+
+
+def wide_kernel_rows(corpus, cb, qv, qs, attrs, mask, q, qlo, qhi, n_pairs,
+                     k, kq, dev, rows) -> None:
+    """Each wide form at the served shape (B = 256, N = n, d = 768, m =
+    4): the box scan in f32 at k and in bf16 / int8 at the over-fetch kq
+    (k x rerank_mult), the bitmask scan (f32, bf16) and the windowed scan
+    (f32, bf16, on synthetic windows) at k. The bitmask form also equals
+    the f32 box form bit for bit on the mask as a one-attribute box.
+    Library: (dequantize +) cdist + mask + topk; bounds as the narrow
+    forms'. Then the grid checks (``wide_grid_checks``)."""
+    from repro_torch.kernels import ops, quant, ref
+
+    B, (n, d), m = q.shape[0], corpus.shape, attrs.shape[1]
+    inf = float("inf")
+
+    def box_lib(rows_f32, kk):
+        def run():
+            dist = torch.cdist(q, rows_f32())
+            ok = ((attrs[None] >= qlo[:, None])
+                  & (attrs[None] <= qhi[:, None])).all(-1)
+            return torch.topk(torch.where(ok, dist, inf), kk, largest=False)
+        return run
+
+    head = B * 4 * (q.shape[1] + 2 * m)
+    for name, kk, cx, row_bytes, extra in (
+            ("scan_topk_wide", k, corpus, 4 * d, 0),
+            ("scan_topk_wide_bf16", kq, cb, 2 * d, 0),
+            ("scan_topk_wide_q8", kq, qv, d + 4, n * d)):
+        if cx is qv:
+            def kern(kk=kk):
+                return ops.scan_topk_q8(qv, qs, attrs, q, qlo, qhi, k=kk)
+
+            def plain(kk=kk):
+                return ref.scan_topk_q8_ref(qv, qs, attrs, q, qlo, qhi, kk)
+            lib = box_lib(lambda: quant.dequant_rows(qv, qs), kk)
+        else:
+            def kern(kk=kk, cx=cx):
+                return ops.scan_topk(cx, attrs, q, qlo, qhi, k=kk)
+
+            def plain(kk=kk, cx=cx):
+                return ref.scan_topk_ref(cx, attrs, q, qlo, qhi, kk)
+            lib = box_lib(lambda cx=cx: cx.float(), kk)
+        ids, _ = wide_row(
+            name, ":60" if cx is not qv else ":172", kern, plain, lib,
+            n * row_bytes + attrs.numel() * 4 + head + B * kk * 8,
+            n_pairs * d * 3 + extra,
+            f"B={B} N={n} d={d} k={kk} ({n_pairs} passing pairs)", rows)
+        check(bool((ids[0] == -1).all()), f"{name}: an empty box must give "
+              f"(-1, +inf) lanes")
+
+    okr = mask[:, 0] > 0
+    n_rows = int(okr.sum())
+    one_lo = torch.full((B, 1), 1e-30, device=dev)
+    one_hi = torch.full((B, 1), inf, device=dev)
+    for name, cx, eb in (("scan_topk_mask_wide", corpus, 4),
+                         ("scan_topk_mask_wide_bf16", cb, 2)):
+        def kern(cx=cx):
+            return ops.scan_topk_mask(cx, mask, q, k=k)
+
+        def lib(cx=cx):
+            dist = torch.cdist(q, cx.float())
+            return torch.topk(torch.where(okr[None], dist, inf), k,
+                              largest=False)
+        ids, dd = wide_row(
+            name, ":241", kern,
+            lambda cx=cx: ref.scan_topk_mask_ref(cx, mask, q, k), lib,
+            n * 4 + n_rows * d * eb + q.numel() * 4 + B * k * 8,
+            n_rows * B * d * 3, f"B={B} N={n} d={d} k={k} ({n_rows} rows "
+            f"pass)", rows)
+        bids, bdd = ops.scan_topk(cx, mask, q, one_lo, one_hi, k=k)
+        torch.cuda.synchronize()
+        check(torch.equal(ids, bids) and torch.equal(dd, bdd),
+              f"{name} differs from the wide box scan on the mask as an "
+              f"attribute: ids on {int((ids != bids).sum())} slots")
+    print(f"[kernels] the wide bitmask forms equal the wide box forms on "
+          f"the mask as a one-attribute box at k={k}", flush=True)
+
+    st, ct = make_windows(B, n, dev)
+    lane_rows, n_pass, rows_cov, rows_pass = window_pairs(attrs, qlo, qhi,
+                                                          st, ct)
+    for name, cx in (("scan_topk_windows_wide", corpus),
+                     ("scan_topk_windows_wide_bf16", cb)):
+        def kern(cx=cx):
+            return ops.scan_topk_windows(cx, attrs, q, qlo, qhi, st, ct, k=k)
+
+        def plain(cx=cx):
+            return ref.scan_topk_windows_ref(cx, attrs, q, qlo, qhi, st, ct,
+                                             k)
+
+        def lib(cx=cx):
+            out = []
+            for b, r in enumerate(lane_rows):
+                if r.numel():
+                    dist = torch.cdist(q[b:b + 1],
+                                       cx.index_select(0, r).float())
+                    a = attrs.index_select(0, r)
+                    ok = ((a >= qlo[b]) & (a <= qhi[b])).all(-1)
+                    out.append(torch.topk(torch.where(ok, dist[0], inf),
+                                          min(k, r.numel()), largest=False))
+            return out
+        wide_row(name, ":305", kern, plain, lib,
+                 rows_cov * m * 4 + rows_pass * d * cx.element_size()
+                 + q.numel() * 4 + 2 * qlo.numel() * 4 + 2 * st.numel() * 4
+                 + B * k * 8, n_pass * d * 3,
+                 f"at synthetic windows: B={B} W={st.shape[1]} k={k}, "
+                 f"{n_pass} passing (lane, row) pairs over {rows_cov} "
+                 f"distinct rows", rows)
+    del lane_rows
+    wide_grid_checks(dev)
+
+
+def wide_grid_checks(dev) -> None:
+    """Every wide form ``torch.equal`` to its plain version on a 1/32-grid
+    corpus, where every f32 sum is exact in any order: N = 3001, d = 96,
+    B = 37, k in {65, 100, 400}; the box (f32, bf16, int8 on the grid) and
+    windowed (f32, bf16) forms at m in {4, 9, 12}, the bitmask form (f32,
+    bf16); lanes with an empty box, an all-pass box (every row but the
+    NaN ones), a 20-row box and a one-row box."""
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(0xF8)
+    N, d, B = 3001, 96, 37
+
+    def grid(shape):
+        return (rng.integers(-64, 65, size=shape) / 32).astype(np.float32)
+
+    corpus = torch.as_tensor(grid((N, d)), device=dev)
+    cb = corpus.to(torch.bfloat16)
+    qv = torch.as_tensor(rng.integers(-32, 33, size=(N, d)),
+                         dtype=torch.int8, device=dev)
+    qs = torch.as_tensor(rng.choice([1 / 16, 1 / 32], size=(N, 1)),
+                         dtype=torch.float32, device=dev)
+    qv[qs[:, 0] == 1 / 32] *= 2
+    q = torch.as_tensor(grid((B, d)), device=dev)
+    mask = torch.as_tensor(rng.random((N, 1)).astype(np.float32),
+                           device=dev) - 0.3
+    mask[::31] = float("nan")
+    mask[::37] = 0.0
+    st, ct = make_windows(B, N, dev, W=8)
+    n_calls = 0
+    for m in WIDE_GRID_MS:
+        a = rng.random((N, m)).astype(np.float32)
+        a[:, 0] = rng.permutation(N)
+        a[5::41, 1] = np.nan
+        lo = (rng.random((B, m)) * 0.3).astype(np.float32)
+        hi = lo + 0.55
+        lo[:, 0], hi[:, 0] = -1.0, float(N)
+        lo[0, 0], hi[0, 0] = 1.0, 0.0                # empty
+        lo[1], hi[1] = -1.0, float(N)                # all pass
+        lo[2], hi[2] = -1.0, float(N)
+        lo[2, 0], hi[2, 0] = 100.0, 119.0            # 20 rows
+        lo[3], hi[3] = -1.0, float(N)
+        lo[3, 0], hi[3, 0] = 7.0, 7.0                # one row
+        attrs = torch.as_tensor(a, device=dev)
+        lo, hi = torch.as_tensor(lo, device=dev), torch.as_tensor(hi,
+                                                                  device=dev)
+        for k in WIDE_GRID_KS:
+            pairs = [
+                (lambda: ops.scan_topk(corpus, attrs, q, lo, hi, k=k),
+                 lambda: ref.scan_topk_ref(corpus, attrs, q, lo, hi, k)),
+                (lambda: ops.scan_topk(cb, attrs, q, lo, hi, k=k),
+                 lambda: ref.scan_topk_ref(cb, attrs, q, lo, hi, k)),
+                (lambda: ops.scan_topk_q8(qv, qs, attrs, q, lo, hi, k=k),
+                 lambda: ref.scan_topk_q8_ref(qv, qs, attrs, q, lo, hi, k)),
+                (lambda: ops.scan_topk_windows(corpus, attrs, q, lo, hi, st,
+                                               ct, k=k),
+                 lambda: ref.scan_topk_windows_ref(corpus, attrs, q, lo, hi,
+                                                   st, ct, k)),
+                (lambda: ops.scan_topk_windows(cb, attrs, q, lo, hi, st, ct,
+                                               k=k),
+                 lambda: ref.scan_topk_windows_ref(cb, attrs, q, lo, hi, st,
+                                                   ct, k))]
+            if m == WIDE_GRID_MS[0]:          # the bitmask reads no attrs
+                pairs += [
+                    (lambda: ops.scan_topk_mask(corpus, mask, q, k=k),
+                     lambda: ref.scan_topk_mask_ref(corpus, mask, q, k)),
+                    (lambda: ops.scan_topk_mask(cb, mask, q, k=k),
+                     lambda: ref.scan_topk_mask_ref(cb, mask, q, k))]
+            for j, (kern, plain) in enumerate(pairs):
+                ops.reset_launches()
+                gi, gd = kern()
+                launched = [nm for nm, c in ops.LAUNCHES.items() if c]
+                wi, wd = plain()
+                torch.cuda.synchronize()
+                form = launched[0] if len(launched) == 1 else f"form {j}"
+                check(len(launched) == 1 and "_wide" in form,
+                      f"wide grid m={m} k={k} form {j}: launched {launched}")
+                check(torch.equal(gi, wi) and torch.equal(gd, wd),
+                      f"{form} m={m} k={k}: not equal to its plain "
+                      f"version on the grid corpus (ids on "
+                      f"{int((gi != wi).sum())} slots, dists on "
+                      f"{int((gd != wd).sum())})")
+                if j < 5:
+                    check(bool((gi[0] == -1).all())
+                          and int((gi[2] >= 0).sum()) <= 20,
+                          f"{form} m={m} k={k}: the empty or the "
+                          f"20-row box")
+                n_calls += 1
+    print(f"[kernels] wide forms on a 1/32-grid corpus (N={N}, d={d}, "
+          f"B={B}): {n_calls} calls at k in {WIDE_GRID_KS}, m in "
+          f"{WIDE_GRID_MS} (box, windowed) and the bitmask, every one "
+          f"torch.equal to its plain version", flush=True)
+
+
+LARGE_K_REQUESTS = 64
+
+
+def served_once(svc, Q, lo=None, hi=None, expr=None):
+    """One served burst of every request (boxes ``lo``/``hi``, or one
+    filter ``expr`` for all), after a warm-up burst on other keys, its
+    launch counts alone: -> (ids, dists, seconds, launches, plain-version
+    CUDA calls, scan lanes)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve import Request
+
+    def burst(qs):
+        tickets = [svc.submit(Request(qs[i], expr=expr) if expr is not None
+                              else Request(qs[i], lo[i], hi[i]))
+                   for i in range(len(qs))]
+        res = svc.flush()
+        return [res[t] for t in tickets]
+
+    burst(Q + np.float32(1e-3))                    # warm-up, other keys
+    before = svc.snapshot()["scan_lanes"]
+    ops.reset_launches()
+    ref.reset_calls()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = burst(Q)
+    dt = time.perf_counter() - t0
+    launches = {n: c for n, c in ops.LAUNCHES.items() if c}
+    plain = {n: v["cuda"] for n, v in ref.CALLS.items() if v["cuda"]}
+    return (np.stack([r.ids for r in out]), np.stack([r.dists for r in out]),
+            dt, launches, plain, svc.snapshot()["scan_lanes"] - before)
+
+
+def large_k_pass(index, di, params, cfg, Q, lo, hi, dev, rows) -> None:
+    """The 1M index served at k = 100: 64 requests (32 at 1/4, 32 at 1/64
+    selectivity, mixed) under auto, then under int8 (over-fetch kq = 400,
+    f32 rerank), each one burst with its launches counted alone. The
+    scan lanes must equal the float64 top-k of their boxes; the graph
+    lanes' recall@100 against the plain f32 brute force is printed."""
+    from repro_torch.core.engine import with_quant_replica
+    from repro_torch.serve import KHIService, ServeConfig
+
+    from repro_torch.kernels import ref
+
+    k = WIDE_K
+    Qk, lok, hik = (x[:LARGE_K_REQUESTS] for x in (Q, lo, hi))
+    # the graph lanes' recall against the plain f32 brute force on the
+    # card; the float64 truth (on the host) for the scan lanes
+    with torch.no_grad():
+        t_ids = ref.scan_topk_ref(di.vecs, di.attrs,
+                                  *(torch.as_tensor(x).to(dev)
+                                    for x in (Qk, lok, hik)), k)[0]
+    t_ids = t_ids.cpu().numpy()
+    svc_cfg = ServeConfig(buckets=cfg.buckets, cache_size=cfg.cache_size)
+    truth, truth_s = {}, 0.0
+    for quant, form in (("none", "scan_topk_wide"),
+                        ("int8", "scan_topk_wide_q8")):
+        p = dataclasses.replace(params, k=k, quant=quant)
+        dq = di if quant == "none" else with_quant_replica(di, quant)
+        svc = KHIService(dq, p, config=svc_cfg)
+        ids, dists, dt, launches, plain, n_scan = served_once(svc, Qk, lok,
+                                                              hik)
+        use_scan = svc._planner.plan(lok, hik).use_scan
+        si, gi = np.nonzero(use_scan)[0], np.nonzero(~use_scan)[0]
+        t0 = time.perf_counter()
+        truth.update(box_truth_f64(index.vecs, index.attrs, Qk, lok, hik,
+                                   [i for i in si if int(i) not in truth],
+                                   k))
+        truth_s += time.perf_counter() - t0
+        ok = exact_lanes(si, ids, dists, truth)
+        rec = recall(ids[gi], t_ids[gi])
+        tag = "auto" if quant == "none" else quant
+        print(f"[large k] {tag} k={k}"
+              f"{'' if quant == 'none' else f' (kq={4 * k})'}: "
+              f"{len(Qk)} requests in {dt:.3f}s ({len(Qk) / dt:.1f} QPS "
+              f"end-to-end), {n_scan} scan lanes, {len(gi)} graph lanes; "
+              f"scan lanes equal to the float64 truth on {int(ok.sum())} of "
+              f"{len(si)}; graph lanes' recall@{k} {rec:.4f} (against the "
+              f"f32 brute force); launches {launches}; float64 truth "
+              f"{truth_s:.1f}s on the host", flush=True)
+        check(not plain, f"large k {tag}: fell through to {plain}")
+        check(launches.get(form, 0) > 0 and len(si) > 0,
+              f"large k {tag}: {form} was never launched")
+        check(bool(ok.all()), f"large k {tag}: a scan lane is not exact")
+        check(bool(((ids >= 0).any(1) | (t_ids < 0).all(1)).all()),
+              f"large k {tag}: a request whose box holds a row got no id")
+        check_served(ids, dists, index.vecs, index.attrs, Qk, lok, hik,
+                     f"large k {tag}")
+        rows[form]["launches"] = launches.get(form, 0)
+        del svc, dq
+
+
+M12_N = 65_536
+M12_M = 12
+
+
+def m12_pass(cfg, dev, rows) -> None:
+    """A KHI index over a 65,536-row, d = 768 corpus with 12 attributes
+    (``year`` + 11 lognormal, the cell's correlation and clusters), built
+    on the card and served: auto (the box scan's m > 8: its wide form),
+    hybrid (the windowed wide form), both at the median routing bound of
+    the 1/64 lanes as the threshold, a filter expression
+    that lowers to the bitmask at k = 100 (the bitmask's wide form), then
+    the same three on the index stored in bf16. Each run is one burst of
+    64 requests (32 at 1/4, 32 at 1/64) with its launches counted alone;
+    auto's scan lanes, hybrid's scan lanes and every expression lane must
+    equal the float64 top-k (over the bf16 rounding for the bf16 index)."""
+    import smoke_reference as sref
+    from repro_torch.core import KHIConfig, KHIIndex
+    from repro_torch.core.engine import device_put_index
+    from repro_torch.core.predicate import compile_expr, parse_expr
+    from repro_torch.data import DatasetSpec, make_dataset, make_queries
+    from repro_torch.serve import KHIService, ServeConfig
+
+    t0 = time.perf_counter()
+    spec = DatasetSpec("khi-m12", n=M12_N, d=cfg.d, m=M12_M,
+                       attr_kinds=("year",) + ("lognormal",) * (M12_M - 1),
+                       attr_corr=0.85, n_clusters=64, seed=12)
+    vecs, attrs = make_dataset(spec)
+    half = LARGE_K_REQUESTS // 2
+    g = make_queries(vecs, attrs, n_queries=half, sigma=1 / 4, seed=13)
+    s = make_queries(vecs, attrs, n_queries=half, sigma=1 / 64, seed=14)
+    Q = np.concatenate([g[0], s[0]])
+    lo = np.stack([p.lo for p in g[1] + s[1]]).astype(np.float32)
+    hi = np.stack([p.hi for p in g[1] + s[1]]).astype(np.float32)
+    index = KHIIndex.build(vecs, attrs, KHIConfig(M=cfg.M, builder="device"),
+                           device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # the routing bound over 12 attributes is loose (a 1/64 box's bound
+    # holds about a third of the corpus at 3,000 rows on the CPU), so the
+    # threshold is the median bound of the 1/64 lanes: about half of them
+    # scan, the rest walk the graph
+    from repro_torch.core.engine import Planner
+    card = Planner(device_put_index(index, device=dev),
+                   cfg.search_params()).plan(lo, hi).card
+    thr = int(np.median(card[half:]))
+    params = dataclasses.replace(cfg.search_params(), scan_threshold=thr,
+                                 node_scan_threshold=thr)
+    years = tuple(range(2005, 2024, 2))
+    text = "a0 in [" + ", ".join(map(str, years)) + "]"
+    expr = parse_expr(text, M12_M)
+    check(compile_expr(expr, M12_M, box_budget=params.box_budget).mode
+          == "bitmask", "m12: the expression does not lower to the bitmask")
+    emask = sref.year_mask(attrs, years)
+    held = np.median([((attrs >= a) & (attrs <= b)).all(1).sum()
+                      for a, b in zip(lo[half:], hi[half:])])
+    print(f"[m12] corpus ({M12_N}, {cfg.d}) x {M12_M} attrs, index built on "
+          f"the card in {build_s:.1f}s (data included); scan threshold "
+          f"{thr} (the median routing bound of the 1/64 lanes; the boxes "
+          f"hold {int(held)} rows at the median); expression {text!r}: "
+          f"{int(emask.sum())} rows", flush=True)
+    svc_cfg = ServeConfig(buckets=cfg.buckets, cache_size=cfg.cache_size)
+    lanes = np.arange(len(Q))
+    for stored in ("f32", "bf16"):
+        di = device_put_index(index, device=dev, vec_dtype=None
+                              if stored == "f32" else torch.bfloat16)
+        vt = vecs if stored == "f32" else sref.round_bf16(vecs)
+        truth = box_truth_f64(vt, attrs, Q, lo, hi, lanes, cfg.k)
+        e_ids, e_d = sref.topk_f64(vt, np.nonzero(emask)[0], Q, WIDE_K)
+        sfx = "" if stored == "f32" else "_bf16"
+        for run, form in (("auto", "scan_topk_wide"),
+                          ("hybrid", "scan_topk_windows_wide"),
+                          ("expr", "scan_topk_mask_wide")):
+            form += sfx
+            p = dataclasses.replace(
+                params, strategy="hybrid" if run == "hybrid" else "auto",
+                k=WIDE_K if run == "expr" else cfg.k)
+            svc = KHIService(di, p, config=svc_cfg)
+            if run == "expr":
+                ids, dists, dt, launches, plain, _ = served_once(
+                    svc, Q, expr=expr)
+                ok = lanes_exact(ids, dists, e_ids, e_d)
+                what = f"every lane ({len(Q)}) equal to the float64 truth " \
+                       f"on {int(ok.sum())}"
+            else:
+                ids, dists, dt, launches, plain, _ = served_once(svc, Q, lo,
+                                                                 hi)
+                # auto's scan lanes, hybrid's pure-window lanes: exact
+                exact = np.nonzero(svc._planner.plan(lo, hi).use_scan)[0]
+                ok = exact_lanes(exact, ids, dists, truth)
+                rec = recall(ids, np.stack([truth[i][0] for i in lanes]))
+                what = (f"{len(exact)} exact lanes, equal to the float64 "
+                        f"truth on {int(ok.sum())}; all lanes' recall@"
+                        f"{cfg.k} {rec:.4f}")
+                check(len(exact) > 0, f"m12 {stored} {run}: no exact lane")
+                if stored == "f32":
+                    check_served(ids, dists, vecs, attrs, Q, lo, hi,
+                                 f"m12 {run}")
+            print(f"[m12] {stored} {run}: {len(Q)} requests in {dt:.3f}s "
+                  f"({len(Q) / dt:.1f} QPS); {what}; launches {launches}",
+                  flush=True)
+            check(not plain, f"m12 {stored} {run}: fell through to {plain}")
+            check(launches.get(form, 0) > 0,
+                  f"m12 {stored} {run}: {form} was never launched")
+            check(bool(ok.all()), f"m12 {stored} {run}: an exact lane is not")
+            rows[form]["launches"] = launches.get(form, 0)
+            del svc
+        del di
+    del index
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- the LM
+# substrate (decode serving, ROADMAP item 17a)
+
+LM_B, LM_S, LM_NEW = 4, 32, 16
+# positions the f32 check decodes past the prompt on both paths (prefill
+# + decode against the all-decode path); cut from 16 for the time limit
+LM_CONT = 4
+# full width and depth: the archs whose full config fits one card in bf16
+LM_FULL = ("gemma3-4b", "phi3-mini-3.8b", "minicpm3-4b", "qwen1.5-4b",
+           "granite-moe-3b-a800m", "mamba2-780m")
+# full width, depth cut: the body repeats kept (jamba: one repeat of its
+# 8-layer block; the others 8 layers)
+LM_CUT = {"jamba-v0.1-52b": 1, "phi3.5-moe-42b-a6.6b": 8,
+          "qwen2-vl-72b": 8}
+# the decode-vs-forward checks in f32: |decode - forward| <= LM_RTOL x the
+# largest |forward logit| at every position (full fp32 products, no TF32;
+# a batched forward and a one-token step sum in other orders)
+LM_RTOL = 1e-3
+
+
+def lm_cfg(arch: str):
+    """The arch's full config, depth cut where it does not fit one card;
+    -> (config, what was cut)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import Stage
+
+    cfg = get_config(arch)
+    if arch not in LM_CUT:
+        return cfg, "full depth"
+    (st,) = cfg.stages
+    rep = LM_CUT[arch]
+    cut = dataclasses.replace(cfg, stages=(Stage(rep, st.body),))
+    return cut, (f"depth cut from {cfg.n_layers} to {cut.n_layers} layers "
+                 f"({rep} of {st.repeat} repeats of a {len(st.body)}-layer "
+                 f"body)")
+
+
+def lm_batch(cfg, dev, seed: int = 0):
+    """4 prompts of 32 tokens (M-RoPE positions on text for qwen2-vl, the
+    decode path's; 512-d frame features for hubert), from numpy."""
+    rng = np.random.default_rng(seed)
+    b = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (LM_B, LM_S)),
+                                   dtype=torch.int32, device=dev)}
+    if cfg.frontend == "audio":
+        b["features"] = torch.as_tensor(rng.standard_normal(
+            (LM_B, LM_S, cfg.frontend_dim)).astype(np.float32), device=dev)
+    if cfg.mrope_sections is not None:
+        b["mrope_pos"] = torch.arange(LM_S, dtype=torch.int32,
+                                      device=dev).expand(LM_B, 3, LM_S)
+    return b
+
+
+def lm_checks(arch, cfg, dev) -> str:
+    """In f32 at the pass's width and depth, MoE capacity raised so that
+    no token drops (a 4-token decode step has capacity 1 at the config's
+    1.25): teacher-forced ``decode_step`` logits against ``forward``'s at
+    each prompt position and their argmax (except where forward's top two
+    lie within the tolerance), then ``prefill`` + ``decode_step`` against
+    the all-decode path over ``LM_CONT`` more positions. Returns a
+    summary."""
+    from repro_torch.models import model as M
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    if c32.moe is not None:
+        c32 = dataclasses.replace(c32, moe=dataclasses.replace(
+            c32.moe, capacity_factor=c32.moe.n_padded / c32.moe.top_k))
+    params = M.init_params(c32, torch.Generator(dev).manual_seed(7),
+                           device=dev)
+    batch = lm_batch(c32, dev, seed=1)
+    T = LM_S + LM_NEW
+    with torch.no_grad():
+        fl, _ = M.forward(params, c32, batch)
+        scale = float(fl.abs().max())
+        cache = M.init_cache(c32, LM_B, T, device=dev)
+        err, ties = 0.0, 0
+        top2 = fl.float().topk(2, dim=-1).values
+        for t in range(LM_S):
+            lg, cache = M.decode_step(params, c32, cache,
+                                      batch["tokens"][:, t:t + 1], t)
+            err = max(err, float((lg[:, 0] - fl[:, t]).abs().max()))
+            near = (top2[:, t, 0] - top2[:, t, 1]) <= LM_RTOL * scale
+            same = lg[:, 0].argmax(-1) == fl[:, t].argmax(-1)
+            ties += int(near.sum())
+            check(bool((same | near).all()),
+                  f"lm {arch}: decode's argmax differs from forward's at {t}")
+        check(err <= LM_RTOL * scale, f"lm {arch}: decode vs forward max "
+              f"abs err {err:.3g} > {LM_RTOL} x {scale:.3g}")
+        # prefill + decode against the all-decode path, on the greedy
+        # tokens of the all-decode path
+        pl, pc = M.prefill(params, c32, batch, cache_len=T)
+        perr = float((pl[:, 0] - lg[:, 0]).abs().max())
+        cur = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        for t in range(LM_S, LM_S + LM_CONT):
+            a, cache = M.decode_step(params, c32, cache, cur, t)
+            b, pc = M.decode_step(params, c32, pc, cur, t)
+            perr = max(perr, float((a - b).abs().max()))
+            cur = a[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        check(perr <= LM_RTOL * scale, f"lm {arch}: prefill + decode vs "
+              f"all-decode max abs err {perr:.3g}")
+    del params, cache, pc, fl
+    torch.cuda.empty_cache()
+    return (f"f32 checks: decode vs forward max abs err {err:.3g}, prefill + "
+            f"decode vs all-decode {perr:.3g} (tolerance {LM_RTOL} x "
+            f"{scale:.3g}), argmax equal at {LM_B * LM_S} positions "
+            f"({ties} near-ties)")
+
+
+def lm_pass(dev, card: str) -> None:
+    """Decode serving of the LM substrate at full width: each decode arch
+    from the port's random init in bf16, 4 prompts of 32 tokens + 16 new
+    greedy tokens through ``generate`` (timed after a 2-token warm-up,
+    peak memory beside it), after the f32 checks of ``lm_checks``; the
+    three archs that do not fit one card at their depth cut; hubert's
+    ``forward`` once (it is encoder-only: ``generate`` must raise)."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.generate import generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in LM_FULL + tuple(LM_CUT) + ("hubert-xlarge",):
+        cfg, cut = lm_cfg(arch)
+        t0 = time.perf_counter()
+        checks = lm_checks(arch, cfg, dev) if cfg.has_decode else ""
+        check_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        params = M.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                               device=dev)
+        batch = lm_batch(cfg, dev)
+        n_params = M.count_params(cfg)
+        with torch.no_grad():
+            if not cfg.has_decode:
+                M.forward(params, cfg, batch)
+                lg, ms = timed_once(lambda: M.forward(params, cfg, batch)[0])
+                check(bool(torch.isfinite(lg).all())
+                      and lg.shape == (LM_B, LM_S, cfg.vocab),
+                      f"lm {arch}: forward gave {tuple(lg.shape)} or a "
+                      f"non-finite logit")
+                try:
+                    generate(params, cfg, batch["tokens"], max_new_tokens=2)
+                    fail(f"lm {arch}: generate did not raise")
+                except ValueError:
+                    pass
+                print(f"[lm] {arch} (bf16, {n_params / 1e9:.3f}B params, "
+                      f"{cut}): encoder-only, forward on ({LM_B}, {LM_S}) "
+                      f"frames in {ms:.2f} ms, generate raises; peak "
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                      f"card {card}", flush=True)
+                del params, lg
+                torch.cuda.empty_cache()
+                continue
+            extra = {k: v for k, v in batch.items() if k != "tokens"}
+            generate(params, cfg, batch["tokens"], max_new_tokens=2,
+                     batch=extra)
+            _, pre_ms = timed_once(lambda: M.prefill(
+                params, cfg, batch, cache_len=LM_S + LM_NEW))
+            out, gen_ms = timed_once(lambda: generate(
+                params, cfg, batch["tokens"], max_new_tokens=LM_NEW,
+                batch=extra))
+        check(out.shape == (LM_B, LM_NEW) and bool(
+            ((out >= 0) & (out < cfg.vocab)).all()),
+            f"lm {arch}: generated {tuple(out.shape)} or a token out of range")
+        new = LM_B * LM_NEW
+        dec = (f"{new / (gen_ms - pre_ms) * 1e3:.1f} tok/s decoding"
+               if gen_ms > pre_ms else "decoding not separable")
+        print(f"[lm] {arch} (bf16, {n_params / 1e9:.3f}B params, {cut}): "
+              f"generate {LM_B} x ({LM_S} + {LM_NEW}) in {gen_ms:.1f} ms: "
+              f"{new / gen_ms * 1e3:.1f} tok/s with the prefill "
+              f"({pre_ms:.1f} ms alone), {dec}; "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"{checks} in {check_s:.1f}s; card {card}", flush=True)
+        del params, out
+        torch.cuda.empty_cache()
+
+
 def sass_check(_build) -> None:
     """The compiled l2dist_qn runs on the tensor cores: its SASS (cuobjdump)
     holds HGMMA (wgmma) instructions with TF32 operands."""
@@ -4839,7 +5523,7 @@ def sass_check(_build) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1_000_000)
-    ap.add_argument("--phases", choices=["all", "kernels"],
+    ap.add_argument("--phases", choices=["all", "kernels", "lm"],
                     default="all")
     args = ap.parse_args()
 
@@ -4872,7 +5556,7 @@ def main() -> None:
     nvcc = threading.Thread(target=build, name="nvcc")
     nvcc.start()
     try:
-        data = main_data(args.n) if args.phases != "kernels" else None
+        data = main_data(args.n) if args.phases == "all" else None
     finally:
         nvcc.join()
     if "error" in built:
@@ -4884,14 +5568,21 @@ def main() -> None:
 
     from repro_torch.configs.khi_serve import config
     cfg = config()
-    rows = kernel_checks(args.n, cfg.d, cfg.m, cfg.k,
-                         cfg.k * cfg.rerank_mult, dev,
-                         synthetic_windows=args.phases == "kernels")
-    mark("the kernel checks")
-    torch.cuda.empty_cache()
-    if args.phases != "kernels":
+    rows = {}
+    if args.phases != "lm":
+        rows = kernel_checks(args.n, cfg.d, cfg.m, cfg.k,
+                             cfg.k * cfg.rerank_mult, dev,
+                             synthetic_windows=args.phases == "kernels")
+        mark("the kernel checks")
+        torch.cuda.empty_cache()
+    if args.phases == "all":
         main_path(args.n, 1_000_000, dev, rows, data)
-        del data
+    del data
+    if args.phases != "kernels":
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm_pass(dev, card)
+        mark("the LM pass")
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

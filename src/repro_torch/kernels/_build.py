@@ -29,6 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "gather_l2_filter": "gather_l2_filter.cu",
     "scan_topk": "scan_topk.cu",
+    "scan_topk_wide": "scan_topk_wide.cu",
     "l2dist": "l2dist.cu",
 }
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]

@@ -15,6 +15,11 @@
 // src/repro/kernels/scan_topk.py:scan_topk_windows_kernel (the hybrid
 // planner's per-node scan over each lane's (start, count) windows).
 //
+// These kernels keep each query's running top-k in shared memory and
+// stage the attrs in rows of 8, so they take k <= 64 (KMAX) and m <= 8
+// (MMAX); ops.py sends any other 1 <= k <= N or m >= 1 to the wide form in
+// scan_topk_wide.cu, which computes the same answers bit for bit.
+//
 // Computes, per query b: the k rows with the smallest sum_j (q[b,j] -
 // row(r)[j])^2 among rows r whose attrs pass all(qlo[b] <= a <= qhi[b])
 // (NaN fails), ascending by (distance, row id) -- distance ties go to the

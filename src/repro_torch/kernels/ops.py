@@ -21,12 +21,14 @@ from . import ref as _ref
 __all__ = ["LAUNCHES", "reset_launches", "gather_l2_filter",
            "gather_l2_filter_q8", "gather_l2", "scan_topk", "scan_topk_q8",
            "scan_topk_mask", "scan_topk_windows", "l2dist", "l2dist_qn",
-           "l2dist_qc", "SCAN_TILES"]
+           "l2dist_qc", "SCAN_TILES", "SCAN_KMAX", "SCAN_MMAX"]
 
-# one count per kernel form: the bf16 forms of gather_l2_filter and
-# scan_topk are the same sources instantiated for a bf16 corpus, counted
-# apart because the bf16 replica's path and a bf16-stored index run them,
-# as are the bitmask and windowed scans' bf16 forms (a bf16-stored index);
+# one count per kernel form (the scan family's wide forms, which take a k
+# or m the narrow kernels do not, count apart): the bf16 forms of
+# gather_l2_filter and scan_topk are the same sources instantiated for a
+# bf16 corpus, counted apart because the bf16 replica's path and a
+# bf16-stored index run them, as are the bitmask and windowed scans' bf16
+# forms (a bf16-stored index);
 # the unfused gathers and l2dist_qc count their bf16 instances with their
 # f32 ones
 LAUNCHES = {"gather_l2_filter": 0, "gather_l2_filter_bf16": 0,
@@ -34,6 +36,10 @@ LAUNCHES = {"gather_l2_filter": 0, "gather_l2_filter_bf16": 0,
             "scan_topk": 0, "scan_topk_bf16": 0, "scan_topk_q8": 0,
             "scan_topk_mask": 0, "scan_topk_mask_bf16": 0,
             "scan_topk_windows": 0, "scan_topk_windows_bf16": 0,
+            "scan_topk_wide": 0, "scan_topk_wide_bf16": 0,
+            "scan_topk_wide_q8": 0, "scan_topk_windows_wide": 0,
+            "scan_topk_windows_wide_bf16": 0, "scan_topk_mask_wide": 0,
+            "scan_topk_mask_wide_bf16": 0,
             "l2dist_qn": 0, "l2dist_qc": 0}
 
 # the box scan's last launch per form: a device tensor of its (empty,
@@ -314,16 +320,69 @@ def _scan_buffers(B: int, nchunks: int, k: int, dev):
     return part_d, part_i, ids, dists
 
 
+# the narrow scan kernels' limits (scan_topk.cu KMAX, MMAX: each query's
+# running top-k lives in shared memory, the attrs in rows of 8): a larger
+# k or m takes the wide form (scan_topk_wide.cu), which takes any k and m
+SCAN_KMAX = 64
+SCAN_MMAX = 8
+# the wide form's scratch per query chunk: a (chunk, N) f32 distance plane
+# and two (chunk, k) key/id buffers
+WIDE_SCRATCH_BYTES = 1 << 30
+
+
+def _wide_chunk(B: int, N: int, k: int) -> int:
+    """Queries the wide form scores and selects at a time: as many as keep
+    its scratch within ``WIDE_SCRATCH_BYTES`` (a served batch of 256 at
+    N = 1M), at least one."""
+    return max(1, min(B, WIDE_SCRATCH_BYTES // (4 * N + 16 * k)))
+
+
+def _launch_wide(base: str, kind: str, corpus, side, attrs, q, qlo, qhi,
+                 k: int, windows=None):
+    """The wide form of scan ``base`` (scan_topk, scan_topk_windows or
+    scan_topk_mask): ``side`` is the int8 scale or the mask; the windowed
+    form builds its coverage from ``windows`` = (starts, counts) with
+    scan_topk.cu's pre-pass (its tile flags go unread)."""
+    N, d = corpus.shape
+    B = q.shape[0]
+    m = 0 if qlo is None else qlo.shape[1]
+    dev = corpus.device
+    if windows is not None:
+        plan = ScanPlan(64, -(-N // 64), 1, -(-B // SCAN_QUERY_BLOCK), 0)
+        side = _window_cover(*windows, N, plan)
+    chunk = _wide_chunk(B, N, k)
+    dist = torch.empty(chunk * N, dtype=torch.float32, device=dev)
+    keys = torch.empty(2 * chunk * k, dtype=torch.int32, device=dev)
+    idbuf = torch.empty(2 * chunk * k, dtype=torch.int32, device=dev)
+    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+    dists = torch.empty((B, k), dtype=torch.float32, device=dev)
+    name = _form(f"{base}_wide", kind)
+    f = _fn("scan_topk_wide", f"{base}_wide_{kind}",
+            [_P] * 11 + [_I] * 6 + [_P])
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = f(corpus.data_ptr(), ptr(side), ptr(attrs), q.data_ptr(), ptr(qlo),
+           ptr(qhi), dist.data_ptr(), keys.data_ptr(), idbuf.data_ptr(),
+           ids.data_ptr(), dists.data_ptr(), B, N, d, m, k, chunk,
+           _stream(dev))
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return ids, dists
+
+
 def _launch_scan(kind: str, corpus, scale, attrs, q, qlo, qhi, k: int,
                  windows=None):
     """The box scan's launch; with ``windows`` = (starts, counts) its
-    windowed form, which takes the coverage in the scale's place."""
+    windowed form, which takes the coverage in the scale's place. A k or
+    m past the narrow kernel's limits launches the wide form."""
     N, d = corpus.shape
     B, m = qlo.shape
-    if k > 64:
-        raise ValueError(f"the scan kernel takes k <= 64, got {k}")
-    if m > 8:
-        raise ValueError(f"the scan kernel takes m <= 8 attributes, got {m}")
+    if k > SCAN_KMAX or m > SCAN_MMAX:
+        return _launch_wide("scan_topk" if windows is None
+                            else "scan_topk_windows", kind, corpus, scale,
+                            attrs, q, qlo, qhi, k, windows=windows)
     dev = corpus.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = _scan_plan(B, N, k, sms)
@@ -353,8 +412,10 @@ def scan_topk(corpus: torch.Tensor, attrs: torch.Tensor, q: torch.Tensor,
     """Exact masked top-k over every row: corpus (N, d) f32 or bf16,
     attrs (N, m), q (B, d), qlo/qhi (B, m) f32 -> (ids (B, k) int32,
     dists (B, k) f32, accumulated in f32), ascending by (distance, id),
-    (-1, +inf) past the in-range count. The kernel takes k <= 64 and
-    m <= 8."""
+    (-1, +inf) past the in-range count. Any 1 <= k <= N and m >= 1:
+    k <= ``SCAN_KMAX`` with m <= ``SCAN_MMAX`` runs the narrow kernel
+    (scan_topk.cu), any other k or m the wide form
+    (scan_topk_wide.cu)."""
     kind = _corpus_kind(corpus)
     dev = _check_scan(corpus, attrs, q, qlo, qhi, k)
     if dev.type == "cpu":
@@ -380,7 +441,9 @@ def scan_topk_mask(corpus: torch.Tensor, mask: torch.Tensor,
     f32 or bf16 (upcast), mask (N,) or (N, 1) f32 (a row passes iff its
     value is > 0; NaN fails), q (B, d) f32 -> (ids (B, k) int32, dists
     (B, k) f32, accumulated in f32), ascending by (distance, id), (-1,
-    +inf) past the passing count. The kernel takes k <= 64."""
+    +inf) past the passing count. Any 1 <= k <= N: k <= ``SCAN_KMAX``
+    runs the narrow kernel (scan_topk.cu), a larger k the wide form
+    (scan_topk_wide.cu)."""
     kind = _corpus_kind(corpus)
     dev = _device_of(corpus, mask, q)
     _check(q, "q", torch.float32, 2)
@@ -395,8 +458,9 @@ def scan_topk_mask(corpus: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"k must be in [1, N={N}], got {k}")
     if dev.type == "cpu":
         return _ref.scan_topk_mask_ref(corpus, mask, q, k)
-    if k > 64:
-        raise ValueError(f"the scan kernel takes k <= 64, got {k}")
+    if k > SCAN_KMAX:
+        return _launch_wide("scan_topk_mask", kind, corpus, mask, None, q,
+                            None, None, k)
     B = q.shape[0]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     nchunks = _mask_chunking(B, N, sms)
@@ -445,7 +509,9 @@ def scan_topk_windows(corpus: torch.Tensor, attrs: torch.Tensor,
     ascending by (distance, position), (-1, +inf) past the passing count.
     The kernel is the box scan of the corpus's dtype over the rows the
     windows cover (a (B, ceil(N / 32)) bitmap, B * N / 8 bytes of
-    scratch) and takes k <= 64 and m <= 8."""
+    scratch). Any 1 <= k <= N and m >= 1: past ``SCAN_KMAX`` or
+    ``SCAN_MMAX`` it is the wide form (scan_topk_wide.cu) over the same
+    bitmap."""
     kind = _corpus_kind(corpus)
     dev = _device_of(corpus, attrs, q, qlo, qhi, starts, counts)
     for t, nm in ((attrs, "attrs"), (q, "q"), (qlo, "qlo"), (qhi, "qhi")):
@@ -463,10 +529,6 @@ def scan_topk_windows(corpus: torch.Tensor, attrs: torch.Tensor,
     if dev.type == "cpu":
         return _ref.scan_topk_windows_ref(corpus, attrs, q, qlo, qhi,
                                           starts, counts, k)
-    if k > 64:
-        raise ValueError(f"the scan kernel takes k <= 64, got {k}")
-    if m > 8:
-        raise ValueError(f"the scan kernel takes m <= 8 attributes, got {m}")
     if B == 0 or starts.shape[1] == 0:
         ids = torch.full((B, k), -1, dtype=torch.int32, device=dev)
         return ids, torch.full((B, k), _ref._INF, device=dev)

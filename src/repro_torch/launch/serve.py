@@ -1,4 +1,6 @@
-"""Serving launcher of the port: ``python -m repro_torch.launch.serve
+"""Serving launcher of the port: ``--mode generate --arch A
+--new-tokens T`` decodes 4 prompts through the LM substrate at arch A's
+smoke config (``serve_generate``); ``python -m repro_torch.launch.serve
 --mode khi`` builds a KHI index on the device (``builder="device"``),
 stands up a ``KHIService`` and drives it with a stream of mixed-size
 request bursts, as ``repro.launch.serve --mode khi`` does.
@@ -319,11 +321,60 @@ def load_smoke(svc, Q, lo, hi, args):
           f"faults={fired} timeouts={snap['timeouts']} slo={args.slo_ms}ms")
 
 
+def serve_generate(args):
+    """Decode serving of the LM substrate at the arch's smoke config, as
+    the reference's ``serve_generate``: random weights from a seeded
+    generator, 4 prompts of 32 tokens fed through the decode path
+    (teacher-forced, which fills the caches), then ``--new-tokens``
+    greedy tokens each. Prints the tokens' shape, tok/s and a sample."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.util import resolve_device
+    from repro_torch.models import model as M
+
+    dev = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch)
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only; no decode step")
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev)
+    B, S = 4, 32
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                             dtype=torch.int32, device=dev)
+    cache = M.init_cache(cfg, B, S + args.new_tokens, device=dev)
+    with torch.no_grad():
+        # teacher-forced prefill through the decode path (fills the cache)
+        for t in range(S):
+            logits, cache = M.decode_step(params, cfg, cache,
+                                          prompt[:, t:t + 1], t)
+        out = []
+        cur = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for t in range(S, S + args.new_tokens):
+            out.append(cur)
+            logits, cache = M.decode_step(params, cfg, cache, cur, t)
+            cur = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        gen = torch.cat(out, dim=1).cpu().numpy()
+    dt = time.perf_counter() - t0
+    print(f"[serve] generated {gen.shape} tokens on {dev}, "
+          f"{args.new_tokens * B / dt:.1f} tok/s; sample: {gen[0][:16]}")
+    return gen
+
+
 def main(argv=None):
     from repro_torch.core.engine import BACKENDS, QUANTS, ROUTERS, STRATEGIES
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["khi"], default="khi")
+    ap.add_argument("--mode", choices=["khi", "generate"], default="khi")
+    ap.add_argument("--arch", default="qwen1.5-4b",
+                    help="--mode generate: the architecture (its smoke "
+                         "config), one of repro_torch.configs.ARCH_IDS")
+    ap.add_argument("--new-tokens", type=int, default=16,
+                    help="--mode generate: greedy tokens per prompt")
     ap.add_argument("--n", type=int, default=5000)
     ap.add_argument("--d", type=int, default=64)
     ap.add_argument("--batch", type=int, default=32)
@@ -398,6 +449,8 @@ def main(argv=None):
                     help="torch device (default cuda; 'cpu' for the plain "
                          "versions)")
     args = ap.parse_args(argv)
+    if args.mode == "generate":
+        return serve_generate(args)
     return serve_khi(args)
 
 

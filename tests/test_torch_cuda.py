@@ -817,3 +817,136 @@ def test_cuda_sharded_fanout_matches_plain_versions():
         want_k = {"scan": "scan_topk", "auto": "scan_topk",
                   "hybrid": "scan_topk_windows"}[strategy]
         assert ops.LAUNCHES[want_k] > 0 and ops.LAUNCHES["scan_topk_mask"] > 0
+
+
+def _wide_case(rng, N, d, m, B, dev):
+    """A grid corpus (f32, bf16 and an int8 replica on the grid), attrs
+    whose column 0 is a permutation of [0, N) (so a box on it holds an
+    exact number of rows) with NaNs in column 1, and B lanes of boxes:
+    lane 0 empty, lane 1 all-pass (every row but the NaN ones), lane 2 sparser than any k here (20
+    rows), lane 3 one row, the rest random boxes on every attribute."""
+    corpus = torch.as_tensor(_grid(rng, (N, d)), device=dev)
+    qv = torch.as_tensor(rng.integers(-32, 33, size=(N, d)),
+                         dtype=torch.int8, device=dev)
+    qs = torch.as_tensor(rng.choice([1 / 16, 1 / 32], size=(N, 1)),
+                         dtype=torch.float32, device=dev)
+    qv[qs[:, 0] == 1 / 32] *= 2
+    a = rng.random((N, m)).astype(np.float32)
+    a[:, 0] = rng.permutation(N)
+    a[5::41, 1] = np.nan
+    lo = (rng.random((B, m)) * 0.3).astype(np.float32)
+    hi = lo + 0.55
+    lo[:, 0], hi[:, 0] = -1.0, float(N)
+    lo[0, 0], hi[0, 0] = 1.0, 0.0                    # empty
+    lo[1], hi[1] = -1.0, float(N)                    # all but NaN rows
+    lo[2], hi[2] = -1.0, float(N)
+    lo[2, 0], hi[2, 0] = 100.0, 119.0                # 20 rows at most
+    lo[3], hi[3] = -1.0, float(N)
+    lo[3, 0], hi[3, 0] = 7.0, 7.0                    # one row
+    q = torch.as_tensor(_grid(rng, (B, d)), device=dev)
+    return (corpus, qv, qs, torch.as_tensor(a, device=dev), q,
+            torch.as_tensor(lo, device=dev), torch.as_tensor(hi, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [3, 9, 12])
+def test_cuda_wide_scan_forms_bit_equal_on_grid_corpus(m, monkeypatch):
+    """The scan family's wide form (any k, any m) ``torch.equal`` to its
+    plain version on a 1/32-grid corpus, where every f32 sum is exact in
+    any order: the box scan (f32, bf16, int8) and the windowed scan (f32,
+    bf16) at m in {3, 9, 12}, the bitmask scan (f32, bf16; it reads no
+    attrs), each at k in {65, 100, 400, N} with N = 1500, d in {33, 96},
+    lanes with an empty, an all-pass, a 20-row and a one-row box, and
+    ``_windows``'s windows. The wide form scores and selects the batch in
+    chunks: the scratch is cut so B = 37 takes three. At m > 8 k = 10
+    takes the wide form too. Each call counts one launch of its wide form
+    and none of a narrow one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0xF8 + m)
+    N, B = 1500, 37
+    for d in (33, 96):
+        corpus, qv, qs, attrs, q, lo, hi = _wide_case(rng, N, d, m, B, dev)
+        cb = corpus.to(torch.bfloat16)
+        mask = torch.as_tensor(rng.random((N, 1)).astype(np.float32),
+                               device=dev) - 0.3
+        mask[::31] = float("nan")
+        mask[::37] = 0.0
+        st, ct = _windows(rng, B, N, 16, dev)
+        ks = (65, 100, 400, N) + ((10,) if m > 8 else ())
+        for k in ks:
+            monkeypatch.setattr(ops, "WIDE_SCRATCH_BYTES",
+                                16 * (4 * N + 16 * k))
+            cases = [
+                ("scan_topk_wide",
+                 lambda: ops.scan_topk(corpus, attrs, q, lo, hi, k=k),
+                 lambda: ref.scan_topk_ref(corpus, attrs, q, lo, hi, k)),
+                ("scan_topk_wide_bf16",
+                 lambda: ops.scan_topk(cb, attrs, q, lo, hi, k=k),
+                 lambda: ref.scan_topk_ref(cb, attrs, q, lo, hi, k)),
+                ("scan_topk_wide_q8",
+                 lambda: ops.scan_topk_q8(qv, qs, attrs, q, lo, hi, k=k),
+                 lambda: ref.scan_topk_q8_ref(qv, qs, attrs, q, lo, hi, k)),
+                ("scan_topk_windows_wide",
+                 lambda: ops.scan_topk_windows(corpus, attrs, q, lo, hi, st,
+                                               ct, k=k),
+                 lambda: ref.scan_topk_windows_ref(corpus, attrs, q, lo, hi,
+                                                   st, ct, k)),
+                ("scan_topk_windows_wide_bf16",
+                 lambda: ops.scan_topk_windows(cb, attrs, q, lo, hi, st, ct,
+                                               k=k),
+                 lambda: ref.scan_topk_windows_ref(cb, attrs, q, lo, hi, st,
+                                                   ct, k)),
+            ]
+            if k > ops.SCAN_KMAX:
+                cases += [
+                    ("scan_topk_mask_wide",
+                     lambda: ops.scan_topk_mask(corpus, mask, q, k=k),
+                     lambda: ref.scan_topk_mask_ref(corpus, mask, q, k)),
+                    ("scan_topk_mask_wide_bf16",
+                     lambda: ops.scan_topk_mask(cb, mask, q, k=k),
+                     lambda: ref.scan_topk_mask_ref(cb, mask, q, k)),
+                ]
+            for name, kern, plain in cases:
+                ops.reset_launches()
+                ids, dd = kern()
+                torch.cuda.synchronize()
+                launched = {n for n, c in ops.LAUNCHES.items() if c}
+                assert launched == {name}, (name, launched)
+                rids, rdd = plain()
+                ctx = (name, d, m, k)
+                assert torch.equal(ids, rids), ctx
+                assert torch.equal(dd, rdd), ctx
+                if "mask" not in name:       # the boxes' lanes
+                    assert bool((ids[0] == -1).all()), ctx
+                    assert int((ids[2] >= 0).sum()) <= 20, ctx
+
+
+@pytest.mark.gpu
+def test_cuda_wide_mask_equals_wide_box_scan():
+    """The bitmask scan's wide form at k = 100 equals the f32 box scan's
+    wide form on the mask given as a one-attribute box ([1e-30, +inf]
+    passes exactly the rows whose mask is > 0): both run one fmaf chain a
+    distance and the same selection. At N = 20,000, d = 768, B = 256 (one
+    chunk)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(26)
+    N, d, B, k = 20_000, 768, 256, 100
+    corpus = torch.randn((N, d), generator=g, device=dev)
+    q = torch.randn((B, d), generator=g, device=dev)
+    mask = torch.where(torch.rand((N, 1), generator=g, device=dev) < 0.3,
+                       1.0, -1.0)
+    mask[::53] = float("nan")
+    mask[::59] = 0.0
+    ids, dd = ops.scan_topk_mask(corpus, mask, q, k=k)
+    bids, bdd = ops.scan_topk(corpus, mask, q,
+                              torch.full((B, 1), 1e-30, device=dev),
+                              torch.full((B, 1), float("inf"), device=dev),
+                              k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, bids) and torch.equal(dd, bdd)
+    rids, rdd = ref.scan_topk_mask_ref(corpus, mask, q, k)
+    torch.testing.assert_close(dd, rdd, rtol=1e-5, atol=1e-3)

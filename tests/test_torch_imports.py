@@ -31,6 +31,13 @@ def test_import_every_module_without_jax_or_reference():
     assert "repro_torch.launch.mesh" in mods
     assert "repro_torch.checkpoint.manager" in mods
     assert "repro_torch.core.query_ref" in mods
+    # the LM substrate: models, decode serving and the 10 arch configs
+    for name in ("config", "layers", "model", "sharding", "ssm"):
+        assert f"repro_torch.models.{name}" in mods
+    assert "repro_torch.serve.generate" in mods
+    from repro_torch.configs import _MODULES
+    for name in _MODULES.values():
+        assert f"repro_torch.configs.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -52,6 +59,7 @@ def test_import_every_module_without_jax_or_reference():
     "from repro_torch.core.build_device import build_graphs_device as f; "
     "f(None, None)",
     "from repro_torch.launch.serve import main; main(['--n', '50'])",
+    "from repro_torch.launch.serve import main; main(['--mode', 'generate'])",
 ])
 def test_entry_points_default_to_cuda_and_raise(call):
     r = _run("import torch\n"
