@@ -1433,18 +1433,18 @@ HAND_KERNELS = {
                           "scan_topk_windows"),
     "scan_topk_windows_bf16": (r"box_scan_kernel<__nv_bfloat16, \w+, true>",
                                "scan_topk_windows"),
-    "scan_topk_wide": (r"wide_score_kernel<float, 0>", "scan_topk"),
-    "scan_topk_wide_bf16": (r"wide_score_kernel<__nv_bfloat16, 0>",
+    "scan_topk_wide": (r"box_scan_list_kernel<float, \w+>", "scan_topk"),
+    "scan_topk_wide_bf16": (r"box_scan_list_kernel<__nv_bfloat16, \w+>",
                             "scan_topk"),
-    "scan_topk_wide_q8": (r"wide_score_kernel<signed char, 0>",
+    "scan_topk_wide_q8": (r"box_scan_list_kernel<signed char, \w+>",
                           "scan_topk_q8"),
-    "scan_topk_windows_wide": (r"wide_score_kernel<float, 1>",
+    "scan_topk_windows_wide": (r"wide_score_kernel<float>",
                                "scan_topk_windows"),
-    "scan_topk_windows_wide_bf16": (r"wide_score_kernel<__nv_bfloat16, 1>",
+    "scan_topk_windows_wide_bf16": (r"wide_score_kernel<__nv_bfloat16>",
                                     "scan_topk_windows"),
-    "scan_topk_mask_wide": (r"wide_score_kernel<float, 2>",
+    "scan_topk_mask_wide": (r"mask_list_kernel<float, \w+>",
                             "scan_topk_mask"),
-    "scan_topk_mask_wide_bf16": (r"wide_score_kernel<__nv_bfloat16, 2>",
+    "scan_topk_mask_wide_bf16": (r"mask_list_kernel<__nv_bfloat16, \w+>",
                                  "scan_topk_mask"),
     "l2dist_qn": ("l2dist_qn_kernel", "l2dist_qn"),
     "l2dist_qc": ("l2dist_qc_kernel", "l2dist_qc")}
@@ -4897,10 +4897,41 @@ def timed_once(fn):
     return out, a.elapsed_time(b)
 
 
-def wide_row(name, line, kern, plain, lib, nbytes, nops, what, rows):
+def list_phases(name, kern) -> dict:
+    """A box or bitmask wide form's call split by the CUDA events its
+    wrapper records between phases (``ops.WIDE_MARKS``: the sample pass
+    and the thresholds (the bitmask's compaction too); the score pass and
+    the overflow re-pass; the select), the card kept asleep until the
+    whole call is enqueued, so no phase holds the host's launch time; with
+    the candidates a query listed
+    (median, max) and the queries whose lists overflowed
+    (``ops.WIDE_STATS``)."""
+    from repro_torch.kernels import ops
+
+    ops.WIDE_MARKS = []
+    try:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(40_000_000)   # the call enqueued whole: card time
+        kern()
+        torch.cuda.synchronize()
+        marks = ops.WIDE_MARKS
+    finally:
+        ops.WIDE_MARKS = None
+    split = {}
+    for (_, e0), (phase, e1) in zip(marks, marks[1:]):
+        split[phase] = split.get(phase, 0.0) + e0.elapsed_time(e1)
+    st = ops.WIDE_STATS[name]
+    cand = st[:-1].float()
+    return dict(phase_ms=split, candidates_median=float(cand.median()),
+                candidates_max=int(cand.max()), overflowed=int(st[-1]))
+
+
+def wide_row(name, line, kern, plain, lib, nbytes, nops, what, rows,
+             lists=True):
     """A wide form against its plain version at the served shape, with
     ``topk_agree``'s rule (random floats: the two sum in other orders);
-    its time, the plain version's, the library's and its bound."""
+    its time, the plain version's, the library's and its bound; for the
+    box and bitmask forms (``lists``) its phases and candidates too."""
     ids, dd = kern()
     (rids, rdd), plain_ms = timed_once(plain)
     same, ties, err = topk_agree(name, ids, dd, rids, rdd)
@@ -4910,10 +4941,18 @@ def wide_row(name, line, kern, plain, lib, nbytes, nops, what, rows):
         replaces=SCAN_TPU + line, max_abs_err=err, ms=time_ms(kern, reps=3),
         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         library_ms=time_ms(lib, reps=3))
+    extra = ""
+    if lists:
+        r.update(list_phases(name, kern))
+        extra = ("; phases " + ", ".join(
+            f"{p} {ms:.3f}" for p, ms in r["phase_ms"].items())
+            + f" ms; candidates a query: median {r['candidates_median']:.0f}"
+            f", max {r['candidates_max']}; {r['overflowed']} queries "
+            f"overflowed")
     print(f"[kernels] {name} {what}: {r['ms']:.3f} ms (plain "
           f"{plain_ms:.3f}, library {r['library_ms']:.3f}, bound {bms:.3f} "
           f"by {by}), ids equal on {same} of {ids.numel()} slots ({ties} "
-          f"near-ties), max abs err {err:.3g}", flush=True)
+          f"near-ties), max abs err {err:.3g}{extra}", flush=True)
     return ids, dd
 
 
@@ -5022,7 +5061,7 @@ def wide_kernel_rows(corpus, cb, qv, qs, attrs, mask, q, qlo, qhi, n_pairs,
                  + B * k * 8, n_pass * d * 3,
                  f"at synthetic windows: B={B} W={st.shape[1]} k={k}, "
                  f"{n_pass} passing (lane, row) pairs over {rows_cov} "
-                 f"distinct rows", rows)
+                 f"distinct rows", rows, lists=False)
     del lane_rows
     wide_grid_checks(dev)
 

@@ -5,8 +5,8 @@ Each ``csrc/*.cu`` file compiles on its own into a shared library with a
 plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC``). Libraries land in ``build/repro_torch_kernels/``
 at the checkout root (``REPRO_TORCH_BUILD_DIR`` overrides it), named by a
-hash of their source, so an edited source rebuilds and an unchanged one
-loads at once. ``build_all`` starts one ``nvcc`` per source, all together.
+hash of their source and the sources it includes, so an edited source
+rebuilds and an unchanged one loads at once. ``build_all`` starts one ``nvcc`` per source, all together.
 Nothing here runs at import time: importing the package needs no
 ``nvcc``.
 """
@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -55,8 +56,16 @@ def _nvcc() -> str:
                        "CUDA toolkit's nvcc at first use on a CUDA tensor")
 
 
-def _lib_path(name: str) -> Path:
+def _source_bytes(name: str) -> bytes:
+    """A source and the csrc files it includes (``#include "..."``, one
+    level), so an edited include rebuilds the library too."""
     src = (CSRC / SOURCES[name]).read_bytes()
+    deps = re.findall(rb'^#include "([^"]+)"', src, re.M)
+    return src + b"".join((CSRC / dep.decode()).read_bytes() for dep in deps)
+
+
+def _lib_path(name: str) -> Path:
+    src = _source_bytes(name)
     tag = hashlib.sha256(src + " ".join(ARCH_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"{name}-{tag}.so"
 

@@ -18,7 +18,11 @@
 // These kernels keep each query's running top-k in shared memory and
 // stage the attrs in rows of 8, so they take k <= 64 (KMAX) and m <= 8
 // (MMAX); ops.py sends any other 1 <= k <= N or m >= 1 to the wide form in
-// scan_topk_wide.cu, which computes the same answers bit for bit.
+// scan_topk_wide.cu, which computes the same answers bit for bit. That
+// file includes this one (SCAN_TOPK_DEVICE_ONLY: the kernels without this
+// file's entries): its box and bitmask forms run box_scan_body and
+// mask_partial_body with a candidate-list sink (ListSink) in place of the
+// running top-k, and the bitmask compaction below.
 //
 // Computes, per query b: the k rows with the smallest sum_j (q[b,j] -
 // row(r)[j])^2 among rows r whose attrs pass all(qlo[b] <= a <= qhi[b])
@@ -194,6 +198,26 @@ constexpr int DLD = TD + 1;         // the dense sub-tile's distance stride
 constexpr int CAP = 24;             // fold candidates a query buffers
                                     // (in the idle stages: 2 CAP BQ words)
 constexpr unsigned NOPAIR = 0xffffffffu;
+
+// The wide forms' sink (scan_topk_wide.cu), in place of the running
+// top-k: every computed pair whose distance is <= tau[b] and finite goes
+// to query b's candidate list list[b * cap ..] as its key (list_key);
+// count[b] counts them all, past cap too (an overflow). A null tau is
+// +inf (the sample pass). A pass over 1 in tstride row tiles (list tiles
+// of the bitmask form) samples the rows.
+struct ListSink {
+  const float* tau;
+  unsigned long long* list;
+  int* count;
+  int cap;
+  int tstride;
+};
+
+// (distance, id) as one key whose unsigned order is the (distance, id)
+// order: non-negative floats order as their bits
+__device__ __forceinline__ unsigned long long list_key(float dv, int id) {
+  return (unsigned long long)__float_as_uint(dv) << 32 | (unsigned)id;
+}
 
 // Shared memory of box_scan_kernel in 4-byte words, for row tiles of `tr`
 // rows (64, 128 or 256): two slab stages of BQ + tr rows, the top-k
@@ -379,15 +403,18 @@ __device__ __forceinline__ void stream_slabs(
 // The windowed form (WIN) also reads `cov`: the (B, ceil(N / 32)) coverage
 // bitmap, then the (gridDim.y, ntiles) byte flags of the tiles some lane
 // of a query block covers; sched[gridDim.y] counts the tiles it skips
-// uncovered, and the empty, sparse and dense counts follow.
-template <typename T, bool VEC, bool WIN>
-__global__ void __launch_bounds__(BT, 1)
-box_scan_kernel(const T* __restrict__ corpus, const float* __restrict__ scale,
-                const float* __restrict__ attrs, const float* __restrict__ q,
-                const float* __restrict__ qlo, const float* __restrict__ qhi,
-                const unsigned* __restrict__ cov, float* __restrict__ part_d,
-                int* __restrict__ part_i, int* __restrict__ sched, int B,
-                int N, int d, int m, int k, int tr) {
+// uncovered, and the empty, sparse and dense counts follow. The wide
+// forms' instance (LIST, k = 0) hands its pairs to the candidate lists
+// of `ls` instead, takes any m (the attrs tested MMAX at a time) and, as
+// a sample pass, 1 in ls.tstride row tiles.
+template <typename T, bool VEC, bool WIN, bool LIST>
+__device__ __forceinline__ void
+box_scan_body(const T* __restrict__ corpus, const float* __restrict__ scale,
+              const float* __restrict__ attrs, const float* __restrict__ q,
+              const float* __restrict__ qlo, const float* __restrict__ qhi,
+              const unsigned* __restrict__ cov, float* __restrict__ part_d,
+              int* __restrict__ part_i, int* __restrict__ sched, int B, int N,
+              int d, int m, int k, int tr, const ListSink& ls) {
   extern __shared__ float4 bsm4[];
   float* stage = reinterpret_cast<float*>(bsm4);
   const int stage_words = (BQ + tr) * SLD;
@@ -411,7 +438,8 @@ box_scan_kernel(const T* __restrict__ corpus, const float* __restrict__ scale,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.y * BQ;
   const int nq = min(BQ, B - q0);
-  const int ntiles = (N + tr - 1) / tr;
+  const int ts = LIST ? ls.tstride : 1;            // tiles a step skips
+  const int ntiles = ((N + tr - 1) / tr + ts - 1) / ts;
   const int nw = tr / 32;
   int* stats = sched + gridDim.y + (WIN ? 1 : 0);
 
@@ -420,7 +448,9 @@ box_scan_kernel(const T* __restrict__ corpus, const float* __restrict__ scale,
     topi[e] = -1;
   }
   for (int e = tid; e < BQ; e += BT) {
-    wqd[e] = CUDART_INF_F;
+    // the offer bar: the k-th entry as it runs, or the list's tau
+    wqd[e] = LIST && ls.tau != nullptr && e < nq ? ls.tau[q0 + e]
+                                                 : CUDART_INF_F;
     wqi[e] = -1;
     ncand[e] = 0;
   }
@@ -441,29 +471,35 @@ box_scan_kernel(const T* __restrict__ corpus, const float* __restrict__ scale,
         continue;
       }
     }
-    const long long r0 = (long long)tile * tr;
+    const long long r0 = (long long)tile * ts * tr;
     const int nr = (int)min((long long)tr, N - r0);
-    // attrs rows of MMAX floats: 0 past m (the box is open there), NaN past
-    // the tile's last row (it fails every box)
-    for (int e = tid; e < tr * MMAX; e += BT) {
-      const int r = e / MMAX, a = e % MMAX;
-      at[e] = r < nr ? (a < m ? attrs[(r0 + r) * m + a] : 0.f) : CUDART_NAN_F;
-    }
-    if constexpr (sizeof(T) == 1)
-      for (int e = tid; e < nr; e += BT) sc[e] = scale[r0 + e];
-    __syncthreads();
-
-    // the boxes: thread (half, qi) tests the rows of its half of the 32-row
-    // words, a bit per row, without a branch
     const int qi = tid & (BQ - 1), half = tid / BQ;
-    {
+    // the attrs MMAX at a time (one group unless a wide form's m > 8), the
+    // groups' pass bits ANDed
+    for (int a0 = 0; a0 < (LIST ? m : 1); a0 += MMAX) {
+      if (a0 > 0) __syncthreads();     // the last group's tests read `at`
+      // attrs rows of MMAX floats: 0 past m (the box is open there), NaN
+      // past the tile's last row (it fails every box)
+      for (int e = tid; e < tr * MMAX; e += BT) {
+        const int r = e / MMAX, a = a0 + e % MMAX;
+        at[e] = r < nr ? (a < m ? attrs[(r0 + r) * m + a] : 0.f)
+                       : CUDART_NAN_F;
+      }
+      if constexpr (sizeof(T) == 1)
+        if (a0 == 0)
+          for (int e = tid; e < nr; e += BT) sc[e] = scale[r0 + e];
+      __syncthreads();
+
+      // the boxes: thread (half, qi) tests the rows of its half of the
+      // 32-row words, a bit per row, without a branch
       float lo[MMAX], hi[MMAX];
 #pragma unroll
-      for (int a = 0; a < MMAX; ++a) {
+      for (int j = 0; j < MMAX; ++j) {
+        const int a = a0 + j;
         // queries past B get the empty box: no row ever passes
-        lo[a] = a >= m ? -CUDART_INF_F
+        lo[j] = a >= m ? -CUDART_INF_F
                 : qi < nq ? qlo[(size_t)(q0 + qi) * m + a] : CUDART_INF_F;
-        hi[a] = a >= m ? CUDART_INF_F
+        hi[j] = a >= m ? CUDART_INF_F
                 : qi < nq ? qhi[(size_t)(q0 + qi) * m + a] : -CUDART_INF_F;
       }
       const float4* a4 = reinterpret_cast<const float4*>(at);
@@ -475,7 +511,7 @@ box_scan_kernel(const T* __restrict__ corpus, const float* __restrict__ scale,
           bool ok = (x.x >= lo[0]) & (x.x <= hi[0]) & (x.y >= lo[1]) &
                     (x.y <= hi[1]) & (x.z >= lo[2]) & (x.z <= hi[2]) &
                     (x.w >= lo[3]) & (x.w <= hi[3]);
-          if (m > 4) {                 // the same branch in every thread
+          if (m - a0 > 4) {            // the same branch in every thread
             const float4 y = a4[(w * 32 + rr) * (MMAX / 4) + 1];
             ok = ok & (y.x >= lo[4]) & (y.x <= hi[4]) & (y.y >= lo[5]) &
                  (y.y <= hi[5]) & (y.z >= lo[6]) & (y.z <= hi[6]) &
@@ -488,7 +524,7 @@ box_scan_kernel(const T* __restrict__ corpus, const float* __restrict__ scale,
           b &= qi < nq && wg < nwords
                    ? cov[(size_t)(q0 + qi) * nwords + wg] : 0u;
         }
-        bits[w * BQ + qi] = b;
+        bits[w * BQ + qi] = a0 == 0 ? b : bits[w * BQ + qi] & b;
       }
     }
     __syncthreads();
@@ -541,25 +577,50 @@ box_scan_kernel(const T* __restrict__ corpus, const float* __restrict__ scale,
     // buffer that overflows (a query's first tiles) makes its thread walk
     // all the query's pairs instead.
     auto offer = [&](float dv, int id, int b) {
-      if (!lex_less(dv, id, wqd[b], wqi[b])) return;
+      if (LIST ? !(dv <= wqd[b] && dv < CUDART_INF_F)
+               : !lex_less(dv, id, wqd[b], wqi[b]))
+        return;
       const int p = atomicAdd(ncand + b, 1);
       if (p < CAP) {
         cdd[p * BQ + b] = dv;
         cdi[p * BQ + b] = id;
       }
     };
+    // walk(take) calls take(distance, id) on each of the query's pairs
     auto fold = [&](auto&& walk) {     // run by thread tid < nq
       const int n = ncand[tid];
-      if (n <= CAP) {
-        for (int e = 0; e < n; ++e)
-          topk_insert(tdq, tiq, k, cdd[e * BQ + tid], cdi[e * BQ + tid], wd,
-                      wi);
+      if constexpr (LIST) {            // one list reservation for n pairs
+        if (n > 0) {
+          const float tau = wqd[tid];
+          unsigned long long* dst = ls.list + (size_t)(q0 + tid) * ls.cap;
+          int j = atomicAdd(ls.count + q0 + tid, n);
+          auto take = [&](float dv, int id) {
+            if (dv <= tau && dv < CUDART_INF_F) {
+              if (j < ls.cap) dst[j] = list_key(dv, id);
+              ++j;
+            }
+          };
+          if (n <= CAP) {
+            for (int e = 0; e < n; ++e)
+              take(cdd[e * BQ + tid], cdi[e * BQ + tid]);
+          } else {
+            walk(take);
+          }
+        }
       } else {
-        walk();
+        auto take = [&](float dv, int id) {
+          topk_insert(tdq, tiq, k, dv, id, wd, wi);
+        };
+        if (n <= CAP) {
+          for (int e = 0; e < n; ++e)
+            take(cdd[e * BQ + tid], cdi[e * BQ + tid]);
+        } else {
+          walk(take);
+        }
+        wqd[tid] = wd;
+        wqi[tid] = wi;
       }
       ncand[tid] = 0;
-      wqd[tid] = wd;
-      wqi[tid] = wi;
     };
 
     if ((long long)npairs * 4 >= (long long)BQ * nr) {
@@ -615,10 +676,9 @@ box_scan_kernel(const T* __restrict__ corpus, const float* __restrict__ scale,
           }
         __syncthreads();
         if (tid < nq)
-          fold([&]() {
+          fold([&](auto&& take) {
             for (int r = 0; r < ns; ++r)
-              topk_insert(tdq, tiq, k, rd[tid * DLD + r], (int)(r0 + sub + r),
-                          wd, wi);
+              take(rd[tid * DLD + r], (int)(r0 + sub + r));
           });
         __syncthreads();
       }
@@ -714,7 +774,7 @@ box_scan_kernel(const T* __restrict__ corpus, const float* __restrict__ scale,
         }
       __syncthreads();
       if (tid < nq)                    // this query's pairs in the round
-        fold([&]() {
+        fold([&](auto&& take) {
           const int g = tid >> 3;
           for (int c = 0; c < 8; ++c) {
             int j = 0;                 // q's first entry in class list c
@@ -727,8 +787,7 @@ box_scan_kernel(const T* __restrict__ corpus, const float* __restrict__ scale,
                 x &= x - 1u;
                 const int sl = gofs[g] + 8 * j++ + c;
                 if (sl >= S0 && sl < S0 + RP)
-                  topk_insert(tdq, tiq, k, rd[sl - S0], (int)(r0 + r), wd,
-                              wi);
+                  take(rd[sl - S0], (int)(r0 + r));
               }
             }
           }
@@ -737,12 +796,42 @@ box_scan_kernel(const T* __restrict__ corpus, const float* __restrict__ scale,
     }
   }
 
-  for (int e = tid; e < nq * k; e += BT) {
-    const int qq = e / k, j = e % k;
-    const size_t o = ((size_t)(q0 + qq) * gridDim.x + blockIdx.x) * k + j;
-    part_d[o] = topd[j * BQ + qq];
-    part_i[o] = topi[j * BQ + qq];
-  }
+  if constexpr (!LIST)
+    for (int e = tid; e < nq * k; e += BT) {
+      const int qq = e / k, j = e % k;
+      const size_t o = ((size_t)(q0 + qq) * gridDim.x + blockIdx.x) * k + j;
+      part_d[o] = topd[j * BQ + qq];
+      part_i[o] = topi[j * BQ + qq];
+    }
+}
+
+template <typename T, bool VEC, bool WIN>
+__global__ void __launch_bounds__(BT, 1)
+box_scan_kernel(const T* __restrict__ corpus, const float* __restrict__ scale,
+                const float* __restrict__ attrs, const float* __restrict__ q,
+                const float* __restrict__ qlo, const float* __restrict__ qhi,
+                const unsigned* __restrict__ cov, float* __restrict__ part_d,
+                int* __restrict__ part_i, int* __restrict__ sched, int B,
+                int N, int d, int m, int k, int tr) {
+  box_scan_body<T, VEC, WIN, false>(corpus, scale, attrs, q, qlo, qhi, cov,
+                                    part_d, part_i, sched, B, N, d, m, k, tr,
+                                    ListSink{});
+}
+
+// The wide forms' box pass (scan_topk_wide.cu): box_scan_body's scoring
+// into the candidate lists; shared memory box_scan_smem_words(tr, 0).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(BT, 1)
+box_scan_list_kernel(const T* __restrict__ corpus,
+                     const float* __restrict__ scale,
+                     const float* __restrict__ attrs,
+                     const float* __restrict__ q,
+                     const float* __restrict__ qlo,
+                     const float* __restrict__ qhi, int* __restrict__ sched,
+                     int B, int N, int d, int m, int tr, ListSink ls) {
+  box_scan_body<T, VEC, false, true>(corpus, scale, attrs, q, qlo, qhi,
+                                     nullptr, nullptr, nullptr, sched, B, N,
+                                     d, m, 0, tr, ls);
 }
 
 // Block-wide arg-min of (bd, bi) by (distance, id); every thread returns
@@ -955,29 +1044,40 @@ mask_compact_kernel(const float* __restrict__ mask, int N,
 // ascending j. A bf16 corpus's rows come by 16-byte loads (8 elements;
 // scalar ones where d % 8 != 0) held in registers across the previous
 // step's arithmetic and widened to f32 as they are stored, so the stages
-// count elements as f32 words and the inner loop is the f32 one.
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(256)
-mask_partial_kernel(const T* __restrict__ corpus,
-                    const int* __restrict__ list,
-                    const int* __restrict__ count_p,
-                    const float* __restrict__ q, float* __restrict__ part_d,
-                    int* __restrict__ part_i, int B, int d, int k) {
+// count elements as f32 words and the inner loop is the f32 one. The
+// wide forms' instance (LIST, k = 0) hands each tile's pairs to the
+// candidate lists of `ls` instead and, as a sample pass, walks 1 in
+// ls.tstride of the list's MR-row tiles (a virtual list of those tiles).
+template <typename T, bool VEC, bool LIST>
+__device__ __forceinline__ void
+mask_partial_body(const T* __restrict__ corpus, const int* __restrict__ list,
+                  const int* __restrict__ count_p,
+                  const float* __restrict__ q, float* __restrict__ part_d,
+                  int* __restrict__ part_i, int B, int d, int k,
+                  const ListSink& ls) {
   extern __shared__ float4 msm4[];
   float* msm = reinterpret_cast<float*>(msm4);
   float* Dt = msm + 2 * MSTAGE;             // MQ x (MR + 1) distances
   float* topd = Dt + MQ * (MR + 1);         // MQ*k dists, then MQ*k ids
   int* topi = reinterpret_cast<int*>(topd + MQ * k);
 
-  const int count = *count_p;
+  long long count = *count_p;
+  const int ts = LIST ? ls.tstride : 1;     // list tiles a step skips
+  if (LIST && ts > 1) {                     // the sampled tiles' rows
+    const long long ns = ((count + MR - 1) / MR + ts - 1) / ts;
+    count = ns ? (ns - 1) * MR + min((long long)MR, count - (ns - 1) * ts * MR)
+               : 0;
+  }
   const int nchunks = gridDim.y, chunk = blockIdx.y;
   const int q0 = blockIdx.x * MQ;
-  long long per = ((long long)count + nchunks - 1) / nchunks;
+  long long per = (count + nchunks - 1) / nchunks;
   per = (per + MR - 1) / MR * MR;
-  const long long beg = min((long long)count, chunk * per);
-  const long long end = min((long long)count, beg + per);
+  const long long beg = min(count, chunk * per);
+  const long long end = min(count, beg + per);
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
+  const float tau = LIST && ls.tau != nullptr && tid < MQ && q0 + tid < B
+                        ? ls.tau[q0 + tid] : CUDART_INF_F;
 
   for (int e = tid; e < MQ * k; e += 256) {
     topd[e] = CUDART_INF_F;
@@ -996,6 +1096,8 @@ mask_partial_kernel(const T* __restrict__ corpus,
     const int tile = s / nslab;
     const int k0 = (s - tile * nslab) * DS;
     const long long t0 = beg + (long long)tile * MR;
+    // lt[t0 + r]: the row of virtual entry t0 + r
+    const int* lt = LIST ? list + t0 / MR * ts * MR - t0 : list;
     float* Qs = msm + (s & 1) * MSTAGE;
     float* Rs = Qs + MQ * MLD;
     if (VEC) {
@@ -1015,7 +1117,7 @@ mask_partial_kernel(const T* __restrict__ corpus,
           const int e = tid + i * 256;
           const int r = e >> 3, c4 = (e & 7) * 4;
           const int gk = k0 + c4;
-          const int id = t0 + r < end ? __ldg(list + t0 + r) : -1;
+          const int id = t0 + r < end ? __ldg(lt + t0 + r) : -1;
           int bytes = min(16, max(0, (d - gk) * 4));
           bytes = id >= 0 ? bytes : 0;
           cp_async16(Rs + r * MLD + c4,
@@ -1024,7 +1126,7 @@ mask_partial_kernel(const T* __restrict__ corpus,
       } else {                        // one 8-element load a thread
         const int r = tid >> 2, c8 = (tid & 3) * 8;
         const int gk = k0 + c8;
-        const int id = t0 + r < end ? __ldg(list + t0 + r) : -1;
+        const int id = t0 + r < end ? __ldg(lt + t0 + r) : -1;
         raw8 = (id >= 0 && gk < d)
                    ? __ldg(reinterpret_cast<const uint4*>(
                          corpus + (size_t)id * d + gk))
@@ -1045,7 +1147,7 @@ mask_partial_kernel(const T* __restrict__ corpus,
         const int e = tid + i * 256;
         const int r = e >> 5, c = e & 31;
         const int gk = k0 + c;
-        const int id = t0 + r < end ? __ldg(list + t0 + r) : -1;
+        const int id = t0 + r < end ? __ldg(lt + t0 + r) : -1;
         const bool in = id >= 0 && gk < d;
         if constexpr (F32)
           cp_async4(Rs + r * MLD + c,
@@ -1128,7 +1230,26 @@ mask_partial_kernel(const T* __restrict__ corpus,
         for (int j = 0; j < 4; ++j)
           Dt[(ty + 16 * i) * (MR + 1) + tx + 16 * j] = acc[i][j];
       __syncthreads();
-      if (tid < MQ && q0 + tid < B) {
+      const int* lt = LIST ? list + t0 / MR * ts * MR - t0 : list;
+      if (LIST && tid < MQ && q0 + tid < B) {
+        // the pairs within tau: one list reservation for them all
+        int n = 0;
+        for (int r = 0; r < nr; ++r) {
+          const float dv = Dt[tid * (MR + 1) + r];
+          n += dv <= tau && dv < CUDART_INF_F;
+        }
+        if (n > 0) {
+          unsigned long long* dst = ls.list + (size_t)(q0 + tid) * ls.cap;
+          int j = atomicAdd(ls.count + q0 + tid, n);
+          for (int r = 0; r < nr; ++r) {
+            const float dv = Dt[tid * (MR + 1) + r];
+            if (dv <= tau && dv < CUDART_INF_F) {
+              if (j < ls.cap) dst[j] = list_key(dv, __ldg(lt + t0 + r));
+              ++j;
+            }
+          }
+        }
+      } else if (!LIST && tid < MQ && q0 + tid < B) {
         // ascending row ids; insertion after equal distances keeps the
         // lowest id first, as the box scan's fold
         float* td = topd + tid * k;
@@ -1144,7 +1265,7 @@ mask_partial_kernel(const T* __restrict__ corpus,
               --p;
             }
             td[p] = dv;
-            ti[p] = __ldg(list + t0 + r);
+            ti[p] = __ldg(lt + t0 + r);
             worst = td[k - 1];
           }
         }
@@ -1156,16 +1277,40 @@ mask_partial_kernel(const T* __restrict__ corpus,
   cp_async_wait<0>();
   __syncthreads();
 
-  for (int e = tid; e < MQ * k; e += 256) {
-    const int gq = q0 + e / k;
-    if (gq < B) {
-      const size_t o = ((size_t)gq * nchunks + chunk) * k + (e % k);
-      part_d[o] = topd[e];
-      part_i[o] = topi[e];
+  if constexpr (!LIST)
+    for (int e = tid; e < MQ * k; e += 256) {
+      const int gq = q0 + e / k;
+      if (gq < B) {
+        const size_t o = ((size_t)gq * nchunks + chunk) * k + (e % k);
+        part_d[o] = topd[e];
+        part_i[o] = topi[e];
+      }
     }
-  }
 }
 
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(256)
+mask_partial_kernel(const T* __restrict__ corpus,
+                    const int* __restrict__ list,
+                    const int* __restrict__ count_p,
+                    const float* __restrict__ q, float* __restrict__ part_d,
+                    int* __restrict__ part_i, int B, int d, int k) {
+  mask_partial_body<T, VEC, false>(corpus, list, count_p, q, part_d, part_i,
+                                   B, d, k, ListSink{});
+}
+
+// The wide forms' bitmask pass (scan_topk_wide.cu): mask_partial_body's
+// scoring into the candidate lists; shared memory as k = 0.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(256)
+mask_list_kernel(const T* __restrict__ corpus, const int* __restrict__ list,
+                 const int* __restrict__ count_p, const float* __restrict__ q,
+                 int B, int d, ListSink ls) {
+  mask_partial_body<T, VEC, true>(corpus, list, count_p, q, nullptr, nullptr,
+                                  B, d, 0, ls);
+}
+
+#ifndef SCAN_TOPK_DEVICE_ONLY
 template <typename T, bool WIN>
 int launch(const void* corpus, const void* scale, const void* attrs,
            const void* q, const void* qlo, const void* qhi, const void* cov,
@@ -1204,8 +1349,12 @@ int launch(const void* corpus, const void* scale, const void* attrs,
                                       (float*)out_d, blocks, k);
   return (int)cudaGetLastError();
 }
+#endif  // SCAN_TOPK_DEVICE_ONLY
 
 }  // namespace
+
+// scan_topk_wide.cu includes this file for its kernels alone
+#ifndef SCAN_TOPK_DEVICE_ONLY
 
 // One entry per form. `side` is the int8 (q8) entry's per-row scale, the
 // windowed entry's coverage (window_cover's, at the same B, N and tr:
@@ -1320,3 +1469,4 @@ extern "C" int window_cover(const void* starts, const void* counts,
       ntiles, __builtin_ctz(tr));
   return (int)cudaGetLastError();
 }
+#endif  // SCAN_TOPK_DEVICE_ONLY

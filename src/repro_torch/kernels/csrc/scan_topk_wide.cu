@@ -2,39 +2,88 @@
 // predicate-masked top-k of scan_topk.cu for any 1 <= k <= N and any
 // number of attributes m >= 1, where scan_topk.cu's kernels hold each
 // query's running top-k in shared memory and so take k <= 64 and m <= 8.
-// Its forms: the box scan over an f32, bf16 or int8 corpus, the windowed
-// scan over an f32 or bf16 position-ordered corpus (the coverage bitmap
-// comes from scan_topk.cu's window_cover), and the bitmask scan over an
-// f32 or bf16 corpus.
+// Its forms: the box scan over an f32, bf16 or int8 corpus, the bitmask
+// scan over an f32 or bf16 corpus, and the windowed scan over an f32 or
+// bf16 position-ordered corpus (the coverage bitmap comes from
+// scan_topk.cu's window_cover).
 //
 // Replaces: src/repro/kernels/scan_topk.py:scan_topk_kernel (and its bf16
 // use), src/repro/kernels/scan_topk.py:scan_topk_q8_kernel,
-// src/repro/kernels/scan_topk.py:scan_topk_windows_kernel and
-// src/repro/kernels/scan_topk.py:scan_topk_mask_kernel, for the k and m
+// src/repro/kernels/scan_topk.py:scan_topk_mask_kernel and
+// src/repro/kernels/scan_topk.py:scan_topk_windows_kernel, for the k and m
 // that scan_topk.cu's kernels do not take. The reference's kernels check
 // only 1 <= k <= N; so does this one.
 //
 // Computes what scan_topk.cu computes: per query b, the k rows with the
 // smallest sum_j (q[b,j] - row(r)[j])^2 among the rows that pass (the box
-// all(qlo[b] <= a <= qhi[b]), NaN failing; and, windowed, inside one of
-// the lane's windows; or, bitmask, mask[r] > 0), ascending by (distance,
+// all(qlo[b] <= a <= qhi[b]), NaN failing; or, bitmask, mask[r] > 0; and,
+// windowed, inside one of the lane's windows), ascending by (distance,
 // row id) -- ties to the lowest id, as lax.top_k -- and (-1, +inf) past
 // the passing count. Each distance is scan_topk.cu's one fmaf chain
 // acc = fmaf(q_j - row_j, q_j - row_j, acc) over ascending j (zero-padded
 // past d, which adds exact zeros), so a wide form's distances are the
 // narrow form's bit for bit on the same rows.
 //
-// Design: two kernels a chunk of queries (the wrapper sizes the chunk so
-// its scratch stays near 1 GiB: all 256 queries of a served batch at
-// N = 1M):
+// Design: the box and bitmask forms take a threshold and candidate
+// lists. This file includes scan_topk.cu for its kernels, so those forms
+// score with the narrow forms' own loops, only the sink changed
+// (ListSink):
+//   1. sample: the narrow scoring over 1 in 16 row tiles (the bitmask
+//      form: 1 in 16 tiles of its compacted row list), every computed
+//      pair into its query's list (cap entries a query; past it the count
+//      runs on, the entries are dropped);
+//   2. tau (list_tau_kernel, a block a query): tau[b] = the k-th smallest
+//      distance among the sample's listed pairs, or +inf where fewer than
+//      k were listed. Any k listed passing rows bound the final k-th
+//      distance from above, so tau does;
+//   3. score: the narrow scoring over every tile, each pair with distance
+//      <= tau[b] (finite) appended to b's list as the key (distance bits
+//      << 32 | row id), one atomic reservation a (query, tile or round);
+//   4. overflow (list_overflow_kernel, a block a query whose count passed
+//      cap): an exact radix select of the k-th (distance, id) key over its
+//      passing rows, recomputed a pass at a time in row order (no list
+//      needed), then its k keys written to the list; a device counter
+//      counts these queries. The plain version is never the way out;
+//   5. select (list_select_kernel, a block a query): a radix select of the
+//      k-th key over the listed keys (the id in the key, so ties need no
+//      list order), a compaction, and a stable LSD radix sort of the k
+//      keys. No library sort, top-k or GEMM is used.
+//   The box form's scoring is box_scan_body's (per 256-row tile, the
+//   attrs tested against every box 8 at a time, so any m; empty tiles
+//   skipped, sparse tiles pair by pair in slot rounds, dense tiles in
+//   32-row sub-tiles with a 4 x 4 register tile; bf16 widened and int8
+//   scaled with __fmul_rn as the rows are staged). The bitmask form's is
+//   mask_partial_body's over the compaction of mask_count_kernel and
+//   mask_compact_kernel (128 queries x 64 gathered rows a block, 8 x 4
+//   pairs a thread, cp.async double-buffered 32-wide slabs).
+// What this does about the costs of the plane design these forms had
+// (scripts/wide_split.py on an H100 80GB HBM3 at 700 W: ~30 ms at B =
+// 256, N = 1M, d = 768; every 64 x 64 tile live; in a live block 47-62%
+// of thread 0's cycles on the scalar, single-buffered slab loads, 32-44%
+// in the FMA loop; the select ~6 ms): only passing pairs are scored, on
+// the narrow forms' double-buffered slabs and larger register tiles; no
+// (chunk, N) plane, only ~16k (k times the sample's inverse) candidates a
+// query pass the threshold, so the select reads a few thousand keys a
+// query, not N five times.
+// Bound on the H100, as scan_topk.cu's: the box form reads the corpus and
+// attrs once (~3.1 GB f32, ~1.55 GB bf16, ~0.79 GB int8 at N = 1M, d =
+// 768) against 3 flops per (passing pair, dimension); the bitmask form's
+// 3 flops per (query, passing row, dimension) bound it (4.75 ms at B =
+// 256 and 539,333 rows at 67 TFLOP/s; two fp32 instructions a pair and
+// dimension make a 6.3 ms ceiling). The sample adds ~1/16 of the
+// scoring; the lists, tau and the select move a few MB.
+//
+// The windowed form keeps the plane design (its redesign comes later):
+// per chunk of queries (the wrapper sizes the chunk so its scratch stays
+// near 1 GiB: all 256 queries of a served batch at N = 1M),
 //   wide_score_kernel: a block of 256 threads owns a tile of 64 queries x
 //     64 rows, each thread 4 x 4 (query, row) pairs. It tests the pairs'
-//     predicates first -- the attrs staged 8 at a time, so any m -- and a
-//     tile with no passing pair reads no corpus row; otherwise the tile's
-//     queries and rows stream through shared memory in 32-wide d slabs
-//     and every pair is computed. It writes the (query, row) distance, or
-//     +inf where the pair fails, to a (chunk, N) f32 plane in device
-//     memory.
+//     boxes first -- the attrs staged 8 at a time, so any m -- and their
+//     coverage; a tile with no passing pair reads no corpus row;
+//     otherwise the tile's queries and rows stream through shared memory
+//     in 32-wide d slabs and every pair is computed. It writes the
+//     (query, row) distance, or +inf where the pair fails, to a (chunk, N)
+//     f32 plane in device memory.
 //   wide_select_kernel: a block of 512 threads a query. A radix select
 //     over the row's float bits (non-negative floats order as their bits)
 //     finds the k-th smallest finite distance in 4 passes of 8 bits, each
@@ -44,24 +93,15 @@
 //     the lowest-id rows equal to it, k in all; a stable LSD radix sort of
 //     those k (4 passes of 8 bits, stable by warp match and a prefix over
 //     the warps) orders them by distance, and since they entered in row
-//     order, equal distances stay lowest id first. No library sort or
-//     top-k is used.
-//
-// Bound on the H100: as scan_topk.cu's, reading the corpus and attrs once
-// per query chunk (~3.1 GB f32, ~1.55 GB bf16, ~0.79 GB int8 at N = 1M,
-// d = 768) against 3 flops per (passing pair, dimension) at 67 TFLOP/s.
-// This first design does more: it computes every pair of a tile that has
-// one passing pair (2 fp32 instructions a pair and dimension: ~12 ms of
-// fp32 issue at B = 256, N = 1M, d = 768 with every tile live), writes
-// and re-reads the (chunk, N) plane 5 times (~6 GB at that shape) and
-// reads the corpus once per 64 queries. chip_smoke.py times it beside its
-// bound; making it fast is later work.
+//     order, equal distances stay lowest id first.
+// Its bound: the attrs of every covered row and the vector of every row
+// that passes a covering lane's box, each read once, and 3 flops per
+// dimension of each passing (lane, row) pair. It computes every pair of a
+// tile that has one passing pair, and writes and re-reads the plane 5
+// times (scripts/wide_split.py splits it by phase).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
-#include <limits.h>
+#define SCAN_TOPK_DEVICE_ONLY
+#include "scan_topk.cu"
 
 namespace {
 
@@ -75,24 +115,20 @@ constexpr int ST = 512;              // threads of a select block
 constexpr int SW = ST / 32;          // its warps
 constexpr unsigned INF_BITS = 0x7f800000u;
 
-enum Mode { BOX = 0, WIN = 1, MASK = 2 };
+using u64 = unsigned long long;
 
 __device__ __forceinline__ float widen(float v, float) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v, float) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float widen(int8_t v, float s) {
-  return __fmul_rn(static_cast<float>(v), s);   // never fused into q - row
-}
+
+// ---- the windowed form's plane design
 
 // Grid (ceil(N / WR), ceil(B / WQ)). Writes dist[b * N + r] for the tile's
-// queries b < B and rows r < N: the pair's distance where it passes, else
-// +inf. `side` is the int8 form's per-row scale, the windowed form's
-// (B, ceil(N / 32)) coverage bitmap, the bitmask form's (N) mask; the
-// bitmask form reads no attrs or boxes.
-template <typename T, int MODE>
+// queries b < B and rows r < N: the pair's distance where it passes the
+// box and the lane covers the row, else +inf. `cov` is the (B,
+// ceil(N / 32)) coverage bitmap.
+template <typename T>
 __global__ void __launch_bounds__(WT)
-wide_score_kernel(const T* __restrict__ corpus, const void* __restrict__ side,
+wide_score_kernel(const T* __restrict__ corpus,
+                  const unsigned* __restrict__ cov,
                   const float* __restrict__ attrs, const float* __restrict__ q,
                   const float* __restrict__ qlo, const float* __restrict__ qhi,
                   float* __restrict__ dist, int B, int N, int d, int m) {
@@ -116,60 +152,51 @@ wide_score_kernel(const T* __restrict__ corpus, const void* __restrict__ side,
     for (int j = 0; j < 4; ++j)
       if (ty + 16 * i < nq && tx + 16 * j < nr) ok |= 1u << (4 * i + j);
 
-  if constexpr (MODE == MASK) {
-    const float* mask = static_cast<const float*>(side);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (tx + 16 * j < nr && !(mask[r0 + tx + 16 * j] > 0.f))
-        ok &= ~(0x1111u << j);
-  } else {
-    for (int a0 = 0; a0 < m; a0 += AG) {
-      const int na = min(AG, m - a0);
-      for (int e = tid; e < WR * AG; e += WT) {
-        const int r = e / AG, a = e % AG;
-        At[r * (AG + 1) + a] =
-            r < nr && a < na ? attrs[(r0 + r) * m + a0 + a] : 0.f;
-      }
-      for (int e = tid; e < WQ * AG; e += WT) {
-        const int i = e / AG, a = e % AG;
-        const bool in = i < nq && a < na;
-        Lo[i * (AG + 1) + a] = in ? qlo[(size_t)(b0 + i) * m + a0 + a] : 0.f;
-        Hi[i * (AG + 1) + a] = in ? qhi[(size_t)(b0 + i) * m + a0 + a] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const unsigned bit = 1u << (4 * i + j);
-          if (ok & bit) {
-            const float* x = At + (tx + 16 * j) * (AG + 1);
-            const float* lo = Lo + (ty + 16 * i) * (AG + 1);
-            const float* hi = Hi + (ty + 16 * i) * (AG + 1);
-            bool p = true;
-            for (int a = 0; a < na; ++a)
-              p = p & (x[a] >= lo[a]) & (x[a] <= hi[a]);
-            if (!p) ok &= ~bit;
-          }
-        }
-      __syncthreads();
+  for (int a0 = 0; a0 < m; a0 += AG) {
+    const int na = min(AG, m - a0);
+    for (int e = tid; e < WR * AG; e += WT) {
+      const int r = e / AG, a = e % AG;
+      At[r * (AG + 1) + a] =
+          r < nr && a < na ? attrs[(r0 + r) * m + a0 + a] : 0.f;
     }
-    if constexpr (MODE == WIN) {       // only the rows the lane covers
-      const unsigned* cov = static_cast<const unsigned*>(side);
-      const int nwords = (N + 31) >> 5;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const unsigned bit = 1u << (4 * i + j);
-          if (ok & bit) {
-            const long long r = r0 + tx + 16 * j;
-            const unsigned w =
-                cov[(size_t)(b0 + ty + 16 * i) * nwords + (r >> 5)];
-            if (!((w >> (r & 31)) & 1u)) ok &= ~bit;
-          }
-        }
+    for (int e = tid; e < WQ * AG; e += WT) {
+      const int i = e / AG, a = e % AG;
+      const bool in = i < nq && a < na;
+      Lo[i * (AG + 1) + a] = in ? qlo[(size_t)(b0 + i) * m + a0 + a] : 0.f;
+      Hi[i * (AG + 1) + a] = in ? qhi[(size_t)(b0 + i) * m + a0 + a] : 0.f;
     }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned bit = 1u << (4 * i + j);
+        if (ok & bit) {
+          const float* x = At + (tx + 16 * j) * (AG + 1);
+          const float* lo = Lo + (ty + 16 * i) * (AG + 1);
+          const float* hi = Hi + (ty + 16 * i) * (AG + 1);
+          bool p = true;
+          for (int a = 0; a < na; ++a)
+            p = p & (x[a] >= lo[a]) & (x[a] <= hi[a]);
+          if (!p) ok &= ~bit;
+        }
+      }
+    __syncthreads();
+  }
+  {                                    // only the rows the lane covers
+    const int nwords = (N + 31) >> 5;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned bit = 1u << (4 * i + j);
+        if (ok & bit) {
+          const long long r = r0 + tx + 16 * j;
+          const unsigned w =
+              cov[(size_t)(b0 + ty + 16 * i) * nwords + (r >> 5)];
+          if (!((w >> (r & 31)) & 1u)) ok &= ~bit;
+        }
+      }
   }
 
   float acc[4][4];
@@ -178,7 +205,6 @@ wide_score_kernel(const T* __restrict__ corpus, const void* __restrict__ side,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
   if (__syncthreads_or(ok != 0u)) {    // a tile no pair passes reads no row
-    const float* scale = static_cast<const float*>(side);
     for (int k0 = 0; k0 < d; k0 += WD) {
       for (int e = tid; e < WQ * WD; e += WT) {
         const int i = e / WD, c = e % WD, gk = k0 + c;
@@ -188,11 +214,8 @@ wide_score_kernel(const T* __restrict__ corpus, const void* __restrict__ side,
       for (int e = tid; e < WR * WD; e += WT) {
         const int r = e / WD, c = e % WD, gk = k0 + c;
         float v = 0.f;
-        if (r < nr && gk < d) {
-          float s = 0.f;
-          if constexpr (sizeof(T) == 1) s = scale[r0 + r];
-          v = widen(corpus[(size_t)(r0 + r) * d + gk], s);
-        }
+        if (r < nr && gk < d)
+          v = widen(corpus[(size_t)(r0 + r) * d + gk], 0.f);
         Rs[r * WLD + c] = v;
       }
       __syncthreads();
@@ -414,13 +437,14 @@ wide_select_kernel(const float* __restrict__ dist, int N, int k,
   }
 }
 
-template <typename T, int MODE>
-int launch_wide(const void* corpus, const void* side, const void* attrs,
-                const void* q, const void* qlo, const void* qhi, void* dist,
-                void* keys, void* ids, void* out_i, void* out_d, int B, int N,
-                int d, int m, int k, int chunk, void* stream) {
+template <typename T>
+int launch_windows(const void* corpus, const void* cov, const void* attrs,
+                   const void* q, const void* qlo, const void* qhi,
+                   void* dist, void* keys, void* ids, void* out_i,
+                   void* out_d, int B, int N, int d, int m, int k, int chunk,
+                   void* stream) {
   if (B == 0) return 0;
-  if (k < 1 || k > N || d < 1 || chunk < 1 || (MODE != MASK && m < 1))
+  if (k < 1 || k > N || d < 1 || chunk < 1 || m < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int nwords = (N + 31) >> 5;
@@ -430,15 +454,12 @@ int launch_wide(const void* corpus, const void* side, const void* attrs,
   int* ib = ia + (size_t)chunk * k;
   for (int b0 = 0; b0 < B; b0 += chunk) {
     const int nb = min(chunk, B - b0);
-    const void* sd = side;
-    if (MODE == WIN) sd = (const unsigned*)side + (size_t)b0 * nwords;
-    const size_t ab = MODE == MASK ? 0 : (size_t)b0 * m;
+    const size_t ab = (size_t)b0 * m;
     dim3 grid((N + WR - 1) / WR, (nb + WQ - 1) / WQ);
-    wide_score_kernel<T, MODE><<<grid, WT, 0, s>>>(
-        (const T*)corpus, sd, (const float*)attrs,
-        (const float*)q + (size_t)b0 * d,
-        MODE == MASK ? nullptr : (const float*)qlo + ab,
-        MODE == MASK ? nullptr : (const float*)qhi + ab, (float*)dist, nb, N,
+    wide_score_kernel<T><<<grid, WT, 0, s>>>(
+        (const T*)corpus, (const unsigned*)cov + (size_t)b0 * nwords,
+        (const float*)attrs, (const float*)q + (size_t)b0 * d,
+        (const float*)qlo + ab, (const float*)qhi + ab, (float*)dist, nb, N,
         d, m);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
@@ -451,29 +472,473 @@ int launch_wide(const void* corpus, const void* side, const void* attrs,
   return 0;
 }
 
+// ---- the box and bitmask forms' candidate lists
+
+// The k-th smallest of the 64-bit keys that each(f) hands to f(key,
+// valid) -- every thread of the block calls each, which loops the same
+// number of times in every thread -- by a radix select over 8-bit digits
+// from the top, npass passes at most (a histogram a pass in `hist`,
+// warp-aggregated atomics). Returns prefix and pmask: the keys with (key
+// & pmask) <= prefix are the k smallest, or all of them when the valid
+// keys number total <= k (pmask = prefix = 0). With `exact` the passes
+// run on while a bin holds more keys than it needs and only total < k
+// takes all, so prefix holds the k-th key's top 8 * npass bits; without
+// it the select stops at the first digit whose bin is wanted whole.
+template <typename Each>
+__device__ void block_kth(Each&& each, int k, int npass, bool exact,
+                          int* hist, int* sh, u64& prefix, u64& pmask,
+                          int& total) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  prefix = 0ull;
+  pmask = 0ull;
+  total = 0;
+  int want = k;
+  for (int pass = 0; pass < npass; ++pass) {
+    const int shift = 56 - 8 * pass;
+    for (int e = tid; e < 256; e += blockDim.x) hist[e] = 0;
+    __syncthreads();
+    each([&](u64 key, bool valid) {
+      const bool in = valid && (key & pmask) == prefix;
+      const unsigned act = __ballot_sync(0xffffffffu, in);
+      if (in) {
+        const int bin = (int)(key >> shift) & 255;
+        const unsigned peers = __match_any_sync(act, bin);
+        if (lane == __ffs(peers) - 1) atomicAdd(hist + bin, __popc(peers));
+      }
+    });
+    __syncthreads();
+    if (tid == 0) {
+      int tot = 0, acc = 0, v = 0;
+      for (int e = 0; e < 256; ++e) tot += hist[e];
+      for (v = 0; v < 255 && acc + hist[v] < want; ++v) acc += hist[v];
+      sh[0] = v;
+      sh[1] = acc;
+      sh[2] = tot;
+      sh[3] = hist[v];
+    }
+    __syncthreads();
+    const int v = sh[0], acc = sh[1], tot = sh[2], inbin = sh[3];
+    __syncthreads();                   // sh is written again below
+    if (pass == 0) {
+      total = tot;
+      if (tot < k || (!exact && tot == k)) return;
+    }
+    prefix |= (u64)v << shift;
+    pmask |= 0xffull << shift;
+    want -= acc;
+    if (!exact && inbin == want) return;
+  }
+}
+
+// Writes the keys each(f) hands over with (key & pmask) <= prefix to
+// dst[0 ..) in no order (a warp ballot, one reservation a warp in sh[0])
+// and returns their count.
+template <typename Each>
+__device__ int block_take(Each&& each, u64 prefix, u64 pmask, u64* dst,
+                          int* sh) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  if (threadIdx.x == 0) sh[0] = 0;
+  __syncthreads();
+  each([&](u64 key, bool valid) {
+    const bool sel = valid && (key & pmask) <= prefix;
+    const unsigned bal = __ballot_sync(0xffffffffu, sel);
+    int base = 0;
+    if (lane == 0 && bal) base = atomicAdd(sh, __popc(bal));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (sel) dst[base + __popc(bal & below)] = key;
+  });
+  __syncthreads();
+  const int n = sh[0];
+  __syncthreads();
+  return n;
+}
+
+// The listed keys of query blockIdx.x: list[b * cap + e] for e < n.
+struct Listed {
+  const u64* src;
+  int n;
+  template <typename F>
+  __device__ void operator()(F&& f) const {
+    for (int s0 = 0; s0 < n; s0 += ST) {
+      const int e = s0 + threadIdx.x;
+      f(e < n ? src[e] : 0ull, e < n);
+    }
+  }
+};
+
+// tau[b] for query b = blockIdx.x: the k-th smallest distance of its
+// sample list (its first min(count[b], cap) entries), +inf where it holds
+// fewer than k; then count[b] = 0 for the score pass.
+__global__ void __launch_bounds__(ST)
+list_tau_kernel(const u64* __restrict__ list, int* __restrict__ count,
+                int cap, int k, float* __restrict__ tau) {
+  __shared__ int hist[256];
+  __shared__ int sh[4];
+  const size_t b = blockIdx.x;
+  const Listed each{list + b * cap, min(count[b], cap)};
+  u64 prefix, pmask;
+  int total;
+  block_kth(each, k, 4, true, hist, sh, prefix, pmask, total);
+  if (threadIdx.x == 0) {
+    tau[b] = total < k ? CUDART_INF_F
+                       : __uint_as_float((unsigned)(prefix >> 32));
+    count[b] = 0;
+  }
+}
+
+// A query whose score pass listed more than cap pairs (count[b] > cap),
+// b = blockIdx.x: its k smallest (distance, id) keys among the passing
+// rows within tau[b], by a radix select whose every pass recomputes the
+// rows' distances (a thread a row, rows in order: the box test, or the
+// bitmask's compacted rows; the one fmaf chain), written to its list with
+// count[b] = k. Every query's count goes to raw[b] first; *overflows
+// counts the queries that took this path.
+template <typename T, bool MASKF>
+__global__ void __launch_bounds__(ST)
+list_overflow_kernel(const T* __restrict__ corpus,
+                     const float* __restrict__ scale,
+                     const float* __restrict__ attrs,
+                     const float* __restrict__ q,
+                     const float* __restrict__ qlo,
+                     const float* __restrict__ qhi,
+                     const int* __restrict__ rows,
+                     const float* __restrict__ tau,
+                     u64* __restrict__ list, int* __restrict__ count,
+                     int* __restrict__ raw, int* __restrict__ overflows,
+                     int N, int d, int m, int cap, int k) {
+  __shared__ int hist[256];
+  __shared__ int sh[4];
+  const size_t b = blockIdx.x;
+  const int nb = count[b];             // thread 0 rewrites it past syncs
+  if (threadIdx.x == 0) raw[b] = nb;
+  if (nb <= cap) return;
+  if (threadIdx.x == 0) atomicAdd(overflows, 1);
+  const float tb = tau[b];
+  const float* qb = q + b * d;
+  // the bitmask form's row list and its length (scan_topk.cu's layout)
+  const int n = MASKF ? rows[N + (N + SEG - 1) / SEG] : N;
+  auto each = [&](auto&& f) {
+    for (int s0 = 0; s0 < n; s0 += ST) {
+      const int v = s0 + threadIdx.x;
+      bool ok = v < n;
+      const int r = !ok ? 0 : MASKF ? __ldg(rows + v) : v;
+      for (int a = 0; !MASKF && ok && a < m; ++a) {
+        const float x = attrs[(size_t)r * m + a];
+        ok = (x >= qlo[b * m + a]) & (x <= qhi[b * m + a]);
+      }
+      float acc = 0.f;
+      if (ok) {
+        const T* row = corpus + (size_t)r * d;
+        const float s = sizeof(T) == 1 ? scale[r] : 0.f;
+        for (int j = 0; j < d; ++j) {
+          const float t = __ldg(qb + j) - widen(row[j], s);
+          acc = fmaf(t, t, acc);
+        }
+        ok = acc <= tb && acc < CUDART_INF_F;
+      }
+      f(list_key(acc, r), ok);
+    }
+  };
+  u64 prefix, pmask;
+  int total;
+  block_kth(each, k, 8, false, hist, sh, prefix, pmask, total);
+  const int got = block_take(each, prefix, pmask, list + b * cap, sh);
+  if (threadIdx.x == 0) count[b] = got;
+}
+
+// Stable LSD radix sort of cnt 64-bit keys in sk (dk the other buffer),
+// 8 bits a pass; a pass whose digit is the same in every key moves
+// nothing. Returns the buffer that holds the sorted keys.
+__device__ u64* block_sort(u64* sk, u64* dk, int cnt, int* hist, int* wc,
+                           int* sh) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  for (int pass = 0; pass < 8; ++pass) {
+    const int shift = 8 * pass;
+    for (int e = tid; e < 256; e += ST) hist[e] = 0;
+    __syncthreads();
+    for (int e = tid; e < cnt; e += ST)
+      atomicAdd(hist + (int)((sk[e] >> shift) & 255), 1);
+    __syncthreads();
+    if (tid == 0) {                    // exclusive prefix: each digit's base
+      int acc = 0, one = 0;
+      for (int v = 0; v < 256; ++v) {
+        const int t = hist[v];
+        one |= t == cnt;
+        hist[v] = acc;
+        acc += t;
+      }
+      sh[0] = one;
+    }
+    __syncthreads();
+    if (sh[0]) continue;               // sh[0] is next written past 2 syncs
+    for (int c0 = 0; c0 < cnt; c0 += ST) {
+      const int e = c0 + tid;
+      const bool valid = e < cnt;
+      const u64 x = valid ? sk[e] : 0ull;
+      const int dg = valid ? (int)((x >> shift) & 255) : 256;
+      const unsigned peers = __match_any_sync(0xffffffffu, dg);
+      const int rank = __popc(peers & below);
+      for (int i = tid; i < SW * 256; i += ST) wc[i] = 0;
+      __syncthreads();
+      if (valid && rank == 0) wc[warp * 256 + dg] = __popc(peers);
+      __syncthreads();
+      if (tid < 256) {                 // digit tid: offsets of each warp
+        int s = hist[tid];
+        for (int w = 0; w < SW; ++w) {
+          const int t = wc[w * 256 + tid];
+          wc[w * 256 + tid] = s;
+          s += t;
+        }
+        hist[tid] = s;
+      }
+      __syncthreads();
+      if (valid) dk[wc[warp * 256 + dg] + rank] = x;
+      __syncthreads();
+    }
+    u64* t = sk;
+    sk = dk;
+    dk = t;
+  }
+  return sk;
+}
+
+// Query b = blockIdx.x: the k smallest listed keys (its first min(count[b],
+// cap) entries), ascending, to out_i/out_d[b * k ..] as (id, distance),
+// (-1, +inf) past their count. ka/kb hold k keys a query.
+__global__ void __launch_bounds__(ST)
+list_select_kernel(const u64* __restrict__ list,
+                   const int* __restrict__ count, int cap, int k,
+                   u64* __restrict__ ka, u64* __restrict__ kb,
+                   int* __restrict__ out_i, float* __restrict__ out_d) {
+  __shared__ int hist[256];
+  __shared__ int wc[SW * 256];         // per (warp, digit) counts, offsets
+  __shared__ int sh[4];
+  const size_t b = blockIdx.x;
+  const Listed each{list + b * cap, min(count[b], cap)};
+  ka += b * k;
+  kb += b * k;
+  out_i += b * k;
+  out_d += b * k;
+  u64 prefix, pmask;
+  int total;
+  block_kth(each, k, 8, false, hist, sh, prefix, pmask, total);
+  const int cnt = block_take(each, prefix, pmask, ka, sh);
+  const u64* res = block_sort(ka, kb, cnt, hist, wc, sh);
+  for (int j = threadIdx.x; j < k; j += ST) {
+    const bool in = j < cnt;
+    out_i[j] = in ? (int)(unsigned)res[j] : -1;
+    out_d[j] = in ? __uint_as_float((unsigned)(res[j] >> 32)) : CUDART_INF_F;
+  }
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// One scoring pass of the box form into the lists over 1 in tstride row
+// tiles (the sample, with tau null; the score pass: 1 and tau): tr-row
+// tiles, `blocks` blocks a 256-query block, smem =
+// box_scan_smem_words(tr, 0) * 4 (ops._scan_plan at k = 0); sched holds
+// ceil(B / 256) + 3 ints.
+template <typename T>
+int launch_box_list(const void* corpus, const void* scale, const void* attrs,
+                    const void* q, const void* qlo, const void* qhi,
+                    const void* tau, void* list, void* count, void* sched,
+                    int B, int N, int d, int m, int cap, int tstride, int tr,
+                    int blocks, int smem, void* stream) {
+  if (B == 0) return 0;
+  if (N < 1 || d < 1 || m < 1 || cap < 1 || tstride < 1 || blocks < 1 ||
+      (tr != 64 && tr != 128 && tr != 256) ||
+      smem != box_scan_smem_words(tr, 0) * (int)sizeof(float))
+    return (int)cudaErrorInvalidValue;
+  const int qblocks = (B + BQ - 1) / BQ;
+  if (qblocks > 65535) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(sched, 0, (qblocks + 3) * sizeof(int), s);
+  if (e != cudaSuccess) return (int)e;
+  const bool vec = d % Vec<T>::V == 0 && aligned16(corpus) && aligned16(q);
+  auto kern = vec ? box_scan_list_kernel<T, true>
+                  : box_scan_list_kernel<T, false>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return (int)e;
+  const ListSink ls{(const float*)tau, (u64*)list, (int*)count, cap,
+                    tstride};
+  kern<<<dim3(blocks, qblocks), BT, smem, s>>>(
+      (const T*)corpus, (const float*)scale, (const float*)attrs,
+      (const float*)q, (const float*)qlo, (const float*)qhi, (int*)sched, B,
+      N, d, m, tr, ls);
+  return (int)cudaGetLastError();
+}
+
+// One scoring pass of the bitmask form over the compaction in `rows`
+// (wide_mask_compact's), as launch_box_list's.
+template <typename T>
+int launch_mask_list(const void* corpus, const void* rows, const void* q,
+                     const void* tau, void* list, void* count, int B, int N,
+                     int d, int cap, int tstride, int nchunks, void* stream) {
+  if (B == 0) return 0;
+  if (N < 1 || d < 1 || cap < 1 || tstride < 1 || nchunks < 1)
+    return (int)cudaErrorInvalidValue;
+  if (nchunks > 65535) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool vec = d % Vec<T>::V == 0 && aligned16(corpus) && aligned16(q);
+  auto kern = vec ? mask_list_kernel<T, true> : mask_list_kernel<T, false>;
+  const int smem = (2 * MSTAGE + MQ * (MR + 1)) * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int* list_rows = (const int*)rows;
+  const ListSink ls{(const float*)tau, (u64*)list, (int*)count, cap,
+                    tstride};
+  kern<<<dim3((B + MQ - 1) / MQ, nchunks), 256, smem, s>>>(
+      (const T*)corpus, list_rows, list_rows + N + (N + SEG - 1) / SEG,
+      (const float*)q, B, d, ls);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool MASKF>
+int launch_overflow(const void* corpus, const void* scale, const void* attrs,
+                    const void* q, const void* qlo, const void* qhi,
+                    const void* rows, const void* tau, void* list,
+                    void* count, void* raw, void* overflows, int B, int N,
+                    int d, int m, int cap, int k, void* stream) {
+  if (B == 0) return 0;
+  if (k < 1 || k > cap || d < 1 || (!MASKF && m < 1))
+    return (int)cudaErrorInvalidValue;
+  list_overflow_kernel<T, MASKF><<<B, ST, 0, (cudaStream_t)stream>>>(
+      (const T*)corpus, (const float*)scale, (const float*)attrs,
+      (const float*)q, (const float*)qlo, (const float*)qhi,
+      (const int*)rows, (const float*)tau, (u64*)list, (int*)count,
+      (int*)raw, (int*)overflows, N, d, m, cap, k);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// One entry per form. `side` is the int8 form's (N) scale, the windowed
-// form's (B, ceil(N / 32)) coverage bitmap (window_cover's in
-// scan_topk.cu), the bitmask form's (N) f32 mask (> 0 passes), null for
-// the f32 and bf16 box forms; the bitmask form ignores attrs, qlo, qhi
-// and m. `chunk` queries are scored and selected at a time: dist holds
-// chunk * N floats, keys and ids 2 * chunk * k words each.
-#define WIDE_ENTRY(NAME, T, MODE)                                            \
-  extern "C" int NAME(const void* corpus, const void* side,                  \
+// The windowed form (plane design): `cov` is window_cover's (B, ceil(N /
+// 32)) bitmap (scan_topk.cu). `chunk` queries are scored and selected at
+// a time: dist holds chunk * N floats, keys and ids 2 * chunk * k words
+// each.
+#define WINDOWS_ENTRY(NAME, T)                                               \
+  extern "C" int NAME(const void* corpus, const void* cov,                   \
                       const void* attrs, const void* q, const void* qlo,     \
                       const void* qhi, void* dist, void* keys, void* ids,    \
                       void* out_i, void* out_d, int B, int N, int d, int m,  \
                       int k, int chunk, void* stream) {                      \
-    return launch_wide<T, MODE>(corpus, side, attrs, q, qlo, qhi, dist,      \
-                                keys, ids, out_i, out_d, B, N, d, m, k,      \
-                                chunk, stream);                              \
+    return launch_windows<T>(corpus, cov, attrs, q, qlo, qhi, dist, keys,    \
+                             ids, out_i, out_d, B, N, d, m, k, chunk,        \
+                             stream);                                        \
   }
 
-WIDE_ENTRY(scan_topk_wide_f32, float, BOX)
-WIDE_ENTRY(scan_topk_wide_bf16, __nv_bfloat16, BOX)
-WIDE_ENTRY(scan_topk_wide_q8, int8_t, BOX)
-WIDE_ENTRY(scan_topk_windows_wide_f32, float, WIN)
-WIDE_ENTRY(scan_topk_windows_wide_bf16, __nv_bfloat16, WIN)
-WIDE_ENTRY(scan_topk_mask_wide_f32, float, MASK)
-WIDE_ENTRY(scan_topk_mask_wide_bf16, __nv_bfloat16, MASK)
+WINDOWS_ENTRY(scan_topk_windows_wide_f32, float)
+WINDOWS_ENTRY(scan_topk_windows_wide_bf16, __nv_bfloat16)
+
+// The box and bitmask forms, a phase an entry, for a chunk of B queries
+// whose candidate lists hold cap keys each (list: B * cap u64, count: B
+// ints, zeroed before the sample pass; tau: B floats).
+//
+// wide_box_list_*: a scoring pass of the box form over 1 in tstride row
+// tiles; `side` the int8 form's (N) scale; tau null (+inf) for the sample.
+#define BOX_LIST_ENTRY(NAME, T)                                              \
+  extern "C" int NAME(const void* corpus, const void* side,                  \
+                      const void* attrs, const void* q, const void* qlo,     \
+                      const void* qhi, const void* tau, void* list,          \
+                      void* count, void* sched, int B, int N, int d, int m,  \
+                      int cap, int tstride, int tr, int blocks, int smem,    \
+                      void* stream) {                                        \
+    return launch_box_list<T>(corpus, side, attrs, q, qlo, qhi, tau, list,   \
+                              count, sched, B, N, d, m, cap, tstride, tr,    \
+                              blocks, smem, stream);                         \
+  }
+
+BOX_LIST_ENTRY(wide_box_list_f32, float)
+BOX_LIST_ENTRY(wide_box_list_bf16, __nv_bfloat16)
+BOX_LIST_ENTRY(wide_box_list_q8, int8_t)
+
+// wide_mask_compact: the bitmask's passing rows, ascending, into `rows`
+// (N + ceil(N / 8192) + 1 ints: the rows, the per-segment counts, the
+// count), by scan_topk.cu's mask_count_kernel and mask_compact_kernel.
+extern "C" int wide_mask_compact(const void* mask, int N, void* rows,
+                                 void* stream) {
+  if (N < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int nblk = (N + SEG - 1) / SEG;
+  int* list_rows = (int*)rows;
+  mask_count_kernel<<<nblk, 256, 0, s>>>((const float*)mask, N,
+                                         list_rows + N);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  mask_compact_kernel<<<nblk, 256, 0, s>>>((const float*)mask, N,
+                                           list_rows + N, nblk, list_rows,
+                                           list_rows + N + nblk);
+  return (int)cudaGetLastError();
+}
+
+// wide_mask_list_*: a scoring pass of the bitmask form over 1 in tstride
+// 64-row tiles of `rows`, in nchunks chunks (ops._mask_chunking).
+#define MASK_LIST_ENTRY(NAME, T)                                             \
+  extern "C" int NAME(const void* corpus, const void* rows, const void* q,  \
+                      const void* tau, void* list, void* count, int B,       \
+                      int N, int d, int cap, int tstride, int nchunks,       \
+                      void* stream) {                                        \
+    return launch_mask_list<T>(corpus, rows, q, tau, list, count, B, N, d,   \
+                               cap, tstride, nchunks, stream);               \
+  }
+
+MASK_LIST_ENTRY(wide_mask_list_f32, float)
+MASK_LIST_ENTRY(wide_mask_list_bf16, __nv_bfloat16)
+
+// wide_list_tau: tau from the sample lists, then the counts zeroed.
+extern "C" int wide_list_tau(const void* list, void* count, int B, int cap,
+                             int k, void* tau, void* stream) {
+  if (B == 0) return 0;
+  if (k < 1 || cap < 1) return (int)cudaErrorInvalidValue;
+  list_tau_kernel<<<B, ST, 0, (cudaStream_t)stream>>>(
+      (const u64*)list, (int*)count, cap, k, (float*)tau);
+  return (int)cudaGetLastError();
+}
+
+// wide_*_overflow_*: the queries whose lists overflowed, finished exactly;
+// raw (B ints) takes every query's listed count, *overflows counts the
+// queries finished here. The bitmask entries read `rows`, the box entries
+// `side` (the int8 scale), attrs and the boxes.
+#define BOX_OVERFLOW_ENTRY(NAME, T)                                          \
+  extern "C" int NAME(const void* corpus, const void* side,                  \
+                      const void* attrs, const void* q, const void* qlo,     \
+                      const void* qhi, const void* tau, void* list,          \
+                      void* count, void* raw, void* overflows, int B, int N, \
+                      int d, int m, int cap, int k, void* stream) {          \
+    return launch_overflow<T, false>(corpus, side, attrs, q, qlo, qhi,       \
+                                     nullptr, tau, list, count, raw,         \
+                                     overflows, B, N, d, m, cap, k, stream); \
+  }
+#define MASK_OVERFLOW_ENTRY(NAME, T)                                         \
+  extern "C" int NAME(const void* corpus, const void* rows, const void* q,  \
+                      const void* tau, void* list, void* count, void* raw,   \
+                      void* overflows, int B, int N, int d, int cap, int k,  \
+                      void* stream) {                                        \
+    return launch_overflow<T, true>(corpus, nullptr, nullptr, q, nullptr,    \
+                                    nullptr, rows, tau, list, count, raw,    \
+                                    overflows, B, N, d, 0, cap, k, stream);  \
+  }
+
+BOX_OVERFLOW_ENTRY(wide_box_overflow_f32, float)
+BOX_OVERFLOW_ENTRY(wide_box_overflow_bf16, __nv_bfloat16)
+BOX_OVERFLOW_ENTRY(wide_box_overflow_q8, int8_t)
+MASK_OVERFLOW_ENTRY(wide_mask_overflow_f32, float)
+MASK_OVERFLOW_ENTRY(wide_mask_overflow_bf16, __nv_bfloat16)
+
+// wide_list_select: each query's k smallest listed keys, sorted, to
+// out_i/out_d (B, k); keys holds 2 * B * k u64.
+extern "C" int wide_list_select(const void* list, const void* count, int B,
+                                int cap, int k, void* keys, void* out_i,
+                                void* out_d, void* stream) {
+  if (B == 0) return 0;
+  if (k < 1 || cap < 1) return (int)cudaErrorInvalidValue;
+  u64* ka = (u64*)keys;
+  list_select_kernel<<<B, ST, 0, (cudaStream_t)stream>>>(
+      (const u64*)list, (const int*)count, cap, k, ka, ka + (size_t)B * k,
+      (int*)out_i, (float*)out_d);
+  return (int)cudaGetLastError();
+}

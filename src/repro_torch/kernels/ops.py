@@ -21,7 +21,8 @@ from . import ref as _ref
 __all__ = ["LAUNCHES", "reset_launches", "gather_l2_filter",
            "gather_l2_filter_q8", "gather_l2", "scan_topk", "scan_topk_q8",
            "scan_topk_mask", "scan_topk_windows", "l2dist", "l2dist_qn",
-           "l2dist_qc", "SCAN_TILES", "SCAN_KMAX", "SCAN_MMAX"]
+           "l2dist_qc", "SCAN_TILES", "SCAN_KMAX", "SCAN_MMAX",
+           "WIDE_STATS"]
 
 # one count per kernel form (the scan family's wide forms, which take a k
 # or m the narrow kernels do not, count apart): the bf16 forms of
@@ -325,50 +326,191 @@ def _scan_buffers(B: int, nchunks: int, k: int, dev):
 # k or m takes the wide form (scan_topk_wide.cu), which takes any k and m
 SCAN_KMAX = 64
 SCAN_MMAX = 8
-# the wide form's scratch per query chunk: a (chunk, N) f32 distance plane
-# and two (chunk, k) key/id buffers
+# the wide forms' scratch a call, at most (one query chunk at a time)
 WIDE_SCRATCH_BYTES = 1 << 30
+# the box and bitmask wide forms: a sample pass over 1 in
+# WIDE_SAMPLE_STRIDE row tiles (of the bitmask's compacted rows: 64-row
+# tiles) gives each query a threshold, then each query's candidate list holds up to `cap`
+# keys (WIDE_CAND_MIN at least, or N); WIDE_CAPACITY forces a capacity
+# (at least k), so a test can make lists overflow
+WIDE_SAMPLE_STRIDE = 16
+WIDE_CAND_MIN = 1 << 16
+WIDE_CAPACITY: Optional[int] = None
+# the bitmask compaction's segment (scan_topk.cu SEG)
+MASK_SEGMENT = 8192
+# per box or bitmask wide form, its last call's device tensor (B + 1,)
+# int32: each query's listed candidates (pairs within its threshold),
+# then the queries whose lists overflowed (finished by the exact re-pass)
+WIDE_STATS = {}
+# a list to time their phases by: each such call appends (phase,
+# torch.cuda.Event) at its start and after each phase (sample, score,
+# select; per query chunk)
+WIDE_MARKS: Optional[list] = None
+
+
+class WidePlan(NamedTuple):
+    chunk: int     # queries a pass takes
+    cap: int       # keys a query's candidate list holds
+    scratch: int   # bytes a call allocates besides its outputs
+
+
+def _wide_plan(B: int, N: int, k: int, mask: bool = False) -> WidePlan:
+    """The box or bitmask wide form's scratch: per query chunk a list of
+    cap u64 keys a query and the select's 2 x k keys; per call the count,
+    tau and stats of every query, the box pass's tile counters and, for
+    the bitmask, its compacted rows. The list holds about k x the
+    sample's inverse (16) where every row passes, 4x that room (at least
+    WIDE_CAND_MIN, at most N); the chunk keeps the scratch within
+    ``WIDE_SCRATCH_BYTES``, at least one query."""
+    if WIDE_CAPACITY is not None:
+        cap = max(k, WIDE_CAPACITY)
+    else:
+        cap = max(k, min(N, max(WIDE_CAND_MIN,
+                                4 * WIDE_SAMPLE_STRIDE * k)))
+    fixed = 12 * B + 4
+    if mask:
+        fixed += 4 * (N + -(-N // MASK_SEGMENT) + 1)
+    per = 8 * cap + 16 * k
+    chunk = max(1, min(B, (WIDE_SCRATCH_BYTES - fixed) // per))
+    sched = 0 if mask else 4 * (-(-chunk // SCAN_QUERY_BLOCK) + 3)
+    return WidePlan(chunk, cap, fixed + sched + chunk * per)
 
 
 def _wide_chunk(B: int, N: int, k: int) -> int:
-    """Queries the wide form scores and selects at a time: as many as keep
-    its scratch within ``WIDE_SCRATCH_BYTES`` (a served batch of 256 at
-    N = 1M), at least one."""
+    """Queries the windowed wide form scores and selects at a time: as
+    many as keep its (chunk, N) f32 plane and two (chunk, k) key/id
+    buffers within ``WIDE_SCRATCH_BYTES`` (a served batch of 256 at N =
+    1M), at least one."""
     return max(1, min(B, WIDE_SCRATCH_BYTES // (4 * N + 16 * k)))
 
 
-def _launch_wide(base: str, kind: str, corpus, side, attrs, q, qlo, qhi,
-                 k: int, windows=None):
-    """The wide form of scan ``base`` (scan_topk, scan_topk_windows or
-    scan_topk_mask): ``side`` is the int8 scale or the mask; the windowed
-    form builds its coverage from ``windows`` = (starts, counts) with
-    scan_topk.cu's pre-pass (its tile flags go unread)."""
+def _launch_windows_wide(kind: str, corpus, attrs, q, qlo, qhi, k: int,
+                         windows):
+    """The windowed wide form: its coverage from ``windows`` = (starts,
+    counts) by scan_topk.cu's pre-pass (its tile flags go unread), then
+    the plane design a query chunk."""
     N, d = corpus.shape
-    B = q.shape[0]
-    m = 0 if qlo is None else qlo.shape[1]
+    B, m = qlo.shape
     dev = corpus.device
-    if windows is not None:
-        plan = ScanPlan(64, -(-N // 64), 1, -(-B // SCAN_QUERY_BLOCK), 0)
-        side = _window_cover(*windows, N, plan)
+    plan = ScanPlan(64, -(-N // 64), 1, -(-B // SCAN_QUERY_BLOCK), 0)
+    cover = _window_cover(*windows, N, plan)
     chunk = _wide_chunk(B, N, k)
     dist = torch.empty(chunk * N, dtype=torch.float32, device=dev)
     keys = torch.empty(2 * chunk * k, dtype=torch.int32, device=dev)
     idbuf = torch.empty(2 * chunk * k, dtype=torch.int32, device=dev)
     ids = torch.empty((B, k), dtype=torch.int32, device=dev)
     dists = torch.empty((B, k), dtype=torch.float32, device=dev)
-    name = _form(f"{base}_wide", kind)
-    f = _fn("scan_topk_wide", f"{base}_wide_{kind}",
+    name = _form("scan_topk_windows_wide", kind)
+    f = _fn("scan_topk_wide", f"scan_topk_windows_wide_{kind}",
             [_P] * 11 + [_I] * 6 + [_P])
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    rc = f(corpus.data_ptr(), ptr(side), ptr(attrs), q.data_ptr(), ptr(qlo),
-           ptr(qhi), dist.data_ptr(), keys.data_ptr(), idbuf.data_ptr(),
-           ids.data_ptr(), dists.data_ptr(), B, N, d, m, k, chunk,
-           _stream(dev))
+    rc = f(corpus.data_ptr(), cover.data_ptr(), attrs.data_ptr(),
+           q.data_ptr(), qlo.data_ptr(), qhi.data_ptr(), dist.data_ptr(),
+           keys.data_ptr(), idbuf.data_ptr(), ids.data_ptr(),
+           dists.data_ptr(), B, N, d, m, k, chunk, _stream(dev))
     _raise_on(rc, name)
     LAUNCHES[name] += 1
+    return ids, dists
+
+
+def _launch_list_wide(kind: str, corpus, side, attrs, q, qlo, qhi, k: int):
+    """The box (``qlo`` given; ``side`` the int8 scale) or bitmask
+    (``side`` the mask) wide form: per query chunk a sample pass and the
+    thresholds, the score pass into the candidate lists, the exact
+    re-pass of the queries whose lists overflowed, and the select
+    (scan_topk_wide.cu). No host sync."""
+    N, d = corpus.shape
+    B = q.shape[0]
+    mask = qlo is None
+    m = 0 if mask else qlo.shape[1]
+    dev = corpus.device
+    form = "mask" if mask else "box"
+    name = _form("scan_topk_mask_wide" if mask else "scan_topk_wide", kind)
+    plan = _wide_plan(B, N, k, mask)
+    marks = WIDE_MARKS
+
+    def mark(phase):
+        if marks is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((phase, ev))
+
+    def ptr(t, row=0):
+        return None if t is None else t[row:].data_ptr()
+
+    mark("start")
+    stream = _stream(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+    dists = torch.empty((B, k), dtype=torch.float32, device=dev)
+    lists = torch.empty(plan.chunk * plan.cap, dtype=torch.int64, device=dev)
+    keys = torch.empty(2 * plan.chunk * k, dtype=torch.int64, device=dev)
+    count = torch.zeros(B, dtype=torch.int32, device=dev)
+    tau = torch.empty(B, dtype=torch.float32, device=dev)
+    stats = torch.zeros(B + 1, dtype=torch.int32, device=dev)
+    if mask:
+        rows = torch.empty(N + -(-N // MASK_SEGMENT) + 1, dtype=torch.int32,
+                           device=dev)
+        rc = _fn("scan_topk_wide", "wide_mask_compact", [_P, _I, _P, _P])(
+            side.data_ptr(), N, rows.data_ptr(), stream)
+        _raise_on(rc, name)
+        score = _fn("scan_topk_wide", f"wide_mask_list_{kind}",
+                    [_P] * 6 + [_I] * 6 + [_P])
+        over = _fn("scan_topk_wide", f"wide_mask_overflow_{kind}",
+                   [_P] * 8 + [_I] * 5 + [_P])
+    else:
+        sp = _scan_plan(plan.chunk, N, 0, sms)
+        sched = torch.empty(sp.query_blocks + 3, dtype=torch.int32,
+                            device=dev)
+        score = _fn("scan_topk_wide", f"wide_box_list_{kind}",
+                    [_P] * 10 + [_I] * 9 + [_P])
+        over = _fn("scan_topk_wide", f"wide_box_overflow_{kind}",
+                   [_P] * 11 + [_I] * 6 + [_P])
+    tau_fn = _fn("scan_topk_wide", "wide_list_tau",
+                 [_P] * 2 + [_I] * 3 + [_P] * 2)
+    select = _fn("scan_topk_wide", "wide_list_select",
+                 [_P] * 2 + [_I] * 3 + [_P] * 4)
+    for b0 in range(0, B, plan.chunk):
+        nb = min(plan.chunk, B - b0)
+        for sample in (True, False):
+            # the sample: tau +inf over 1 in WIDE_SAMPLE_STRIDE tiles
+            t = None if sample else ptr(tau, b0)
+            stride = WIDE_SAMPLE_STRIDE if sample else 1
+            if mask:
+                rc = score(corpus.data_ptr(), rows.data_ptr(), ptr(q, b0), t,
+                           lists.data_ptr(), ptr(count, b0), nb, N, d,
+                           plan.cap, stride, _mask_chunking(nb, N, sms),
+                           stream)
+            else:
+                tiles = -(-sp.tiles // stride)
+                rc = score(corpus.data_ptr(), ptr(side), attrs.data_ptr(),
+                           ptr(q, b0), ptr(qlo, b0), ptr(qhi, b0), t,
+                           lists.data_ptr(), ptr(count, b0),
+                           sched.data_ptr(), nb, N, d, m, plan.cap, stride,
+                           sp.tile_rows, min(tiles, sms), sp.smem, stream)
+            _raise_on(rc, name)
+            if sample:
+                rc = tau_fn(lists.data_ptr(), ptr(count, b0), nb, plan.cap,
+                            k, ptr(tau, b0), stream)
+                _raise_on(rc, name)
+                mark("sample")
+        if mask:
+            rc = over(corpus.data_ptr(), rows.data_ptr(), ptr(q, b0),
+                      ptr(tau, b0), lists.data_ptr(), ptr(count, b0),
+                      ptr(stats, b0), ptr(stats, B), nb, N, d, plan.cap, k,
+                      stream)
+        else:
+            rc = over(corpus.data_ptr(), ptr(side), attrs.data_ptr(),
+                      ptr(q, b0), ptr(qlo, b0), ptr(qhi, b0), ptr(tau, b0),
+                      lists.data_ptr(), ptr(count, b0), ptr(stats, b0),
+                      ptr(stats, B), nb, N, d, m, plan.cap, k, stream)
+        _raise_on(rc, name)
+        mark("score")
+        rc = select(lists.data_ptr(), ptr(count, b0), nb, plan.cap, k,
+                    keys.data_ptr(), ptr(ids, b0), ptr(dists, b0), stream)
+        _raise_on(rc, name)
+        mark("select")
+    LAUNCHES[name] += 1
+    WIDE_STATS[name] = stats
     return ids, dists
 
 
@@ -380,9 +522,10 @@ def _launch_scan(kind: str, corpus, scale, attrs, q, qlo, qhi, k: int,
     N, d = corpus.shape
     B, m = qlo.shape
     if k > SCAN_KMAX or m > SCAN_MMAX:
-        return _launch_wide("scan_topk" if windows is None
-                            else "scan_topk_windows", kind, corpus, scale,
-                            attrs, q, qlo, qhi, k, windows=windows)
+        if windows is not None:
+            return _launch_windows_wide(kind, corpus, attrs, q, qlo, qhi, k,
+                                        windows)
+        return _launch_list_wide(kind, corpus, scale, attrs, q, qlo, qhi, k)
     dev = corpus.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = _scan_plan(B, N, k, sms)
@@ -459,8 +602,7 @@ def scan_topk_mask(corpus: torch.Tensor, mask: torch.Tensor,
     if dev.type == "cpu":
         return _ref.scan_topk_mask_ref(corpus, mask, q, k)
     if k > SCAN_KMAX:
-        return _launch_wide("scan_topk_mask", kind, corpus, mask, None, q,
-                            None, None, k)
+        return _launch_list_wide(kind, corpus, mask, None, q, None, None, k)
     B = q.shape[0]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     nchunks = _mask_chunking(B, N, sms)

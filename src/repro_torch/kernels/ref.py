@@ -21,7 +21,8 @@ __all__ = ["CALLS", "reset_calls", "lex_smallest", "l2dist_qn_ref",
            "gather_l2_ref", "gather_l2_filter_ref", "scan_topk_ref",
            "gather_l2_filter_q8_ref", "scan_topk_q8_ref",
            "scan_topk_mask_ref", "scan_topk_windows_ref",
-           "window_cover_ref"]
+           "window_cover_ref", "wide_select_twin", "scan_topk_wide_twin",
+           "scan_topk_mask_wide_twin"]
 
 CALLS = {name: {"cpu": 0, "cuda": 0}
          for name in ("gather_l2_filter", "scan_topk", "l2dist_qn",
@@ -201,6 +202,14 @@ def _box_ok(a, qlo, qhi):
             ).all(-1)
 
 
+def _masked_dist(c, ok, q):
+    """(B, ch) f32 squared distances of q (B, d) to the rows c (ch, d),
+    +inf where ``ok`` (broadcast to (B, ch)) is False."""
+    diff = c[None, :, :] - q[:, None, :]
+    dist = (diff * diff).sum(-1)
+    return torch.where(ok, dist, torch.full_like(dist, _INF))
+
+
 def _scan_topk(N, rows_of, ok_of, q, k, budget):
     """The running top-k over rows [0, N) in chunks: ``rows_of(s, e)``
     gives the rows as f32, ``ok_of(s, e)`` which (query, row) pairs pass,
@@ -215,10 +224,7 @@ def _scan_topk(N, rows_of, ok_of, q, k, budget):
     step = max(1, budget // max(1, B * d))
     for s in range(0, N, step):
         c = rows_of(s, min(N, s + step))                  # (ch, d) f32
-        diff = c[None, :, :] - q[:, None, :]
-        dist = (diff * diff).sum(-1)                      # (B, ch)
-        ok = ok_of(s, s + c.shape[0])
-        dist = torch.where(ok, dist, torch.full_like(dist, _INF))
+        dist = _masked_dist(c, ok_of(s, s + c.shape[0]), q)  # (B, ch)
         rows = torch.arange(s, s + c.shape[0], device=dev,
                             dtype=torch.int64).expand(B, -1)
         cand_d = torch.cat([best_d, dist], 1)
@@ -359,6 +365,116 @@ def scan_topk_windows_ref(corpus: torch.Tensor, attrs: torch.Tensor,
             dists[lane[sel], rank[sel]] = dist[sel]
         b0 = b1
     return ids, dists
+
+
+def _dist_plane(N, rows_of, ok_of, q, budget):
+    """(B, N) f32 distances of every (query, row) pair, +inf where the
+    pair fails, in chunks of at most ``budget`` (query, row, dim) elements,
+    with ``_scan_topk``'s arithmetic."""
+    B, d = q.shape
+    q = q.to(torch.float32)
+    out = torch.empty((B, N), dtype=torch.float32, device=q.device)
+    step = max(1, budget // max(1, B * d))
+    for s in range(0, N, step):
+        c = rows_of(s, min(N, s + step))                  # (ch, d) f32
+        e = s + c.shape[0]
+        out[:, s:e] = _masked_dist(c, ok_of(s, e), q)
+    return out
+
+
+def wide_select_twin(dist: torch.Tensor, k: int, sampled: torch.Tensor,
+                     cap: int):
+    """The wide box and bitmask forms' selection (``scan_topk_wide.cu``)
+    in plain PyTorch, for tests: dist (B, N) f32 of the passing pairs (+inf
+    or NaN elsewhere: only finite distances take part), sampled (N,) bool
+    (the rows the sample pass scores), cap >= k (keys a query's candidate
+    list holds). Per query:
+
+    - tau: the k-th smallest distance among its first ``cap`` sampled
+      pairs, +inf where fewer than k (the card's list keeps whichever cap
+      pairs its blocks append first; any k passing rows bound the k-th
+      distance from above);
+    - the candidates: its pairs with distance <= tau; the list keeps the
+      first ``cap`` of them, counting all;
+    - an overflow (more than cap): the exact re-pass finds the k-th
+      smallest (distance, id) key over all the candidates and refills
+      the list with the k keys up to it;
+    - the select: the list's k smallest keys by (distance, id),
+      ascending, (-1, +inf) past their count.
+
+    Returns (ids (B, k) int32, dists (B, k) f32, candidates (B,) int64,
+    overflowed queries)."""
+    B, N = dist.shape
+    if not 1 <= k <= min(N, cap):
+        raise ValueError(f"need 1 <= k <= min(N, cap), got k={k}, N={N}, "
+                         f"cap={cap}")
+    dev = dist.device
+    ids = torch.full((B, k), -1, dtype=torch.int32, device=dev)
+    dists = torch.full((B, k), _INF, dtype=torch.float32, device=dev)
+    counts = torch.zeros(B, dtype=torch.int64, device=dev)
+    overflowed = 0
+    fin = torch.isfinite(dist)
+    for b in range(B):
+        sample = dist[b][fin[b] & sampled][:cap]
+        tau = (torch.sort(sample).values[k - 1] if sample.numel() >= k
+               else torch.tensor(_INF, device=dev))
+        cand = torch.nonzero(fin[b] & (dist[b] <= tau))[:, 0]  # row order
+        counts[b] = cand.numel()
+        if cand.numel() > cap:
+            overflowed += 1
+            key = _order_key(dist[b, cand]) - torch.arange(
+                cand.numel(), device=dev) + cand          # (dist, row) keys
+            kth = torch.sort(key).values[k - 1]
+            listed = cand[key <= kth]
+        else:
+            listed = cand
+        n = min(k, listed.numel())
+        if n:
+            v, pos = lex_smallest(dist[b, listed][None], n)
+            dists[b, :n] = v[0]
+            ids[b, :n] = listed[pos[0]].to(torch.int32)
+    return ids, dists, counts, overflowed
+
+
+def _tile_sample(n: int, tile: int, stride: int, device) -> torch.Tensor:
+    """(n,) bool: the entries in tiles t (of ``tile`` entries) with t %
+    stride == 0, the sample pass's."""
+    return (torch.arange(n, device=device) // tile) % stride == 0
+
+
+def scan_topk_wide_twin(corpus: torch.Tensor, attrs: torch.Tensor,
+                        q: torch.Tensor, qlo: torch.Tensor,
+                        qhi: torch.Tensor, k: int, *, cap=None,
+                        qscale=None, stride: int = 16, tile: int = 256,
+                        budget: int = 1 << 27):
+    """The wide box form (f32, bf16, or int8 with ``qscale``) through
+    ``wide_select_twin``: the sample is 1 in ``stride`` row tiles of
+    ``tile`` rows (the box pass's), ``cap`` defaults to N. Returns
+    ``wide_select_twin``'s four results."""
+    N = corpus.shape[0]
+    dist = _dist_plane(
+        N, lambda s, e: dequant_rows(corpus[s:e], None if qscale is None
+                                     else qscale[s:e]),
+        lambda s, e: _box_ok(attrs[s:e], qlo, qhi), q, budget)
+    return wide_select_twin(dist, k, _tile_sample(N, tile, stride,
+                                                  dist.device),
+                            N if cap is None else cap)
+
+
+def scan_topk_mask_wide_twin(corpus: torch.Tensor, mask: torch.Tensor,
+                             q: torch.Tensor, k: int, *, cap=None,
+                             stride: int = 16, tile: int = 64,
+                             budget: int = 1 << 27):
+    """The wide bitmask form through ``wide_select_twin``: the sample is 1
+    in ``stride`` tiles of ``tile`` entries of the passing rows' ascending
+    list (the compaction's)."""
+    N = corpus.shape[0]
+    ok = mask.reshape(-1).to(torch.float32) > 0.0
+    dist = _dist_plane(N, lambda s, e: dequant_rows(corpus[s:e]),
+                       lambda s, e: ok[None, s:e], q, budget)
+    pos = torch.cumsum(ok.to(torch.int64), 0) - 1        # place in the list
+    sampled = ok & ((pos // tile) % stride == 0)
+    return wide_select_twin(dist, k, sampled, N if cap is None else cap)
 
 
 def window_cover_ref(starts: torch.Tensor, counts: torch.Tensor,

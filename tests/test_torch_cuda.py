@@ -848,6 +848,20 @@ def _wide_case(rng, N, d, m, B, dev):
             torch.as_tensor(lo, device=dev), torch.as_tensor(hi, device=dev))
 
 
+def _check_lists(name, counts, forced):
+    """The box and bitmask wide forms' stats of their last call: the
+    overflowed queries (the count past the lists' capacity), and where no
+    list was forced small each query's listed count equal to the plain
+    twin's (the sample then lists every sampled pair, so the thresholds,
+    and the pairs within them, are the twin's)."""
+    st = ops.WIDE_STATS[name].cpu()
+    if forced:
+        assert int(st[-1]) > 0, name
+    else:
+        assert int(st[-1]) == 0, name
+        assert torch.equal(st[:-1].long(), counts.cpu()), name
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("m", [3, 9, 12])
 def test_cuda_wide_scan_forms_bit_equal_on_grid_corpus(m, monkeypatch):
@@ -860,7 +874,15 @@ def test_cuda_wide_scan_forms_bit_equal_on_grid_corpus(m, monkeypatch):
     ``_windows``'s windows. The wide form scores and selects the batch in
     chunks: the scratch is cut so B = 37 takes three. At m > 8 k = 10
     takes the wide form too. Each call counts one launch of its wide form
-    and none of a narrow one."""
+    and none of a narrow one.
+
+    The box and bitmask forms run each case at the sample stride the
+    wrapper uses (16: at N = 1500 their samples are one row tile, so at k
+    >= 400 every threshold is +inf) and at 2 (finite thresholds), their
+    listed counts equal to the plain twin's; then on a corpus whose rows
+    are all equal (every pair of a query at one distance: ties to the
+    lowest id), and with the lists' capacity forced down to k, where the
+    overflow counter must count the queries the exact re-pass finished."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     dev = torch.device("cuda")
@@ -921,6 +943,62 @@ def test_cuda_wide_scan_forms_bit_equal_on_grid_corpus(m, monkeypatch):
                 if "mask" not in name:       # the boxes' lanes
                     assert bool((ids[0] == -1).all()), ctx
                     assert int((ids[2] >= 0).sum()) <= 20, ctx
+            _list_cases(corpus, cb, qv, qs, attrs, q, lo, hi, mask, k,
+                        monkeypatch)
+
+
+def _list_cases(corpus, cb, qv, qs, attrs, q, lo, hi, mask, k, monkeypatch):
+    """The box and bitmask wide forms at sample strides 16 and 2, on the
+    corpus and on one whose rows are all equal (its int8 replica too),
+    then with their lists' capacity forced down to k: each call
+    ``torch.equal`` to its plain version, its form launched, its stats
+    checked by ``_check_lists`` against the plain twin."""
+    flat = corpus[:1].expand_as(corpus).contiguous()
+    flat_v = qv[:1].expand_as(qv).contiguous()
+    flat_s = qs[:1].expand_as(qs).contiguous()
+    for (c32, v8, s8), stride, cap in (
+            ((corpus, qv, qs), 16, None), ((corpus, qv, qs), 2, None),
+            ((flat, flat_v, flat_s), 2, None), ((corpus, qv, qs), 2, k),
+            ((flat, flat_v, flat_s), 16, k)):
+        monkeypatch.setattr(ops, "WIDE_SAMPLE_STRIDE", stride)
+        monkeypatch.setattr(ops, "WIDE_CAPACITY", cap)
+        cbf = c32.to(torch.bfloat16)
+        twin_box = ref.scan_topk_wide_twin(c32, attrs, q, lo, hi, k,
+                                           stride=stride, cap=cap)
+        twin_q8 = ref.scan_topk_wide_twin(v8, attrs, q, lo, hi, k,
+                                          qscale=s8, stride=stride, cap=cap)
+        twin_mask = ref.scan_topk_mask_wide_twin(c32, mask, q, k,
+                                                 stride=stride, cap=cap)
+        cases = [
+            ("scan_topk_wide", twin_box,
+             lambda: ops.scan_topk(c32, attrs, q, lo, hi, k=k),
+             lambda: ref.scan_topk_ref(c32, attrs, q, lo, hi, k)),
+            ("scan_topk_wide_bf16", twin_box,
+             lambda: ops.scan_topk(cbf, attrs, q, lo, hi, k=k),
+             lambda: ref.scan_topk_ref(cbf, attrs, q, lo, hi, k)),
+            ("scan_topk_wide_q8", twin_q8,
+             lambda: ops.scan_topk_q8(v8, s8, attrs, q, lo, hi, k=k),
+             lambda: ref.scan_topk_q8_ref(v8, s8, attrs, q, lo, hi, k))]
+        if k > ops.SCAN_KMAX:
+            cases += [
+                ("scan_topk_mask_wide", twin_mask,
+                 lambda: ops.scan_topk_mask(c32, mask, q, k=k),
+                 lambda: ref.scan_topk_mask_ref(c32, mask, q, k)),
+                ("scan_topk_mask_wide_bf16", twin_mask,
+                 lambda: ops.scan_topk_mask(cbf, mask, q, k=k),
+                 lambda: ref.scan_topk_mask_ref(cbf, mask, q, k))]
+        for name, twin, kern, plain in cases:
+            ops.reset_launches()
+            ids, dd = kern()
+            torch.cuda.synchronize()
+            launched = {n for n, c in ops.LAUNCHES.items() if c}
+            assert launched == {name}, (name, launched)
+            rids, rdd = plain()
+            ctx = (name, k, stride, cap, c32 is flat)
+            assert torch.equal(ids, rids) and torch.equal(dd, rdd), ctx
+            assert torch.equal(ids.cpu(), twin[0].cpu()), ctx
+            # forced: some list holds more than k pairs within its tau
+            _check_lists(name, twin[2], cap is not None and twin[3] > 0)
 
 
 @pytest.mark.gpu
