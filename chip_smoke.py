@@ -60,12 +60,19 @@ width with their depth cut, from random weights in bf16, 4 prompts of 32
 tokens + 16 greedy tokens each through ``generate`` (tok/s and peak
 memory printed beside the card), each first checked in f32 (decode
 against forward, prefill + decode against the all-decode path); hubert
-runs its forward once and must refuse ``generate``.
+runs its forward once and must refuse ``generate``. Last, training of the
+LM substrate (``train_pass``): qwen1.5-4b at full width, its depth cut
+to 4 layers, 16 steps through the training launcher in bf16 with f32
+moments and gradient sums over 2 microbatches (loss finite and falling;
+step ms, tokens/s, peak memory), then at the smoke width a step on the
+card against the CPU's, a resume through a checkpoint and the int8
+all-reduce at one rank.
 
     python3 chip_smoke.py                 # full run, one GPU
     python3 chip_smoke.py --n 200000      # a smaller corpus (widths kept)
     python3 chip_smoke.py --phases kernels
     python3 chip_smoke.py --phases lm     # the LM pass alone
+    python3 chip_smoke.py --phases train  # the training pass alone
 
 The graph lanes are held to ``smoke_reference.py``, a plain numpy router,
 beam search and graph-row rule that shares no code with the port. Their
@@ -1433,15 +1440,17 @@ HAND_KERNELS = {
                           "scan_topk_windows"),
     "scan_topk_windows_bf16": (r"box_scan_kernel<__nv_bfloat16, \w+, true>",
                                "scan_topk_windows"),
-    "scan_topk_wide": (r"box_scan_list_kernel<float, \w+>", "scan_topk"),
-    "scan_topk_wide_bf16": (r"box_scan_list_kernel<__nv_bfloat16, \w+>",
-                            "scan_topk"),
-    "scan_topk_wide_q8": (r"box_scan_list_kernel<signed char, \w+>",
+    "scan_topk_wide": (r"box_scan_list_kernel<float, \w+, false>",
+                       "scan_topk"),
+    "scan_topk_wide_bf16": (
+        r"box_scan_list_kernel<__nv_bfloat16, \w+, false>", "scan_topk"),
+    "scan_topk_wide_q8": (r"box_scan_list_kernel<signed char, \w+, false>",
                           "scan_topk_q8"),
-    "scan_topk_windows_wide": (r"wide_score_kernel<float>",
+    "scan_topk_windows_wide": (r"box_scan_list_kernel<float, \w+, true>",
                                "scan_topk_windows"),
-    "scan_topk_windows_wide_bf16": (r"wide_score_kernel<__nv_bfloat16>",
-                                    "scan_topk_windows"),
+    "scan_topk_windows_wide_bf16": (
+        r"box_scan_list_kernel<__nv_bfloat16, \w+, true>",
+        "scan_topk_windows"),
     "scan_topk_mask_wide": (r"mask_list_kernel<float, \w+>",
                             "scan_topk_mask"),
     "scan_topk_mask_wide_bf16": (r"mask_list_kernel<__nv_bfloat16, \w+>",
@@ -4898,10 +4907,10 @@ def timed_once(fn):
 
 
 def list_phases(name, kern) -> dict:
-    """A box or bitmask wide form's call split by the CUDA events its
-    wrapper records between phases (``ops.WIDE_MARKS``: the sample pass
-    and the thresholds (the bitmask's compaction too); the score pass and
-    the overflow re-pass; the select), the card kept asleep until the
+    """A wide form's call split by the CUDA events its wrapper records
+    between phases (``ops.WIDE_MARKS``: the sample pass and the thresholds
+    (the bitmask's compaction, the windowed form's coverage pre-pass too);
+    the score pass and the overflow re-pass; the select), the card kept asleep until the
     whole call is enqueued, so no phase holds the host's launch time; with
     the candidates a query listed
     (median, max) and the queries whose lists overflowed
@@ -4927,11 +4936,12 @@ def list_phases(name, kern) -> dict:
 
 
 def wide_row(name, line, kern, plain, lib, nbytes, nops, what, rows,
-             lists=True):
+             yardstick=""):
     """A wide form against its plain version at the served shape, with
     ``topk_agree``'s rule (random floats: the two sum in other orders);
-    its time, the plain version's, the library's and its bound; for the
-    box and bitmask forms (``lists``) its phases and candidates too."""
+    its time, the plain version's, the library's and its bound, its
+    phases, candidates and overflowed queries; ``yardstick`` is printed
+    after them."""
     ids, dd = kern()
     (rids, rdd), plain_ms = timed_once(plain)
     same, ties, err = topk_agree(name, ids, dd, rids, rdd)
@@ -4941,14 +4951,12 @@ def wide_row(name, line, kern, plain, lib, nbytes, nops, what, rows,
         replaces=SCAN_TPU + line, max_abs_err=err, ms=time_ms(kern, reps=3),
         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         library_ms=time_ms(lib, reps=3))
-    extra = ""
-    if lists:
-        r.update(list_phases(name, kern))
-        extra = ("; phases " + ", ".join(
-            f"{p} {ms:.3f}" for p, ms in r["phase_ms"].items())
-            + f" ms; candidates a query: median {r['candidates_median']:.0f}"
-            f", max {r['candidates_max']}; {r['overflowed']} queries "
-            f"overflowed")
+    r.update(list_phases(name, kern))
+    extra = ("; phases " + ", ".join(
+        f"{p} {ms:.3f}" for p, ms in r["phase_ms"].items())
+        + f" ms; candidates a query: median {r['candidates_median']:.0f}"
+        f", max {r['candidates_max']}; {r['overflowed']} queries "
+        f"overflowed{yardstick}")
     print(f"[kernels] {name} {what}: {r['ms']:.3f} ms (plain "
           f"{plain_ms:.3f}, library {r['library_ms']:.3f}, bound {bms:.3f} "
           f"by {by}), ids equal on {same} of {ids.numel()} slots ({ties} "
@@ -5037,6 +5045,10 @@ def wide_kernel_rows(corpus, cb, qv, qs, attrs, mask, q, qlo, qhi, n_pairs,
                                                           st, ct)
     for name, cx in (("scan_topk_windows_wide", corpus),
                      ("scan_topk_windows_wide_bf16", cb)):
+        # the yardstick: the narrow windowed form at the served k on the
+        # same windows (its launches stay out of the main path's counts)
+        narrow = time_ms(lambda cx=cx: ops.scan_topk_windows(
+            cx, attrs, q, qlo, qhi, st, ct, k=10), reps=3)
         def kern(cx=cx):
             return ops.scan_topk_windows(cx, attrs, q, qlo, qhi, st, ct, k=k)
 
@@ -5061,7 +5073,10 @@ def wide_kernel_rows(corpus, cb, qv, qs, attrs, mask, q, qlo, qhi, n_pairs,
                  + B * k * 8, n_pass * d * 3,
                  f"at synthetic windows: B={B} W={st.shape[1]} k={k}, "
                  f"{n_pass} passing (lane, row) pairs over {rows_cov} "
-                 f"distinct rows", rows, lists=False)
+                 f"distinct rows", rows,
+                 yardstick=f"; the narrow windowed form at k=10 on the same "
+                           f"windows {narrow:.3f} ms")
+        rows[name]["narrow_k10_ms"] = narrow
     del lane_rows
     wide_grid_checks(dev)
 
@@ -5095,6 +5110,7 @@ def wide_grid_checks(dev) -> None:
     mask[::37] = 0.0
     st, ct = make_windows(B, N, dev, W=8)
     n_calls = 0
+    over = {}                  # overflowed queries by form (and forced)
     for m in WIDE_GRID_MS:
         a = rng.random((N, m)).astype(np.float32)
         a[:, 0] = rng.permutation(N)
@@ -5133,13 +5149,22 @@ def wide_grid_checks(dev) -> None:
                      lambda: ref.scan_topk_mask_ref(corpus, mask, q, k)),
                     (lambda: ops.scan_topk_mask(cb, mask, q, k=k),
                      lambda: ref.scan_topk_mask_ref(cb, mask, q, k))]
-            for j, (kern, plain) in enumerate(pairs):
+            # the windowed forms again with their lists' capacity forced
+            # down to k: lanes overflow, the exact re-pass finishes them
+            pairs += [(kern, plain, k) for kern, plain in pairs[3:5]]
+            for j, (kern, plain, *cap) in enumerate(pairs):
                 ops.reset_launches()
-                gi, gd = kern()
+                ops.WIDE_CAPACITY = cap[0] if cap else None
+                try:
+                    gi, gd = kern()
+                finally:
+                    ops.WIDE_CAPACITY = None
                 launched = [nm for nm, c in ops.LAUNCHES.items() if c]
                 wi, wd = plain()
                 torch.cuda.synchronize()
                 form = launched[0] if len(launched) == 1 else f"form {j}"
+                tag = form + (" forced" if cap else "")
+                over[tag] = over.get(tag, 0) + int(ops.WIDE_STATS[form][-1])
                 check(len(launched) == 1 and "_wide" in form,
                       f"wide grid m={m} k={k} form {j}: launched {launched}")
                 check(torch.equal(gi, wi) and torch.equal(gd, wd),
@@ -5147,16 +5172,21 @@ def wide_grid_checks(dev) -> None:
                       f"version on the grid corpus (ids on "
                       f"{int((gi != wi).sum())} slots, dists on "
                       f"{int((gd != wd).sum())})")
-                if j < 5:
+                if j < 5 or cap:
                     check(bool((gi[0] == -1).all())
                           and int((gi[2] >= 0).sum()) <= 20,
                           f"{form} m={m} k={k}: the empty or the "
                           f"20-row box")
                 n_calls += 1
+    for form in ("scan_topk_windows_wide", "scan_topk_windows_wide_bf16"):
+        check(over.get(form + " forced", 0) > 0,
+              f"{form}: no list overflowed at a capacity of k on the grid")
     print(f"[kernels] wide forms on a 1/32-grid corpus (N={N}, d={d}, "
           f"B={B}): {n_calls} calls at k in {WIDE_GRID_KS}, m in "
-          f"{WIDE_GRID_MS} (box, windowed) and the bitmask, every one "
-          f"torch.equal to its plain version", flush=True)
+          f"{WIDE_GRID_MS} (box, windowed, the windowed with the lists' "
+          f"capacity forced to k) and the bitmask, every one torch.equal "
+          f"to its plain version; overflowed queries summed over the calls "
+          f"{json.dumps(over)}", flush=True)
 
 
 LARGE_K_REQUESTS = 64
@@ -5270,6 +5300,7 @@ def m12_pass(cfg, dev, rows) -> None:
     from repro_torch.core.engine import device_put_index
     from repro_torch.core.predicate import compile_expr, parse_expr
     from repro_torch.data import DatasetSpec, make_dataset, make_queries
+    from repro_torch.kernels import ops
     from repro_torch.serve import KHIService, ServeConfig
 
     t0 = time.perf_counter()
@@ -5343,6 +5374,12 @@ def m12_pass(cfg, dev, rows) -> None:
                 what = (f"{len(exact)} exact lanes, equal to the float64 "
                         f"truth on {int(ok.sum())}; all lanes' recall@"
                         f"{cfg.k} {rec:.4f}")
+                if run == "hybrid":    # the served call's lists
+                    wst = ops.WIDE_STATS[form].cpu()
+                    what += (f"; the last wide call's candidates a lane: "
+                             f"median {float(wst[:-1].float().median()):.0f},"
+                             f" max {int(wst[:-1].max())}; {int(wst[-1])} "
+                             f"lanes overflowed")
                 check(len(exact) > 0, f"m12 {stored} {run}: no exact lane")
                 if stored == "f32":
                     check_served(ids, dists, vecs, attrs, Q, lo, hi,
@@ -5535,6 +5572,165 @@ def lm_pass(dev, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- training
+# of the LM substrate (ROADMAP item 17b)
+
+TRAIN_ARCH = "qwen1.5-4b"     # dense, full width: d_model 2560, vocab 151,936
+TRAIN_LAYERS = 4              # depth cut from 40 for the time limit
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 16, 8, 256, 2
+# the launcher's default (3e-3, the reference's, sized for the smoke
+# configs) moves a logit by about lr x sum|h| ~ lr x 2,000 a step at
+# d_model 2560 and overshoots: the loss rose from 12.8 to 19.6 within 6
+# steps on an H100
+TRAIN_LR = 3e-4
+# the smoke-width step on the card against the port's CPU step, f32 with
+# TF32 off: the two sum in other orders (a few ulps a layer); AdamW's eps
+# at 1e-3 keeps an update within 1e3 x lr of its gradient's rounding
+# (at 1e-8 an entry whose gradient is near 0 moves by a share of lr)
+TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-6
+
+
+def train_pass(dev, card: str) -> None:
+    """Training of the LM substrate through its launcher
+    (``repro_torch.launch.train``): ``TRAIN_ARCH`` at full width in its
+    configured dtype (bf16) with f32 moments and f32 gradient
+    accumulation over ``TRAIN_MICRO`` microbatches, its depth cut to
+    ``TRAIN_LAYERS``, ``TRAIN_STEPS`` steps of ``lm_batch``: each loss
+    finite, the mean of the last 5 below the first; step ms, tokens/s and
+    peak GiB. Then at the arch's smoke width in f32: one training step on
+    the card against the port's CPU step on the same parameters and batch
+    (TF32 off); a resume through a checkpoint (the launcher, deterministic
+    algorithms on) reproducing the uninterrupted run's next losses and
+    parameters bit for bit; ``compressed_psum`` over a one-rank NCCL group
+    equal to the int8 quantize-dequantize arithmetic in numpy."""
+    import shutil
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.lm import lm_batch, to_device
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train import compressed_psum, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    args = T.parse_args(["--arch", TRAIN_ARCH, "--layers", str(TRAIN_LAYERS),
+                         "--steps", str(TRAIN_STEPS), "--batch",
+                         str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                         "--n-micro", str(TRAIN_MICRO), "--lr",
+                         str(TRAIN_LR)])
+    torch.cuda.reset_peak_memory_stats()
+    run = T.train(args, log=lambda line: None)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    full = get_config(TRAIN_ARCH)
+    cfg = T.cut_depth(full, TRAIN_LAYERS)
+    losses = run.losses
+    step_ms = 1e3 * float(np.median(run.step_s[1:]))
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    n_params = M.count_params(cfg)
+    print(f"[train] {TRAIN_ARCH} ({cfg.dtype}, f32 moments and gradient "
+          f"sums; {n_params / 1e9:.3f}B params; full width: d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads x {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}; depth cut from {full.n_layers} "
+          f"to {cfg.n_layers} layers): {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, {TRAIN_MICRO} microbatches a step, peak lr "
+          f"{TRAIN_LR}: step "
+          f"{step_ms:.1f} ms (median after the first; first "
+          f"{1e3 * run.step_s[0]:.1f} ms), {tok_s:.0f} tokens/s, peak "
+          f"{peak:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of "
+          f"the last 5 {np.mean(losses[-5:]):.4f}); card {card}", flush=True)
+    check(all(np.isfinite(losses)) and len(losses) == TRAIN_STEPS,
+          f"train: a loss is not finite: {losses}")
+    check(float(np.mean(losses[-5:])) < losses[0],
+          f"train: the loss did not fall: {losses}")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one smoke-width step on the card against the CPU's
+    sc = get_smoke_config(TRAIN_ARCH)
+    opt = AdamWConfig(peak_lr=3e-3, warmup_steps=1, total_steps=10,
+                      eps=1e-3)
+    cpu = torch.device("cpu")
+    p_cpu = M.init_params(sc, torch.Generator().manual_seed(4), device=cpu)
+    nb = lm_batch(sc, batch=8, seq=64, step=0, seed=4)
+    step = make_train_step(sc, opt, n_micro=2)
+    outs = []
+    for where in (cpu, dev):
+        p = tree_map(lambda t: t.to(where), p_cpu)
+        outs.append(step(p, init_opt_state(p), to_device(nb, where)))
+    (pc, _, mc), (pg, _, mg) = outs
+    err = max(float((a.cpu() - b).abs().max())
+              for a, b in zip(tree_leaves(pg), tree_leaves(pc)))
+    same = all(torch.allclose(a.cpu(), b, rtol=TRAIN_RTOL, atol=TRAIN_ATOL)
+               for a, b in zip(tree_leaves(pg), tree_leaves(pc)))
+    lerr = abs(float(mg["loss"]) - float(mc["loss"]))
+    check(same and lerr <= TRAIN_RTOL * abs(float(mc["loss"])),
+          f"train: the card's smoke step differs from the CPU's (params max "
+          f"abs err {err:.3g}, loss err {lerr:.3g})")
+
+    # a resume through a checkpoint, deterministic algorithms on
+    ck = os.path.join(HERE, "build", "train_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    base = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "6", "--batch", "8",
+            "--seq", "64", "--n-micro", "2", "--ckpt-every", "3",
+            "--ckpt-dir", ck]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        first = T.train(T.parse_args(base), log=lambda line: None)
+        shutil.rmtree(os.path.join(ck, "step_6"))
+        again = T.train(T.parse_args(base), log=lambda line: None)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ck, ignore_errors=True)
+    rerr = max(float((a - b).abs().max()) for a, b in
+               zip(tree_leaves(again.params), tree_leaves(first.params)))
+    check(again.start == 3 and again.losses == first.losses[3:]
+          and rerr == 0.0,
+          f"train: the resumed run differs: losses {again.losses} against "
+          f"{first.losses[3:]}, params max abs diff {rerr:.3g}")
+
+    # compressed_psum over a one-rank NCCL group
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        g = {"w": torch.randn((1000, 37), device=dev),
+             "z": torch.zeros(5, device=dev)}
+        r = {"w": 0.01 * torch.randn((1000, 37), device=dev),
+             "z": torch.zeros(5, device=dev)}
+        mean, new = compressed_psum(g, r)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    ok_c = True
+    for key in g:
+        v = (g[key] + r[key]).cpu().numpy()
+        scale = np.float32(max(float(np.abs(v).max()), 1e-12)) / np.float32(
+            127.0)
+        deq = np.clip(np.rint(v / scale), -127, 127).astype(np.int8).astype(
+            np.float32) * scale
+        ok_c &= np.array_equal(mean[key].cpu().numpy(), deq) and \
+            np.array_equal(new[key].cpu().numpy(), v - deq)
+    check(ok_c, "train: compressed_psum at one rank differs from the "
+          "quantize-dequantize arithmetic")
+    print(f"[train] checks at the smoke width (f32, TF32 off): one step on "
+          f"the card against the CPU's, params max abs err {err:.3g}, loss "
+          f"err {lerr:.3g} (tolerance rtol {TRAIN_RTOL}, atol {TRAIN_ATOL}); "
+          f"a resume at step 3 of 6 through the launcher's checkpoint: "
+          f"losses and params bit-equal to the uninterrupted run's; "
+          f"compressed_psum over a one-rank NCCL group equal to the int8 "
+          f"arithmetic bit for bit; the pass took "
+          f"{time.perf_counter() - t0:.1f}s; card {card}", flush=True)
+
+
 def sass_check(_build) -> None:
     """The compiled l2dist_qn runs on the tensor cores: its SASS (cuobjdump)
     holds HGMMA (wgmma) instructions with TF32 operands."""
@@ -5562,7 +5758,7 @@ def sass_check(_build) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1_000_000)
-    ap.add_argument("--phases", choices=["all", "kernels", "lm"],
+    ap.add_argument("--phases", choices=["all", "kernels", "lm", "train"],
                     default="all")
     args = ap.parse_args()
 
@@ -5608,7 +5804,7 @@ def main() -> None:
     from repro_torch.configs.khi_serve import config
     cfg = config()
     rows = {}
-    if args.phases != "lm":
+    if args.phases not in ("lm", "train"):
         rows = kernel_checks(args.n, cfg.d, cfg.m, cfg.k,
                              cfg.k * cfg.rerank_mult, dev,
                              synthetic_windows=args.phases == "kernels")
@@ -5617,11 +5813,16 @@ def main() -> None:
     if args.phases == "all":
         main_path(args.n, 1_000_000, dev, rows, data)
     del data
-    if args.phases != "kernels":
+    if args.phases in ("all", "lm"):
         gc.collect()
         torch.cuda.empty_cache()
         lm_pass(dev, card)
         mark("the LM pass")
+    if args.phases in ("all", "train"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_pass(dev, card)
+        mark("the train pass")
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

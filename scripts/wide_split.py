@@ -1,8 +1,9 @@
 """Phase split of the scan family's plane design on an H100.
 
 The plane design (``scan_topk_wide.cu``'s for every wide form before the
-box and bitmask forms took candidate lists; now the windowed form's)
-runs two kernels a query chunk:
+forms took candidate lists: the box and bitmask forms until their
+redesign, the windowed forms until theirs) runs two kernels a query
+chunk:
 ``wide_score_kernel`` writes a (chunk, N) distance plane, and
 ``wide_select_kernel`` selects and sorts each query's k from it. This
 script times the two apart by the profiler's device records, counts the
@@ -17,12 +18,13 @@ that copy), so the kernel in the repository carries none:
 
     python3 scripts/wide_split.py --src OLD/scan_topk_wide.cu \
         --forms box,box_bf16,box_q8,mask,mask_bf16
-    python3 scripts/wide_split.py --forms win,win_bf16
 
-``--src`` defaults to the repository's own file, whose plane design now
-serves only the windowed forms; the box and bitmask forms need a source
-of the plane design (``git archive`` of a commit before their
-redesign). The inputs are
+``--src`` is a source of the plane design (``git archive`` of a commit
+before the box and bitmask forms' redesign); the repository's own file
+holds none. The windowed forms' modes went with their plane design: the
+source that had it also had its own copy of this script (``git
+archive`` of a commit before the windowed redesign, run from that copy
+with ``--forms win,win_bf16``). The inputs are
 made on the card from a seed with the served shape's distributions
 (``chip_smoke.py``'s kernel checks): N = 1M rows of d = 768 normal
 floats, m = 4 uniform attrs, 256 queries with boxes of ~5% passing pairs
@@ -41,8 +43,6 @@ HERE = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(HERE / "src"))
 
 import torch  # noqa: E402
-
-CSRC = HERE / "src" / "repro_torch" / "kernels" / "csrc"
 
 # (anchor, text put after it) in wide_score_kernel; each anchor occurs once
 PROBES = [
@@ -88,8 +88,6 @@ FORMS = {
     "box_q8": ("scan_topk_wide_q8", "q8", 400, "scale"),
     "mask": ("scan_topk_mask_wide_f32", "f32", 100, "mask"),
     "mask_bf16": ("scan_topk_mask_wide_bf16", "bf16", 100, "mask"),
-    "win": ("scan_topk_windows_wide_f32", "f32", 100, "cover"),
-    "win_bf16": ("scan_topk_windows_wide_bf16", "bf16", 100, "cover"),
 }
 
 
@@ -148,7 +146,8 @@ def device_ms(fn):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--src", type=Path, default=CSRC / "scan_topk_wide.cu")
+    ap.add_argument("--src", type=Path, required=True,
+                    help="a scan_topk_wide.cu of the plane design")
     ap.add_argument("--forms", default="box,box_bf16,box_q8,mask,mask_bf16")
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--reps", type=int, default=3)
@@ -193,19 +192,13 @@ def main() -> None:
           f"{int((mask[:, 0] > 0).sum())} bitmask rows; {4 * nt} score "
           f"tiles of 64 x 64", flush=True)
     del ok
-    starts = counts = None
     for form in args.forms.split(","):
         entry, kind, k, side_kind = FORMS[form]
         cx = replicas[kind]
         side = {"scale": qs, "mask": mask}.get(side_kind)
-        if side_kind == "cover":
-            if starts is None:
-                sys.path.insert(0, str(HERE))
-                from chip_smoke import make_windows
-                starts, counts = make_windows(B, n, dev)
-            plan = ops.ScanPlan(64, nt, 1, 1, 0)
-            side = ops._window_cover(starts, counts, n, plan)
-        chunk = ops._wide_chunk(B, n, k)
+        # the plane design's chunk: its (chunk, N) plane and key buffers
+        # within the scratch cap
+        chunk = max(1, min(B, ops.WIDE_SCRATCH_BYTES // (4 * n + 16 * k)))
         dist = torch.empty(chunk * n, dtype=torch.float32, device=dev)
         keys = torch.empty(2 * chunk * k, dtype=torch.int32, device=dev)
         idbuf = torch.empty(2 * chunk * k, dtype=torch.int32, device=dev)
@@ -246,9 +239,8 @@ def main() -> None:
         load = lp[:, 2].mean().item()
         fma = lp[:, 3].mean().item()
         rest = total - pred - load - fma
-        want_live = (int(box_tiles.sum()) if side_kind in (None, "scale")
-                     else int(row_ok.any(1).sum()) * 4
-                     if mask_form else None)
+        want_live = (int(row_ok.any(1).sum()) * 4 if mask_form
+                     else int(box_tiles.sum()))
         dead = p[~live]
         dead_c = (dead[:, 4] - dead[:, 0]).mean().item() if len(dead) else 0
         print(f"[split] {form} ({entry}, k={k}): score "
@@ -257,8 +249,7 @@ def main() -> None:
               + "".join(f", {nm} {ms:.3f} ms" for nm, ms in split.items()
                         if nm not in ("score", "select"))
               + f"; live tiles {int(live.sum())} of {len(p)}"
-              + (f" (counted from the inputs: {want_live})"
-                 if want_live is not None else "")
+              + f" (counted from the inputs: {want_live})"
               + f"; a live block's thread 0: predicate {pred:.0f} cycles "
               f"({100 * pred / total:.1f}%), slab loads {load:.0f} "
               f"({100 * load / total:.1f}%), FMA loop {fma:.0f} "

@@ -20,9 +20,9 @@
 // (MMAX); ops.py sends any other 1 <= k <= N or m >= 1 to the wide form in
 // scan_topk_wide.cu, which computes the same answers bit for bit. That
 // file includes this one (SCAN_TOPK_DEVICE_ONLY: the kernels without this
-// file's entries): its box and bitmask forms run box_scan_body and
-// mask_partial_body with a candidate-list sink (ListSink) in place of the
-// running top-k, and the bitmask compaction below.
+// file's entries): its box, windowed and bitmask forms run box_scan_body
+// and mask_partial_body with a candidate-list sink (ListSink) in place of
+// the running top-k, and window_cover and the bitmask compaction below.
 //
 // Computes, per query b: the k rows with the smallest sum_j (q[b,j] -
 // row(r)[j])^2 among rows r whose attrs pass all(qlo[b] <= a <= qhi[b])
@@ -406,7 +406,8 @@ __device__ __forceinline__ void stream_slabs(
 // uncovered, and the empty, sparse and dense counts follow. The wide
 // forms' instance (LIST, k = 0) hands its pairs to the candidate lists
 // of `ls` instead, takes any m (the attrs tested MMAX at a time) and, as
-// a sample pass, 1 in ls.tstride row tiles.
+// a sample pass, 1 in ls.tstride row tiles (under WIN too: tile t's flag
+// is read at its own index, t * tstride).
 template <typename T, bool VEC, bool WIN, bool LIST>
 __device__ __forceinline__ void
 box_scan_body(const T* __restrict__ corpus, const float* __restrict__ scale,
@@ -439,7 +440,8 @@ box_scan_body(const T* __restrict__ corpus, const float* __restrict__ scale,
   const int q0 = blockIdx.y * BQ;
   const int nq = min(BQ, B - q0);
   const int ts = LIST ? ls.tstride : 1;            // tiles a step skips
-  const int ntiles = ((N + tr - 1) / tr + ts - 1) / ts;
+  const int alltiles = (N + tr - 1) / tr;
+  const int ntiles = (alltiles + ts - 1) / ts;
   const int nw = tr / 32;
   int* stats = sched + gridDim.y + (WIN ? 1 : 0);
 
@@ -466,7 +468,7 @@ box_scan_body(const T* __restrict__ corpus, const float* __restrict__ scale,
     if constexpr (WIN) {               // no lane of the block covers it
       const unsigned char* tflag = reinterpret_cast<const unsigned char*>(
           cov + (size_t)B * ((N + 31) >> 5));
-      if (!tflag[(size_t)blockIdx.y * ntiles + tile]) {
+      if (!tflag[(size_t)blockIdx.y * alltiles + (size_t)tile * ts]) {
         if (tid == 0) atomicAdd(stats - 1, 1);
         continue;
       }
@@ -819,19 +821,24 @@ box_scan_kernel(const T* __restrict__ corpus, const float* __restrict__ scale,
 }
 
 // The wide forms' box pass (scan_topk_wide.cu): box_scan_body's scoring
-// into the candidate lists; shared memory box_scan_smem_words(tr, 0).
-template <typename T, bool VEC>
+// into the candidate lists; shared memory box_scan_smem_words(tr, 0). The
+// windowed wide form's instance (WIN) reads window_cover's `cov` as the
+// windowed box scan does: uncovered tiles skipped, each box-test word
+// ANDed with the lane's coverage word.
+template <typename T, bool VEC, bool WIN>
 __global__ void __launch_bounds__(BT, 1)
 box_scan_list_kernel(const T* __restrict__ corpus,
                      const float* __restrict__ scale,
                      const float* __restrict__ attrs,
                      const float* __restrict__ q,
                      const float* __restrict__ qlo,
-                     const float* __restrict__ qhi, int* __restrict__ sched,
-                     int B, int N, int d, int m, int tr, ListSink ls) {
-  box_scan_body<T, VEC, false, true>(corpus, scale, attrs, q, qlo, qhi,
-                                     nullptr, nullptr, nullptr, sched, B, N,
-                                     d, m, 0, tr, ls);
+                     const float* __restrict__ qhi,
+                     const unsigned* __restrict__ cov,
+                     int* __restrict__ sched, int B, int N, int d, int m,
+                     int tr, ListSink ls) {
+  box_scan_body<T, VEC, WIN, true>(corpus, scale, attrs, q, qlo, qhi, cov,
+                                   nullptr, nullptr, sched, B, N, d, m, 0,
+                                   tr, ls);
 }
 
 // Block-wide arg-min of (bd, bi) by (distance, id); every thread returns

@@ -24,10 +24,9 @@
 // past d, which adds exact zeros), so a wide form's distances are the
 // narrow form's bit for bit on the same rows.
 //
-// Design: the box and bitmask forms take a threshold and candidate
-// lists. This file includes scan_topk.cu for its kernels, so those forms
-// score with the narrow forms' own loops, only the sink changed
-// (ListSink):
+// Design: every form takes a threshold and candidate lists. This file
+// includes scan_topk.cu for its kernels, so the forms score with the
+// narrow forms' own loops, only the sink changed (ListSink):
 //   1. sample: the narrow scoring over 1 in 16 row tiles (the bitmask
 //      form: 1 in 16 tiles of its compacted row list), every computed
 //      pair into its query's list (cap entries a query; past it the count
@@ -52,427 +51,54 @@
 //   attrs tested against every box 8 at a time, so any m; empty tiles
 //   skipped, sparse tiles pair by pair in slot rounds, dense tiles in
 //   32-row sub-tiles with a 4 x 4 register tile; bf16 widened and int8
-//   scaled with __fmul_rn as the rows are staged). The bitmask form's is
-//   mask_partial_body's over the compaction of mask_count_kernel and
-//   mask_compact_kernel (128 queries x 64 gathered rows a block, 8 x 4
-//   pairs a thread, cp.async double-buffered 32-wide slabs).
+//   scaled with __fmul_rn as the rows are staged). The windowed form's is
+//   the same body's windowed instance (box_scan_list_kernel<T, VEC,
+//   true>): window_cover's pre-pass marks each lane's rows in a (chunk,
+//   ceil(N / 32)) bitmap and each (256-query block, row tile) some lane
+//   covers, at the plan's tile height, so both passes skip a tile no lane
+//   of the block covers before staging its attrs, and AND each box-test
+//   word with the lane's coverage word: only covered, passing pairs are
+//   scored, sparse tiles pair by pair, dense ones in sub-tiles. Its keys
+//   hold positions, unique, so the (distance, position) order is the
+//   reference's tie order; its exact re-pass tests the coverage bit
+//   before the box. The bitmask form's is mask_partial_body's over the
+//   compaction of mask_count_kernel and mask_compact_kernel (128 queries
+//   x 64 gathered rows a block, 8 x 4 pairs a thread, cp.async
+//   double-buffered 32-wide slabs).
 // What this does about the costs of the plane design these forms had
-// (scripts/wide_split.py on an H100 80GB HBM3 at 700 W: ~30 ms at B =
-// 256, N = 1M, d = 768; every 64 x 64 tile live; in a live block 47-62%
-// of thread 0's cycles on the scalar, single-buffered slab loads, 32-44%
-// in the FMA loop; the select ~6 ms): only passing pairs are scored, on
-// the narrow forms' double-buffered slabs and larger register tiles; no
-// (chunk, N) plane, only ~16k (k times the sample's inverse) candidates a
-// query pass the threshold, so the select reads a few thousand keys a
-// query, not N five times.
+// (scripts/wide_split.py on an H100 80GB HBM3 at 700 W: 24-30 ms at B =
+// 256, N = 1M, d = 768; every 64 x 64 tile live for the box and bitmask
+// forms, 47,516 for the windowed; in a live block 47-62% of thread 0's
+// cycles on the scalar, single-buffered slab loads, 32-44% in the FMA
+// loop; a (chunk, N) f32 plane written once and read five times by the
+// select): only covered, passing pairs are scored, on the narrow forms'
+// double-buffered slabs and larger register tiles; no plane, only ~16k
+// (k times the sample's inverse) candidates a query pass the threshold,
+// so the select reads a few thousand keys a query, not N five times.
 // Bound on the H100, as scan_topk.cu's: the box form reads the corpus and
 // attrs once (~3.1 GB f32, ~1.55 GB bf16, ~0.79 GB int8 at N = 1M, d =
-// 768) against 3 flops per (passing pair, dimension); the bitmask form's
-// 3 flops per (query, passing row, dimension) bound it (4.75 ms at B =
-// 256 and 539,333 rows at 67 TFLOP/s; two fp32 instructions a pair and
-// dimension make a 6.3 ms ceiling). The sample adds ~1/16 of the
-// scoring; the lists, tau and the select move a few MB.
-//
-// The windowed form keeps the plane design (its redesign comes later):
-// per chunk of queries (the wrapper sizes the chunk so its scratch stays
-// near 1 GiB: all 256 queries of a served batch at N = 1M),
-//   wide_score_kernel: a block of 256 threads owns a tile of 64 queries x
-//     64 rows, each thread 4 x 4 (query, row) pairs. It tests the pairs'
-//     boxes first -- the attrs staged 8 at a time, so any m -- and their
-//     coverage; a tile with no passing pair reads no corpus row;
-//     otherwise the tile's queries and rows stream through shared memory
-//     in 32-wide d slabs and every pair is computed. It writes the
-//     (query, row) distance, or +inf where the pair fails, to a (chunk, N)
-//     f32 plane in device memory.
-//   wide_select_kernel: a block of 512 threads a query. A radix select
-//     over the row's float bits (non-negative floats order as their bits)
-//     finds the k-th smallest finite distance in 4 passes of 8 bits, each
-//     a histogram in shared memory (warp-aggregated atomics: the top bits
-//     of similar distances fall in one bin); a compaction in ascending row
-//     order (ballots, a prefix over the warps) keeps the rows below it and
-//     the lowest-id rows equal to it, k in all; a stable LSD radix sort of
-//     those k (4 passes of 8 bits, stable by warp match and a prefix over
-//     the warps) orders them by distance, and since they entered in row
-//     order, equal distances stay lowest id first.
-// Its bound: the attrs of every covered row and the vector of every row
-// that passes a covering lane's box, each read once, and 3 flops per
-// dimension of each passing (lane, row) pair. It computes every pair of a
-// tile that has one passing pair, and writes and re-reads the plane 5
-// times (scripts/wide_split.py splits it by phase).
+// 768) against 3 flops per (passing pair, dimension); the windowed form
+// the attrs of every covered row and the vector of every row that passes
+// a covering lane's box, each once, against 3 flops per dimension of each
+// passing (lane, row) pair; the bitmask form's 3 flops per (query,
+// passing row, dimension) bound it (4.75 ms at B = 256 and 539,333 rows
+// at 67 TFLOP/s; two fp32 instructions a pair and dimension make a 6.3 ms
+// ceiling). The sample adds ~1/16 of the scoring; the lists, tau and the
+// select move a few MB.
 
 #define SCAN_TOPK_DEVICE_ONLY
 #include "scan_topk.cu"
 
 namespace {
 
-constexpr int WQ = 64, WR = 64;      // queries and rows of a score tile
-constexpr int WT = 256;              // threads of a score block
-constexpr int WD = 32;               // d-slab width
-constexpr int WLD = WD + 4;          // staged stride: float4 loads of 8
-                                     // consecutive rows hit 8 bank groups
-constexpr int AG = 8;                // attributes staged at a time
 constexpr int ST = 512;              // threads of a select block
 constexpr int SW = ST / 32;          // its warps
-constexpr unsigned INF_BITS = 0x7f800000u;
 
 using u64 = unsigned long long;
 
 __device__ __forceinline__ float widen(float v, float) { return v; }
 
-// ---- the windowed form's plane design
-
-// Grid (ceil(N / WR), ceil(B / WQ)). Writes dist[b * N + r] for the tile's
-// queries b < B and rows r < N: the pair's distance where it passes the
-// box and the lane covers the row, else +inf. `cov` is the (B,
-// ceil(N / 32)) coverage bitmap.
-template <typename T>
-__global__ void __launch_bounds__(WT)
-wide_score_kernel(const T* __restrict__ corpus,
-                  const unsigned* __restrict__ cov,
-                  const float* __restrict__ attrs, const float* __restrict__ q,
-                  const float* __restrict__ qlo, const float* __restrict__ qhi,
-                  float* __restrict__ dist, int B, int N, int d, int m) {
-  __shared__ __align__(16) float Qs[WQ * WLD];
-  __shared__ __align__(16) float Rs[WR * WLD];
-  __shared__ float At[WR * (AG + 1)];
-  __shared__ float Lo[WQ * (AG + 1)];
-  __shared__ float Hi[WQ * (AG + 1)];
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const long long r0 = (long long)blockIdx.x * WR;
-  const int b0 = blockIdx.y * WQ;
-  const int nr = (int)min((long long)WR, (long long)N - r0);
-  const int nq = min(WQ, B - b0);
-
-  // bit 4 i + j: the pair (query ty + 16 i, row tx + 16 j) passes
-  unsigned ok = 0u;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (ty + 16 * i < nq && tx + 16 * j < nr) ok |= 1u << (4 * i + j);
-
-  for (int a0 = 0; a0 < m; a0 += AG) {
-    const int na = min(AG, m - a0);
-    for (int e = tid; e < WR * AG; e += WT) {
-      const int r = e / AG, a = e % AG;
-      At[r * (AG + 1) + a] =
-          r < nr && a < na ? attrs[(r0 + r) * m + a0 + a] : 0.f;
-    }
-    for (int e = tid; e < WQ * AG; e += WT) {
-      const int i = e / AG, a = e % AG;
-      const bool in = i < nq && a < na;
-      Lo[i * (AG + 1) + a] = in ? qlo[(size_t)(b0 + i) * m + a0 + a] : 0.f;
-      Hi[i * (AG + 1) + a] = in ? qhi[(size_t)(b0 + i) * m + a0 + a] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const unsigned bit = 1u << (4 * i + j);
-        if (ok & bit) {
-          const float* x = At + (tx + 16 * j) * (AG + 1);
-          const float* lo = Lo + (ty + 16 * i) * (AG + 1);
-          const float* hi = Hi + (ty + 16 * i) * (AG + 1);
-          bool p = true;
-          for (int a = 0; a < na; ++a)
-            p = p & (x[a] >= lo[a]) & (x[a] <= hi[a]);
-          if (!p) ok &= ~bit;
-        }
-      }
-    __syncthreads();
-  }
-  {                                    // only the rows the lane covers
-    const int nwords = (N + 31) >> 5;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const unsigned bit = 1u << (4 * i + j);
-        if (ok & bit) {
-          const long long r = r0 + tx + 16 * j;
-          const unsigned w =
-              cov[(size_t)(b0 + ty + 16 * i) * nwords + (r >> 5)];
-          if (!((w >> (r & 31)) & 1u)) ok &= ~bit;
-        }
-      }
-  }
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  if (__syncthreads_or(ok != 0u)) {    // a tile no pair passes reads no row
-    for (int k0 = 0; k0 < d; k0 += WD) {
-      for (int e = tid; e < WQ * WD; e += WT) {
-        const int i = e / WD, c = e % WD, gk = k0 + c;
-        Qs[i * WLD + c] =
-            i < nq && gk < d ? q[(size_t)(b0 + i) * d + gk] : 0.f;
-      }
-      for (int e = tid; e < WR * WD; e += WT) {
-        const int r = e / WD, c = e % WD, gk = k0 + c;
-        float v = 0.f;
-        if (r < nr && gk < d)
-          v = widen(corpus[(size_t)(r0 + r) * d + gk], 0.f);
-        Rs[r * WLD + c] = v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < WD; kk += 4) {
-        float4 a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * WLD +
-                                                  kk);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          b[j] = *reinterpret_cast<const float4*>(Rs + (tx + 16 * j) * WLD +
-                                                  kk);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float t = a[i].x - b[j].x;
-            acc[i][j] = fmaf(t, t, acc[i][j]);
-            t = a[i].y - b[j].y;
-            acc[i][j] = fmaf(t, t, acc[i][j]);
-            t = a[i].z - b[j].z;
-            acc[i][j] = fmaf(t, t, acc[i][j]);
-            t = a[i].w - b[j].w;
-            acc[i][j] = fmaf(t, t, acc[i][j]);
-          }
-      }
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int b = ty + 16 * i, r = tx + 16 * j;
-      if (b < nq && r < nr)
-        dist[(size_t)(b0 + b) * N + r0 + r] =
-            (ok >> (4 * i + j)) & 1u ? acc[i][j] : CUDART_INF_F;
-    }
-}
-
-// One block a query b of the chunk: the k smallest finite entries of
-// dist[b * N .. + N) by (distance, row), written to out_i/out_d[b * k ..]
-// with (-1, +inf) past the finite count. ka/ia and kb/ib hold k keys and
-// ids a query: the compacted candidates and the sort's other buffer.
-__global__ void __launch_bounds__(ST)
-wide_select_kernel(const float* __restrict__ dist, int N, int k,
-                   unsigned* __restrict__ ka, int* __restrict__ ia,
-                   unsigned* __restrict__ kb, int* __restrict__ ib,
-                   int* __restrict__ out_i, float* __restrict__ out_d) {
-  __shared__ int hist[256];
-  __shared__ int wc[SW * 256];         // per (warp, digit) counts, offsets
-  __shared__ int ws[2 * SW];
-  __shared__ int sh[3];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const unsigned below = (1u << lane) - 1u;
-  const size_t b = blockIdx.x;
-  const unsigned* key = reinterpret_cast<const unsigned*>(dist) + b * N;
-  ka += b * k;
-  ia += b * k;
-  kb += b * k;
-  ib += b * k;
-  out_i += b * k;
-  out_d += b * k;
-
-  // ---- the k-th smallest finite key, 8 bits a pass from the top
-  unsigned prefix = 0u, pmask = 0u;
-  int want = k, finite = 0;
-  bool all = false;
-  for (int pass = 0; pass < 4; ++pass) {
-    const int shift = 24 - 8 * pass;
-    for (int e = tid; e < 256; e += ST) hist[e] = 0;
-    __syncthreads();
-    for (int s0 = 0; s0 < N; s0 += ST) {
-      const int r = s0 + tid;
-      const unsigned x = r < N ? __ldg(key + r) : INF_BITS;
-      const bool in = x < INF_BITS && (x & pmask) == prefix;
-      const unsigned act = __ballot_sync(0xffffffffu, in);
-      if (in) {
-        const int bin = (x >> shift) & 255;
-        const unsigned peers = __match_any_sync(act, bin);
-        if (lane == __ffs(peers) - 1) atomicAdd(hist + bin, __popc(peers));
-      }
-    }
-    __syncthreads();
-    if (tid == 0) {
-      int tot = 0, v = 0, acc = 0;
-      for (int e = 0; e < 256; ++e) tot += hist[e];
-      for (v = 0; v < 255 && acc + hist[v] < want; ++v) acc += hist[v];
-      sh[0] = v;
-      sh[1] = acc;
-      sh[2] = tot;
-    }
-    __syncthreads();
-    if (pass == 0) {
-      finite = sh[2];
-      if (finite <= k) {               // every finite entry is kept
-        all = true;
-        break;
-      }
-    }
-    prefix |= (unsigned)sh[0] << shift;
-    pmask |= 0xffu << shift;
-    want -= sh[1];
-    __syncthreads();
-  }
-
-  // ---- compaction in row order: every key below the k-th, then the
-  // first `take` rows whose key equals it
-  const unsigned thr = all ? INF_BITS : prefix;
-  const int take = all ? 0 : want;
-  const int n_lt = all ? finite : k - want;
-  const int cnt = n_lt + take;
-  int run_lt = 0, run_eq = 0;
-  for (int s0 = 0; s0 < N && (run_lt < n_lt || run_eq < take); s0 += ST) {
-    const int r = s0 + tid;
-    const unsigned x = r < N ? __ldg(key + r) : INF_BITS;
-    const bool lt = x < thr, eq = !all && x == thr;
-    const unsigned blt = __ballot_sync(0xffffffffu, lt);
-    const unsigned beq = __ballot_sync(0xffffffffu, eq);
-    if (lane == 0) {
-      ws[warp] = __popc(blt);
-      ws[SW + warp] = __popc(beq);
-    }
-    __syncthreads();
-    int off_lt = run_lt, off_eq = run_eq;
-#pragma unroll
-    for (int w = 0; w < SW; ++w) {
-      if (w < warp) {
-        off_lt += ws[w];
-        off_eq += ws[SW + w];
-      }
-      run_lt += ws[w];
-      run_eq += ws[SW + w];
-    }
-    if (lt) {
-      const int p = off_lt + __popc(blt & below);
-      ka[p] = x;
-      ia[p] = r;
-    }
-    if (eq) {
-      const int e = off_eq + __popc(beq & below);
-      if (e < take) {
-        ka[n_lt + e] = x;
-        ia[n_lt + e] = r;
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- stable LSD radix sort of the cnt candidates by key, 8 bits a
-  // pass; the last pass writes the output
-  unsigned* sk = ka;
-  int* si = ia;
-  unsigned* dk = kb;
-  int* di = ib;
-  for (int pass = 0; pass < 4; ++pass) {
-    const int shift = 8 * pass;
-    for (int e = tid; e < 256; e += ST) hist[e] = 0;
-    __syncthreads();
-    for (int e = tid; e < cnt; e += ST)
-      atomicAdd(hist + ((sk[e] >> shift) & 255), 1);
-    __syncthreads();
-    if (tid == 0) {                    // exclusive prefix: each digit's base
-      int acc = 0;
-      for (int v = 0; v < 256; ++v) {
-        const int t = hist[v];
-        hist[v] = acc;
-        acc += t;
-      }
-    }
-    __syncthreads();
-    for (int c0 = 0; c0 < cnt; c0 += ST) {
-      const int e = c0 + tid;
-      const bool valid = e < cnt;
-      const unsigned x = valid ? sk[e] : 0u;
-      const int id = valid ? si[e] : -1;
-      const int dg = valid ? (int)((x >> shift) & 255) : 256;
-      const unsigned peers = __match_any_sync(0xffffffffu, dg);
-      const int rank = __popc(peers & below);
-      for (int i = tid; i < SW * 256; i += ST) wc[i] = 0;
-      __syncthreads();
-      if (valid && rank == 0) wc[warp * 256 + dg] = __popc(peers);
-      __syncthreads();
-      if (tid < 256) {                 // digit tid: offsets of each warp
-        int s = hist[tid];
-        for (int w = 0; w < SW; ++w) {
-          const int t = wc[w * 256 + tid];
-          wc[w * 256 + tid] = s;
-          s += t;
-        }
-        hist[tid] = s;
-      }
-      __syncthreads();
-      if (valid) {
-        const int p = wc[warp * 256 + dg] + rank;
-        if (pass == 3) {
-          out_i[p] = id;
-          out_d[p] = __uint_as_float(x);
-        } else {
-          dk[p] = x;
-          di[p] = id;
-        }
-      }
-      __syncthreads();
-    }
-    unsigned* tk = sk;
-    sk = dk;
-    dk = tk;
-    int* ti = si;
-    si = di;
-    di = ti;
-  }
-  for (int j = cnt + tid; j < k; j += ST) {
-    out_i[j] = -1;
-    out_d[j] = CUDART_INF_F;
-  }
-}
-
-template <typename T>
-int launch_windows(const void* corpus, const void* cov, const void* attrs,
-                   const void* q, const void* qlo, const void* qhi,
-                   void* dist, void* keys, void* ids, void* out_i,
-                   void* out_d, int B, int N, int d, int m, int k, int chunk,
-                   void* stream) {
-  if (B == 0) return 0;
-  if (k < 1 || k > N || d < 1 || chunk < 1 || m < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int nwords = (N + 31) >> 5;
-  unsigned* ka = (unsigned*)keys;
-  unsigned* kb = ka + (size_t)chunk * k;
-  int* ia = (int*)ids;
-  int* ib = ia + (size_t)chunk * k;
-  for (int b0 = 0; b0 < B; b0 += chunk) {
-    const int nb = min(chunk, B - b0);
-    const size_t ab = (size_t)b0 * m;
-    dim3 grid((N + WR - 1) / WR, (nb + WQ - 1) / WQ);
-    wide_score_kernel<T><<<grid, WT, 0, s>>>(
-        (const T*)corpus, (const unsigned*)cov + (size_t)b0 * nwords,
-        (const float*)attrs, (const float*)q + (size_t)b0 * d,
-        (const float*)qlo + ab, (const float*)qhi + ab, (float*)dist, nb, N,
-        d, m);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    wide_select_kernel<<<nb, ST, 0, s>>>(
-        (const float*)dist, N, k, ka, ia, kb, ib,
-        (int*)out_i + (size_t)b0 * k, (float*)out_d + (size_t)b0 * k);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
-}
-
-// ---- the box and bitmask forms' candidate lists
+// ---- the candidate lists (the box, windowed and bitmask forms)
 
 // The k-th smallest of the 64-bit keys that each(f) hands to f(key,
 // valid) -- every thread of the block calls each, which loops the same
@@ -590,10 +216,12 @@ list_tau_kernel(const u64* __restrict__ list, int* __restrict__ count,
 // A query whose score pass listed more than cap pairs (count[b] > cap),
 // b = blockIdx.x: its k smallest (distance, id) keys among the passing
 // rows within tau[b], by a radix select whose every pass recomputes the
-// rows' distances (a thread a row, rows in order: the box test, or the
-// bitmask's compacted rows; the one fmaf chain), written to its list with
-// count[b] = k. Every query's count goes to raw[b] first; *overflows
-// counts the queries that took this path.
+// rows' distances (a thread a row, rows in order: the box test, the
+// windowed form's coverage bit before it, or the bitmask's compacted
+// rows; the one fmaf chain), written to its list with count[b] = k. Every
+// query's count goes to raw[b] first; *overflows counts the queries that
+// took this path. `cov` is null but for the windowed form: its (B,
+// ceil(N / 32)) coverage bitmap.
 template <typename T, bool MASKF>
 __global__ void __launch_bounds__(ST)
 list_overflow_kernel(const T* __restrict__ corpus,
@@ -603,6 +231,7 @@ list_overflow_kernel(const T* __restrict__ corpus,
                      const float* __restrict__ qlo,
                      const float* __restrict__ qhi,
                      const int* __restrict__ rows,
+                     const unsigned* __restrict__ cov,
                      const float* __restrict__ tau,
                      u64* __restrict__ list, int* __restrict__ count,
                      int* __restrict__ raw, int* __restrict__ overflows,
@@ -623,6 +252,8 @@ list_overflow_kernel(const T* __restrict__ corpus,
       const int v = s0 + threadIdx.x;
       bool ok = v < n;
       const int r = !ok ? 0 : MASKF ? __ldg(rows + v) : v;
+      if (!MASKF && ok && cov != nullptr)
+        ok = (__ldg(cov + b * ((N + 31) >> 5) + (r >> 5)) >> (r & 31)) & 1u;
       for (int a = 0; !MASKF && ok && a < m; ++a) {
         const float x = attrs[(size_t)r * m + a];
         ok = (x >= qlo[b * m + a]) & (x <= qhi[b * m + a]);
@@ -739,13 +370,16 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 // tiles (the sample, with tau null; the score pass: 1 and tau): tr-row
 // tiles, `blocks` blocks a 256-query block, smem =
 // box_scan_smem_words(tr, 0) * 4 (ops._scan_plan at k = 0); sched holds
-// ceil(B / 256) + 3 ints.
+// ceil(B / 256) + 3 ints. With `cov` (window_cover's at the same B, N
+// and tr) the windowed instance, whose sched holds one more int (the
+// uncovered tiles).
 template <typename T>
-int launch_box_list(const void* corpus, const void* scale, const void* attrs,
-                    const void* q, const void* qlo, const void* qhi,
-                    const void* tau, void* list, void* count, void* sched,
-                    int B, int N, int d, int m, int cap, int tstride, int tr,
-                    int blocks, int smem, void* stream) {
+int launch_box_list(const void* corpus, const void* scale, const void* cov,
+                    const void* attrs, const void* q, const void* qlo,
+                    const void* qhi, const void* tau, void* list,
+                    void* count, void* sched, int B, int N, int d, int m,
+                    int cap, int tstride, int tr, int blocks, int smem,
+                    void* stream) {
   if (B == 0) return 0;
   if (N < 1 || d < 1 || m < 1 || cap < 1 || tstride < 1 || blocks < 1 ||
       (tr != 64 && tr != 128 && tr != 256) ||
@@ -753,12 +387,19 @@ int launch_box_list(const void* corpus, const void* scale, const void* attrs,
     return (int)cudaErrorInvalidValue;
   const int qblocks = (B + BQ - 1) / BQ;
   if (qblocks > 65535) return (int)cudaErrorInvalidConfiguration;
+  const bool win = cov != nullptr;
+  if (win && sizeof(T) == 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = cudaMemsetAsync(sched, 0, (qblocks + 3) * sizeof(int), s);
+  cudaError_t e =
+      cudaMemsetAsync(sched, 0, (qblocks + 3 + win) * sizeof(int), s);
   if (e != cudaSuccess) return (int)e;
   const bool vec = d % Vec<T>::V == 0 && aligned16(corpus) && aligned16(q);
-  auto kern = vec ? box_scan_list_kernel<T, true>
-                  : box_scan_list_kernel<T, false>;
+  // no int8 windowed form: its instance is not built
+  constexpr bool W8 = sizeof(T) != 1;
+  auto kern = win ? (vec ? box_scan_list_kernel<T, true, W8>
+                         : box_scan_list_kernel<T, false, W8>)
+                  : (vec ? box_scan_list_kernel<T, true, false>
+                         : box_scan_list_kernel<T, false, false>);
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem);
   if (e != cudaSuccess) return (int)e;
@@ -766,8 +407,8 @@ int launch_box_list(const void* corpus, const void* scale, const void* attrs,
                     tstride};
   kern<<<dim3(blocks, qblocks), BT, smem, s>>>(
       (const T*)corpus, (const float*)scale, (const float*)attrs,
-      (const float*)q, (const float*)qlo, (const float*)qhi, (int*)sched, B,
-      N, d, m, tr, ls);
+      (const float*)q, (const float*)qlo, (const float*)qhi,
+      (const unsigned*)cov, (int*)sched, B, N, d, m, tr, ls);
   return (int)cudaGetLastError();
 }
 
@@ -800,7 +441,8 @@ int launch_mask_list(const void* corpus, const void* rows, const void* q,
 template <typename T, bool MASKF>
 int launch_overflow(const void* corpus, const void* scale, const void* attrs,
                     const void* q, const void* qlo, const void* qhi,
-                    const void* rows, const void* tau, void* list,
+                    const void* rows, const void* cov, const void* tau,
+                    void* list,
                     void* count, void* raw, void* overflows, int B, int N,
                     int d, int m, int cap, int k, void* stream) {
   if (B == 0) return 0;
@@ -809,47 +451,32 @@ int launch_overflow(const void* corpus, const void* scale, const void* attrs,
   list_overflow_kernel<T, MASKF><<<B, ST, 0, (cudaStream_t)stream>>>(
       (const T*)corpus, (const float*)scale, (const float*)attrs,
       (const float*)q, (const float*)qlo, (const float*)qhi,
-      (const int*)rows, (const float*)tau, (u64*)list, (int*)count,
+      (const int*)rows, (const unsigned*)cov, (const float*)tau,
+      (u64*)list, (int*)count,
       (int*)raw, (int*)overflows, N, d, m, cap, k);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The windowed form (plane design): `cov` is window_cover's (B, ceil(N /
-// 32)) bitmap (scan_topk.cu). `chunk` queries are scored and selected at
-// a time: dist holds chunk * N floats, keys and ids 2 * chunk * k words
-// each.
-#define WINDOWS_ENTRY(NAME, T)                                               \
-  extern "C" int NAME(const void* corpus, const void* cov,                   \
-                      const void* attrs, const void* q, const void* qlo,     \
-                      const void* qhi, void* dist, void* keys, void* ids,    \
-                      void* out_i, void* out_d, int B, int N, int d, int m,  \
-                      int k, int chunk, void* stream) {                      \
-    return launch_windows<T>(corpus, cov, attrs, q, qlo, qhi, dist, keys,    \
-                             ids, out_i, out_d, B, N, d, m, k, chunk,        \
-                             stream);                                        \
-  }
-
-WINDOWS_ENTRY(scan_topk_windows_wide_f32, float)
-WINDOWS_ENTRY(scan_topk_windows_wide_bf16, __nv_bfloat16)
-
-// The box and bitmask forms, a phase an entry, for a chunk of B queries
-// whose candidate lists hold cap keys each (list: B * cap u64, count: B
-// ints, zeroed before the sample pass; tau: B floats).
+// The box, windowed and bitmask forms, a phase an entry, for a chunk of B
+// queries whose candidate lists hold cap keys each (list: B * cap u64,
+// count: B ints, zeroed before the sample pass; tau: B floats).
 //
 // wide_box_list_*: a scoring pass of the box form over 1 in tstride row
-// tiles; `side` the int8 form's (N) scale; tau null (+inf) for the sample.
+// tiles; `side` the int8 form's (N) scale; `cov` null, or the windowed
+// form's coverage (window_cover's for the chunk at the same tr: f32 and
+// bf16 only); tau null (+inf) for the sample.
 #define BOX_LIST_ENTRY(NAME, T)                                              \
-  extern "C" int NAME(const void* corpus, const void* side,                  \
+  extern "C" int NAME(const void* corpus, const void* side, const void* cov, \
                       const void* attrs, const void* q, const void* qlo,     \
                       const void* qhi, const void* tau, void* list,          \
                       void* count, void* sched, int B, int N, int d, int m,  \
                       int cap, int tstride, int tr, int blocks, int smem,    \
                       void* stream) {                                        \
-    return launch_box_list<T>(corpus, side, attrs, q, qlo, qhi, tau, list,   \
-                              count, sched, B, N, d, m, cap, tstride, tr,    \
-                              blocks, smem, stream);                         \
+    return launch_box_list<T>(corpus, side, cov, attrs, q, qlo, qhi, tau,    \
+                              list, count, sched, B, N, d, m, cap, tstride,  \
+                              tr, blocks, smem, stream);                     \
   }
 
 BOX_LIST_ENTRY(wide_box_list_f32, float)
@@ -902,15 +529,16 @@ extern "C" int wide_list_tau(const void* list, void* count, int B, int cap,
 // wide_*_overflow_*: the queries whose lists overflowed, finished exactly;
 // raw (B ints) takes every query's listed count, *overflows counts the
 // queries finished here. The bitmask entries read `rows`, the box entries
-// `side` (the int8 scale), attrs and the boxes.
+// `side` (the int8 scale), `cov` (the windowed form's, or null), attrs
+// and the boxes.
 #define BOX_OVERFLOW_ENTRY(NAME, T)                                          \
-  extern "C" int NAME(const void* corpus, const void* side,                  \
+  extern "C" int NAME(const void* corpus, const void* side, const void* cov, \
                       const void* attrs, const void* q, const void* qlo,     \
                       const void* qhi, const void* tau, void* list,          \
                       void* count, void* raw, void* overflows, int B, int N, \
                       int d, int m, int cap, int k, void* stream) {          \
     return launch_overflow<T, false>(corpus, side, attrs, q, qlo, qhi,       \
-                                     nullptr, tau, list, count, raw,         \
+                                     nullptr, cov, tau, list, count, raw,    \
                                      overflows, B, N, d, m, cap, k, stream); \
   }
 #define MASK_OVERFLOW_ENTRY(NAME, T)                                         \
@@ -919,8 +547,9 @@ extern "C" int wide_list_tau(const void* list, void* count, int B, int cap,
                       void* overflows, int B, int N, int d, int cap, int k,  \
                       void* stream) {                                        \
     return launch_overflow<T, true>(corpus, nullptr, nullptr, q, nullptr,    \
-                                    nullptr, rows, tau, list, count, raw,    \
-                                    overflows, B, N, d, 0, cap, k, stream);  \
+                                    nullptr, rows, nullptr, tau, list,       \
+                                    count, raw, overflows, B, N, d, 0, cap,  \
+                                    k, stream);                              \
   }
 
 BOX_OVERFLOW_ENTRY(wide_box_overflow_f32, float)

@@ -328,7 +328,7 @@ SCAN_KMAX = 64
 SCAN_MMAX = 8
 # the wide forms' scratch a call, at most (one query chunk at a time)
 WIDE_SCRATCH_BYTES = 1 << 30
-# the box and bitmask wide forms: a sample pass over 1 in
+# the wide forms: a sample pass over 1 in
 # WIDE_SAMPLE_STRIDE row tiles (of the bitmask's compacted rows: 64-row
 # tiles) gives each query a threshold, then each query's candidate list holds up to `cap`
 # keys (WIDE_CAND_MIN at least, or N); WIDE_CAPACITY forces a capacity
@@ -338,7 +338,7 @@ WIDE_CAND_MIN = 1 << 16
 WIDE_CAPACITY: Optional[int] = None
 # the bitmask compaction's segment (scan_topk.cu SEG)
 MASK_SEGMENT = 8192
-# per box or bitmask wide form, its last call's device tensor (B + 1,)
+# per wide form, its last call's device tensor (B + 1,)
 # int32: each query's listed candidates (pairs within its threshold),
 # then the queries whose lists overflowed (finished by the exact re-pass)
 WIDE_STATS = {}
@@ -354,14 +354,17 @@ class WidePlan(NamedTuple):
     scratch: int   # bytes a call allocates besides its outputs
 
 
-def _wide_plan(B: int, N: int, k: int, mask: bool = False) -> WidePlan:
-    """The box or bitmask wide form's scratch: per query chunk a list of
-    cap u64 keys a query and the select's 2 x k keys; per call the count,
-    tau and stats of every query, the box pass's tile counters and, for
-    the bitmask, its compacted rows. The list holds about k x the
-    sample's inverse (16) where every row passes, 4x that room (at least
-    WIDE_CAND_MIN, at most N); the chunk keeps the scratch within
-    ``WIDE_SCRATCH_BYTES``, at least one query."""
+def _wide_plan(B: int, N: int, k: int, mask: bool = False,
+               windows: bool = False) -> WidePlan:
+    """A wide form's scratch: per query chunk a list of cap u64 keys a
+    query and the select's 2 x k keys (and, windowed, the chunk's
+    coverage: a bitmap row of ceil(N / 32) words a query, a byte per
+    (256-query block, row tile of at least 64 rows)); per call the count,
+    tau and stats of every query, the box pass's tile counters (one more,
+    windowed) and, for the bitmask, its compacted rows. The list holds
+    about k x the sample's inverse (16) where every row passes, 4x that
+    room (at least WIDE_CAND_MIN, at most N); the chunk keeps the scratch
+    within ``WIDE_SCRATCH_BYTES``, at least one query."""
     if WIDE_CAPACITY is not None:
         cap = max(k, WIDE_CAPACITY)
     else:
@@ -370,62 +373,32 @@ def _wide_plan(B: int, N: int, k: int, mask: bool = False) -> WidePlan:
     fixed = 12 * B + 4
     if mask:
         fixed += 4 * (N + -(-N // MASK_SEGMENT) + 1)
-    per = 8 * cap + 16 * k
+    per = 8 * cap + 16 * k + (4 * -(-N // 32) if windows else 0)
     chunk = max(1, min(B, (WIDE_SCRATCH_BYTES - fixed) // per))
-    sched = 0 if mask else 4 * (-(-chunk // SCAN_QUERY_BLOCK) + 3)
+    qblocks = -(-chunk // SCAN_QUERY_BLOCK)
+    sched = 0 if mask else 4 * (qblocks + 3 + windows)
+    if windows:                      # the tile flags, in int32 words
+        sched += 4 * -(-qblocks * -(-N // SCAN_TILE_ROWS[-1]) // 4)
     return WidePlan(chunk, cap, fixed + sched + chunk * per)
 
 
-def _wide_chunk(B: int, N: int, k: int) -> int:
-    """Queries the windowed wide form scores and selects at a time: as
-    many as keep its (chunk, N) f32 plane and two (chunk, k) key/id
-    buffers within ``WIDE_SCRATCH_BYTES`` (a served batch of 256 at N =
-    1M), at least one."""
-    return max(1, min(B, WIDE_SCRATCH_BYTES // (4 * N + 16 * k)))
-
-
-def _launch_windows_wide(kind: str, corpus, attrs, q, qlo, qhi, k: int,
-                         windows):
-    """The windowed wide form: its coverage from ``windows`` = (starts,
-    counts) by scan_topk.cu's pre-pass (its tile flags go unread), then
-    the plane design a query chunk."""
-    N, d = corpus.shape
-    B, m = qlo.shape
-    dev = corpus.device
-    plan = ScanPlan(64, -(-N // 64), 1, -(-B // SCAN_QUERY_BLOCK), 0)
-    cover = _window_cover(*windows, N, plan)
-    chunk = _wide_chunk(B, N, k)
-    dist = torch.empty(chunk * N, dtype=torch.float32, device=dev)
-    keys = torch.empty(2 * chunk * k, dtype=torch.int32, device=dev)
-    idbuf = torch.empty(2 * chunk * k, dtype=torch.int32, device=dev)
-    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
-    dists = torch.empty((B, k), dtype=torch.float32, device=dev)
-    name = _form("scan_topk_windows_wide", kind)
-    f = _fn("scan_topk_wide", f"scan_topk_windows_wide_{kind}",
-            [_P] * 11 + [_I] * 6 + [_P])
-    rc = f(corpus.data_ptr(), cover.data_ptr(), attrs.data_ptr(),
-           q.data_ptr(), qlo.data_ptr(), qhi.data_ptr(), dist.data_ptr(),
-           keys.data_ptr(), idbuf.data_ptr(), ids.data_ptr(),
-           dists.data_ptr(), B, N, d, m, k, chunk, _stream(dev))
-    _raise_on(rc, name)
-    LAUNCHES[name] += 1
-    return ids, dists
-
-
-def _launch_list_wide(kind: str, corpus, side, attrs, q, qlo, qhi, k: int):
-    """The box (``qlo`` given; ``side`` the int8 scale) or bitmask
-    (``side`` the mask) wide form: per query chunk a sample pass and the
-    thresholds, the score pass into the candidate lists, the exact
-    re-pass of the queries whose lists overflowed, and the select
-    (scan_topk_wide.cu). No host sync."""
+def _launch_list_wide(kind: str, corpus, side, attrs, q, qlo, qhi, k: int,
+                      windows=None):
+    """The box (``qlo`` given; ``side`` the int8 scale), windowed (``qlo``
+    and ``windows`` = (starts, counts) given) or bitmask (``side`` the
+    mask) wide form: per query chunk (the windowed form's coverage of the
+    chunk first, by scan_topk.cu's pre-pass at the score passes' tile
+    height) a sample pass and the thresholds, the score pass into the
+    candidate lists, the exact re-pass of the queries whose lists
+    overflowed, and the select (scan_topk_wide.cu). No host sync."""
     N, d = corpus.shape
     B = q.shape[0]
     mask = qlo is None
     m = 0 if mask else qlo.shape[1]
     dev = corpus.device
-    form = "mask" if mask else "box"
-    name = _form("scan_topk_mask_wide" if mask else "scan_topk_wide", kind)
-    plan = _wide_plan(B, N, k, mask)
+    name = _form("scan_topk_mask_wide" if mask else "scan_topk_windows_wide"
+                 if windows is not None else "scan_topk_wide", kind)
+    plan = _wide_plan(B, N, k, mask, windows is not None)
     marks = WIDE_MARKS
 
     def mark(phase):
@@ -459,18 +432,22 @@ def _launch_list_wide(kind: str, corpus, side, attrs, q, qlo, qhi, k: int):
                    [_P] * 8 + [_I] * 5 + [_P])
     else:
         sp = _scan_plan(plan.chunk, N, 0, sms)
-        sched = torch.empty(sp.query_blocks + 3, dtype=torch.int32,
-                            device=dev)
+        sched = torch.empty(sp.query_blocks + 3 + (windows is not None),
+                            dtype=torch.int32, device=dev)
         score = _fn("scan_topk_wide", f"wide_box_list_{kind}",
-                    [_P] * 10 + [_I] * 9 + [_P])
+                    [_P] * 11 + [_I] * 9 + [_P])
         over = _fn("scan_topk_wide", f"wide_box_overflow_{kind}",
-                   [_P] * 11 + [_I] * 6 + [_P])
+                   [_P] * 12 + [_I] * 6 + [_P])
     tau_fn = _fn("scan_topk_wide", "wide_list_tau",
                  [_P] * 2 + [_I] * 3 + [_P] * 2)
     select = _fn("scan_topk_wide", "wide_list_select",
                  [_P] * 2 + [_I] * 3 + [_P] * 4)
+    cov = None
     for b0 in range(0, B, plan.chunk):
         nb = min(plan.chunk, B - b0)
+        if windows is not None:        # the chunk's lanes, as its own batch
+            cov = _window_cover(windows[0][b0:b0 + nb],
+                                windows[1][b0:b0 + nb], N, sp)
         for sample in (True, False):
             # the sample: tau +inf over 1 in WIDE_SAMPLE_STRIDE tiles
             t = None if sample else ptr(tau, b0)
@@ -482,8 +459,9 @@ def _launch_list_wide(kind: str, corpus, side, attrs, q, qlo, qhi, k: int):
                            stream)
             else:
                 tiles = -(-sp.tiles // stride)
-                rc = score(corpus.data_ptr(), ptr(side), attrs.data_ptr(),
-                           ptr(q, b0), ptr(qlo, b0), ptr(qhi, b0), t,
+                rc = score(corpus.data_ptr(), ptr(side), ptr(cov),
+                           attrs.data_ptr(), ptr(q, b0), ptr(qlo, b0),
+                           ptr(qhi, b0), t,
                            lists.data_ptr(), ptr(count, b0),
                            sched.data_ptr(), nb, N, d, m, plan.cap, stride,
                            sp.tile_rows, min(tiles, sms), sp.smem, stream)
@@ -499,8 +477,9 @@ def _launch_list_wide(kind: str, corpus, side, attrs, q, qlo, qhi, k: int):
                       ptr(stats, b0), ptr(stats, B), nb, N, d, plan.cap, k,
                       stream)
         else:
-            rc = over(corpus.data_ptr(), ptr(side), attrs.data_ptr(),
-                      ptr(q, b0), ptr(qlo, b0), ptr(qhi, b0), ptr(tau, b0),
+            rc = over(corpus.data_ptr(), ptr(side), ptr(cov),
+                      attrs.data_ptr(), ptr(q, b0), ptr(qlo, b0),
+                      ptr(qhi, b0), ptr(tau, b0),
                       lists.data_ptr(), ptr(count, b0), ptr(stats, b0),
                       ptr(stats, B), nb, N, d, m, plan.cap, k, stream)
         _raise_on(rc, name)
@@ -522,10 +501,8 @@ def _launch_scan(kind: str, corpus, scale, attrs, q, qlo, qhi, k: int,
     N, d = corpus.shape
     B, m = qlo.shape
     if k > SCAN_KMAX or m > SCAN_MMAX:
-        if windows is not None:
-            return _launch_windows_wide(kind, corpus, attrs, q, qlo, qhi, k,
-                                        windows)
-        return _launch_list_wide(kind, corpus, scale, attrs, q, qlo, qhi, k)
+        return _launch_list_wide(kind, corpus, scale, attrs, q, qlo, qhi, k,
+                                 windows)
     dev = corpus.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = _scan_plan(B, N, k, sms)
@@ -652,8 +629,8 @@ def scan_topk_windows(corpus: torch.Tensor, attrs: torch.Tensor,
     The kernel is the box scan of the corpus's dtype over the rows the
     windows cover (a (B, ceil(N / 32)) bitmap, B * N / 8 bytes of
     scratch). Any 1 <= k <= N and m >= 1: past ``SCAN_KMAX`` or
-    ``SCAN_MMAX`` it is the wide form (scan_topk_wide.cu) over the same
-    bitmap."""
+    ``SCAN_MMAX`` it is the wide form (scan_topk_wide.cu): the box scan's
+    windowed instance into candidate lists, over the same bitmap."""
     kind = _corpus_kind(corpus)
     dev = _device_of(corpus, attrs, q, qlo, qhi, starts, counts)
     for t, nm in ((attrs, "attrs"), (q, "q"), (qlo, "qlo"), (qhi, "qhi")):

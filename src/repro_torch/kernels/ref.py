@@ -445,17 +445,24 @@ def _tile_sample(n: int, tile: int, stride: int, device) -> torch.Tensor:
 def scan_topk_wide_twin(corpus: torch.Tensor, attrs: torch.Tensor,
                         q: torch.Tensor, qlo: torch.Tensor,
                         qhi: torch.Tensor, k: int, *, cap=None,
-                        qscale=None, stride: int = 16, tile: int = 256,
-                        budget: int = 1 << 27):
-    """The wide box form (f32, bf16, or int8 with ``qscale``) through
-    ``wide_select_twin``: the sample is 1 in ``stride`` row tiles of
-    ``tile`` rows (the box pass's), ``cap`` defaults to N. Returns
-    ``wide_select_twin``'s four results."""
+                        qscale=None, windows=None, stride: int = 16,
+                        tile: int = 256, budget: int = 1 << 27):
+    """The wide box form (f32, bf16, or int8 with ``qscale``; windowed
+    with ``windows`` = (starts, counts): a pair takes part only where the
+    lane's windows cover the row) through ``wide_select_twin``: the
+    sample is 1 in ``stride`` row tiles of ``tile`` rows (the box pass's,
+    at which the windowed form's pre-pass flags its tiles), ``cap``
+    defaults to N. Returns ``wide_select_twin``'s four results."""
     N = corpus.shape[0]
+    cov = None if windows is None else _window_rows(*windows, N)
+
+    def ok_of(s, e):
+        ok = _box_ok(attrs[s:e], qlo, qhi)
+        return ok if cov is None else ok & cov[:, s:e]
+
     dist = _dist_plane(
         N, lambda s, e: dequant_rows(corpus[s:e], None if qscale is None
-                                     else qscale[s:e]),
-        lambda s, e: _box_ok(attrs[s:e], qlo, qhi), q, budget)
+                                     else qscale[s:e]), ok_of, q, budget)
     return wide_select_twin(dist, k, _tile_sample(N, tile, stride,
                                                   dist.device),
                             N if cap is None else cap)
@@ -477,6 +484,36 @@ def scan_topk_mask_wide_twin(corpus: torch.Tensor, mask: torch.Tensor,
     return wide_select_twin(dist, k, sampled, N if cap is None else cap)
 
 
+def scan_topk_windows_wide_twin(corpus: torch.Tensor, attrs: torch.Tensor,
+                                q: torch.Tensor, qlo: torch.Tensor,
+                                qhi: torch.Tensor, starts: torch.Tensor,
+                                counts: torch.Tensor, k: int, **kw):
+    """The wide windowed form (f32 or bf16 corpus in position order):
+    ``scan_topk_wide_twin`` over the rows the windows cover, ids as
+    positions."""
+    return scan_topk_wide_twin(corpus, attrs, q, qlo, qhi, k,
+                               windows=(starts, counts), **kw)
+
+
+def _window_rows(starts: torch.Tensor, counts: torch.Tensor,
+                 N: int) -> torch.Tensor:
+    """(B, N) bool: row r lies in one of lane b's windows (a window with
+    start < 0 or count <= 0 is a pad; the union, so order and overlap do
+    not matter)."""
+    B = starts.shape[0]
+    dev = starts.device
+    st = starts.to(torch.int64)
+    live = (st >= 0) & (counts > 0)
+    s = torch.where(live, st.clamp(max=N), N)
+    e = torch.where(live, (st + counts.to(torch.int64)).clamp(max=N), N)
+    # +1 where a window starts, -1 where it ends: a row is covered where
+    # the running sum is positive
+    edge = torch.zeros((B, N + 1), dtype=torch.int64, device=dev)
+    edge.scatter_add_(1, s, torch.ones_like(s))
+    edge.scatter_add_(1, e, -torch.ones_like(e))
+    return edge.cumsum(1)[:, :N] > 0
+
+
 def window_cover_ref(starts: torch.Tensor, counts: torch.Tensor,
                      N: int) -> torch.Tensor:
     """The rows each lane's windows cover, packed as the windowed kernel's
@@ -487,16 +524,8 @@ def window_cover_ref(starts: torch.Tensor, counts: torch.Tensor,
     B = starts.shape[0]
     nwords = -(-N // 32)
     dev = starts.device
-    st = starts.to(torch.int64)
-    live = (st >= 0) & (counts > 0)
-    s = torch.where(live, st.clamp(max=N), N)
-    e = torch.where(live, (st + counts.to(torch.int64)).clamp(max=N), N)
-    # +1 where a window starts, -1 where it ends: a row is covered where
-    # the running sum is positive
-    edge = torch.zeros((B, nwords * 32 + 1), dtype=torch.int64, device=dev)
-    edge.scatter_add_(1, s, torch.ones_like(s))
-    edge.scatter_add_(1, e, -torch.ones_like(e))
-    cov = edge.cumsum(1)[:, :nwords * 32] > 0
+    cov = torch.nn.functional.pad(_window_rows(starts, counts, N),
+                                  (0, nwords * 32 - N))
     shift = torch.arange(32, device=dev, dtype=torch.int64)
     words = (cov.view(B, nwords, 32).to(torch.int64) << shift).sum(-1)
     return (words - ((words >> 31) << 32)).to(torch.int32)

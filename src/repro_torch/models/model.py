@@ -1,7 +1,7 @@
-"""Model assembly: parameter init, the stage-stacked forward, prefill and
-decode with caches. One code path serves all 10 architectures via
-ModelConfig: the counterpart of ``repro.models.model`` (its ``loss_fn``
-and remat wrapper belong to training and are not here).
+"""Model assembly: parameter init, the stage-stacked forward (each
+repeat of a stage under the config's remat policy), the training loss,
+prefill and decode with caches. One code path serves all 10
+architectures via ModelConfig: the counterpart of ``repro.models.model``.
 
 Parameters are a nested dict of tensors shaped as the reference's tree:
 ``{"embed", "final_norm", "lm_head"?, "frontend"?: {"proj"},
@@ -20,19 +20,22 @@ Batch dict keys (tensors on the model's device):
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as Fn
+from torch.utils import checkpoint as ckpt
 
 from . import layers as L
 from . import ssm as SSM
 from .config import LayerSpec, ModelConfig
 from .sharding import constrain
 
-__all__ = ["init_params", "forward", "prefill", "init_cache", "decode_step",
-           "count_params", "param_logical_axes", "param_specs",
-           "params_from_numpy"]
+__all__ = ["init_params", "forward", "loss_fn", "prefill", "init_cache",
+           "decode_step", "count_params", "param_logical_axes",
+           "param_specs", "params_from_numpy"]
 
 F32 = torch.float32
 
@@ -256,24 +259,69 @@ def _head(params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+# the matmuls whose outputs remat="dots" keeps (jax's checkpoint_dots:
+# every dot_general; an einsum runs as one of these)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn, cfg: ModelConfig):
+    """One repeat's body under the config's remat policy, as the
+    reference's ``_remat_wrap`` around its scan step: "none" keeps every
+    activation, "full" recomputes the body in the backward pass, "dots"
+    keeps the matmul outputs and recomputes the rest. Only memory
+    changes: the recomputation runs the same ops on the same inputs."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("dots", "full"):
+        raise ValueError(f"remat must be none, dots or full, got "
+                         f"{cfg.remat!r}")
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
+
+
 def _run_stages(params, cfg: ModelConfig, x, positions, mrope_pos, *,
                 pack=None):
-    """Every stage's body, repeat by repeat. With ``pack`` also returns
-    the caches: per stage {"l{j}": leaves stacked over the repeats}."""
+    """Every stage's body, repeat by repeat (under the remat policy where
+    no cache is collected). With ``pack`` also returns the caches: per
+    stage {"l{j}": leaves stacked over the repeats}."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     caches = []
     for si, stage in enumerate(cfg.stages):
         sp = params["stages"][si]
         per = []
+
+        def body(xx, a, lp, _stage=stage):
+            for j, spec in enumerate(_stage.body):
+                xx, a, _ = _apply_block(xx, lp[f"l{j}"], spec, cfg,
+                                        positions, mrope_pos, a)
+            return xx, a
+
+        step = _remat_wrap(body, cfg)
         for r in range(stage.repeat):
             lp = _slice(sp, r)
+            if pack is None:
+                x, aux = step(x, aux, lp)
+                continue
             out = {}
             for j, spec in enumerate(stage.body):
                 x, aux, st = _apply_block(x, lp[f"l{j}"], spec, cfg,
                                           positions, mrope_pos, aux,
-                                          collect_cache=pack is not None)
-                if pack is not None:
-                    out[f"l{j}"] = pack(spec, st)
+                                          collect_cache=True)
+                out[f"l{j}"] = pack(spec, st)
             per.append(out)
         if pack is not None:
             caches.append({f"l{j}": {name: torch.stack(
@@ -293,6 +341,28 @@ def forward(params, cfg: ModelConfig, batch):
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", x, _head(params, cfg))
     return constrain(logits, "batch", None, "vocab"), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """The training loss, as the reference's: causal next-token
+    cross-entropy over the logits in f32 (hubert, encoder-only: the
+    cross-entropy at the masked positions against ``targets``), plus the
+    MoE auxiliary loss. Returns (loss + aux, {"loss": loss, "aux":
+    aux})."""
+    logits, aux = forward(params, cfg, batch)
+    logits = logits.to(F32)
+    if cfg.encoder_only:
+        targets = batch["targets"].long()
+        mask = batch["mask"].to(F32)
+        lp = Fn.log_softmax(logits, dim=-1)
+        nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
+        loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        tokens = batch["tokens"].long()
+        lp = Fn.log_softmax(logits[:, :-1], dim=-1)
+        nll = -torch.gather(lp, -1, tokens[:, 1:, None])[..., 0]
+        loss = torch.mean(nll)
+    return loss + aux, {"loss": loss, "aux": aux}
 
 
 def _fit_cache(arr, T: int):

@@ -849,7 +849,7 @@ def _wide_case(rng, N, d, m, B, dev):
 
 
 def _check_lists(name, counts, forced):
-    """The box and bitmask wide forms' stats of their last call: the
+    """A wide form's stats of its last call: the
     overflowed queries (the count past the lists' capacity), and where no
     list was forced small each query's listed count equal to the plain
     twin's (the sample then lists every sampled pair, so the thresholds,
@@ -872,17 +872,18 @@ def test_cuda_wide_scan_forms_bit_equal_on_grid_corpus(m, monkeypatch):
     attrs), each at k in {65, 100, 400, N} with N = 1500, d in {33, 96},
     lanes with an empty, an all-pass, a 20-row and a one-row box, and
     ``_windows``'s windows. The wide form scores and selects the batch in
-    chunks: the scratch is cut so B = 37 takes three. At m > 8 k = 10
-    takes the wide form too. Each call counts one launch of its wide form
-    and none of a narrow one.
+    chunks: the scratch is cut so B = 37 takes three to five. At m > 8 k =
+    10 takes the wide form too. Each call counts one launch of its wide
+    form and none of a narrow one.
 
-    The box and bitmask forms run each case at the sample stride the
-    wrapper uses (16: at N = 1500 their samples are one row tile, so at k
-    >= 400 every threshold is +inf) and at 2 (finite thresholds), their
-    listed counts equal to the plain twin's; then on a corpus whose rows
-    are all equal (every pair of a query at one distance: ties to the
-    lowest id), and with the lists' capacity forced down to k, where the
-    overflow counter must count the queries the exact re-pass finished."""
+    Every form runs each case at the sample stride the wrapper uses (16:
+    at N = 1500 its samples are one row tile, so at k >= 400 every
+    threshold is +inf) and at 2 (finite thresholds), its listed counts
+    equal to the plain twin's; then on a corpus whose rows are all equal
+    (every pair of a query at one distance: ties to the lowest id or
+    position), and with the lists' capacity forced down to k, where the
+    overflow counter must count the queries the exact re-pass
+    finished."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     dev = torch.device("cuda")
@@ -943,16 +944,17 @@ def test_cuda_wide_scan_forms_bit_equal_on_grid_corpus(m, monkeypatch):
                 if "mask" not in name:       # the boxes' lanes
                     assert bool((ids[0] == -1).all()), ctx
                     assert int((ids[2] >= 0).sum()) <= 20, ctx
-            _list_cases(corpus, cb, qv, qs, attrs, q, lo, hi, mask, k,
-                        monkeypatch)
+            _list_cases(corpus, cb, qv, qs, attrs, q, lo, hi, mask, st, ct,
+                        k, monkeypatch)
 
 
-def _list_cases(corpus, cb, qv, qs, attrs, q, lo, hi, mask, k, monkeypatch):
-    """The box and bitmask wide forms at sample strides 16 and 2, on the
-    corpus and on one whose rows are all equal (its int8 replica too),
-    then with their lists' capacity forced down to k: each call
-    ``torch.equal`` to its plain version, its form launched, its stats
-    checked by ``_check_lists`` against the plain twin."""
+def _list_cases(corpus, cb, qv, qs, attrs, q, lo, hi, mask, st, ct, k,
+                monkeypatch):
+    """The box, windowed and bitmask wide forms at sample strides 16 and
+    2, on the corpus and on one whose rows are all equal (its int8
+    replica too), then with their lists' capacity forced down to k: each
+    call ``torch.equal`` to its plain version, its form launched, its
+    stats checked by ``_check_lists`` against the plain twin."""
     flat = corpus[:1].expand_as(corpus).contiguous()
     flat_v = qv[:1].expand_as(qv).contiguous()
     flat_s = qs[:1].expand_as(qs).contiguous()
@@ -969,6 +971,8 @@ def _list_cases(corpus, cb, qv, qs, attrs, q, lo, hi, mask, k, monkeypatch):
                                           qscale=s8, stride=stride, cap=cap)
         twin_mask = ref.scan_topk_mask_wide_twin(c32, mask, q, k,
                                                  stride=stride, cap=cap)
+        twin_win = ref.scan_topk_windows_wide_twin(
+            c32, attrs, q, lo, hi, st, ct, k, stride=stride, cap=cap)
         cases = [
             ("scan_topk_wide", twin_box,
              lambda: ops.scan_topk(c32, attrs, q, lo, hi, k=k),
@@ -978,7 +982,17 @@ def _list_cases(corpus, cb, qv, qs, attrs, q, lo, hi, mask, k, monkeypatch):
              lambda: ref.scan_topk_ref(cbf, attrs, q, lo, hi, k)),
             ("scan_topk_wide_q8", twin_q8,
              lambda: ops.scan_topk_q8(v8, s8, attrs, q, lo, hi, k=k),
-             lambda: ref.scan_topk_q8_ref(v8, s8, attrs, q, lo, hi, k))]
+             lambda: ref.scan_topk_q8_ref(v8, s8, attrs, q, lo, hi, k)),
+            ("scan_topk_windows_wide", twin_win,
+             lambda: ops.scan_topk_windows(c32, attrs, q, lo, hi, st, ct,
+                                           k=k),
+             lambda: ref.scan_topk_windows_ref(c32, attrs, q, lo, hi, st,
+                                               ct, k)),
+            ("scan_topk_windows_wide_bf16", twin_win,
+             lambda: ops.scan_topk_windows(cbf, attrs, q, lo, hi, st, ct,
+                                           k=k),
+             lambda: ref.scan_topk_windows_ref(cbf, attrs, q, lo, hi, st,
+                                               ct, k))]
         if k > ops.SCAN_KMAX:
             cases += [
                 ("scan_topk_mask_wide", twin_mask,

@@ -35,6 +35,10 @@ def test_import_every_module_without_jax_or_reference():
     for name in ("config", "layers", "model", "sharding", "ssm"):
         assert f"repro_torch.models.{name}" in mods
     assert "repro_torch.serve.generate" in mods
+    # training of the LM substrate
+    for name in ("data.lm", "optim.adamw", "train.step", "train.compressed",
+                 "launch.train"):
+        assert f"repro_torch.{name}" in mods
     from repro_torch.configs import _MODULES
     for name in _MODULES.values():
         assert f"repro_torch.configs.{name}" in mods
@@ -60,6 +64,8 @@ def test_import_every_module_without_jax_or_reference():
     "f(None, None)",
     "from repro_torch.launch.serve import main; main(['--n', '50'])",
     "from repro_torch.launch.serve import main; main(['--mode', 'generate'])",
+    "from repro_torch.launch.train import main; "
+    "main(['--arch', 'qwen1.5-4b', '--smoke', '--steps', '1'])",
 ])
 def test_entry_points_default_to_cuda_and_raise(call):
     r = _run("import torch\n"

@@ -1,11 +1,13 @@
 """The wide scan forms' candidate-list pipeline (``scan_topk_wide.cu``'s
-box and bitmask forms) as its plain twin (``ref.wide_select_twin``):
-the threshold from a sample of row tiles, the candidate lists of a given
-capacity, the exact re-pass of a query whose list overflows and the
-(distance, id) select, held to the plain versions (``ref.scan_topk_ref``,
-``scan_topk_q8_ref``, ``scan_topk_mask_ref``) and to the JAX package's
-Pallas kernels in interpret mode; then the wrapper's scratch and capacity
-plan (``ops._wide_plan``), which is pure Python.
+box, windowed and bitmask forms) as its plain twin
+(``ref.wide_select_twin``): the threshold from a sample of row tiles, the
+candidate lists of a given capacity, the exact re-pass of a query whose
+list overflows and the (distance, id) select, held to the plain versions
+(``ref.scan_topk_ref``, ``scan_topk_q8_ref``, ``scan_topk_mask_ref``,
+``scan_topk_windows_ref``), to the JAX package's plain windowed
+reference and to its Pallas kernels in interpret mode; then the
+wrapper's scratch and capacity plan (``ops._wide_plan``), which is pure
+Python.
 
 Tolerances: on 1/32-grid inputs every squared distance is exact in f32
 whatever the reduce order, so distances are compared bit for bit; on
@@ -20,10 +22,12 @@ import torch
 
 import jax.numpy as jnp
 
+from repro.kernels.ref import scan_topk_windows_ref as j_windows_ref
 from repro.kernels.scan_topk import (scan_topk_mask_raw, scan_topk_q8_raw,
-                                     scan_topk_raw)
+                                     scan_topk_raw, scan_topk_windows_raw)
 
 from repro_torch.kernels import ops, ref
+from test_torch_cuda import _windows
 
 N, D, B = 450, 24, 10
 KS = (65, 100, 400, N)
@@ -229,19 +233,118 @@ def test_twin_refuses_a_capacity_below_k():
         ref.wide_select_twin(dist, 5, torch.ones(10, dtype=torch.bool), 4)
 
 
-@pytest.mark.parametrize("mask", [False, True])
+def _win_case(seed, m, W=16):
+    """``_case``'s corpus, attrs and boxes with ``_windows``'s windows:
+    lanes whose windows nest inside the previous lane's, tile a span back
+    to back (sharing 32-row words), are one row long (rows 0 and N - 1),
+    end at N or run past it, and lane B // 2 with none."""
+    corpus, _, _, a, lo, hi, q, _ = _case(seed, m)
+    st, ct = _windows(np.random.default_rng(seed), B, N, W, "cpu")
+    return _t(corpus, a, q, lo, hi) + [st, ct]
+
+
+@pytest.mark.parametrize("sample", SAMPLES)
+@pytest.mark.parametrize("m", MS)
+@pytest.mark.parametrize("k", KS)
+def test_windows_twin_equals_references_on_grid(k, m, sample):
+    """The windowed twin bit-equal to the port's plain version and to the
+    JAX package's plain windowed reference (the Pallas kernel's oracle,
+    which takes nested and overlapping windows), ids as positions; lane B
+    // 2 (no window) and lane 0 (an empty box) get no position."""
+    c, at, qq, lo, hi, st, ct = _win_case(k + 5 * m, m)
+    stride, tile = sample
+    got = ref.scan_topk_windows_wide_twin(c, at, qq, lo, hi, st, ct, k,
+                                          stride=stride, tile=tile)
+    _equal(got, ref.scan_topk_windows_ref(c, at, qq, lo, hi, st, ct, k))
+    _equal(got, j_windows_ref(*[jnp.asarray(x.numpy()) for x in
+                                (c, at, qq, lo, hi, st, ct)], k=k))
+    assert (got[0][0] == -1).all() and (got[0][B // 2] == -1).all()
+    assert got[3] == 0
+    cbf = c.to(torch.bfloat16)                     # exact on the grid
+    _equal(ref.scan_topk_windows_wide_twin(cbf, at, qq, lo, hi, st, ct, k,
+                                           stride=stride, tile=tile),
+           got[:2])
+
+
+@pytest.mark.parametrize("k", (65, 100, N))
+@pytest.mark.parametrize("grid", [True, False])
+def test_windows_twin_matches_pallas(k, grid):
+    """Against the reference's scan_topk_windows_raw (interpret mode) on
+    disjoint windows ascending by start, as its contract asks."""
+    corpus, _, _, a, lo, hi, q, _ = _case(19 * k, 4, grid)
+    rng = np.random.default_rng(k)
+    W = 4
+    st = np.full((B, W), -1, np.int32)
+    ct = np.zeros((B, W), np.int32)
+    for b in range(1, B):
+        cut = np.sort(rng.choice(N, size=2 * W, replace=False))
+        st[b], ct[b] = cut[0::2], cut[1::2] - cut[0::2]
+    got = ref.scan_topk_windows_wide_twin(*_t(corpus, a, q, lo, hi, st, ct),
+                                          k, stride=4, tile=32)
+    want = scan_topk_windows_raw(*[jnp.asarray(x) for x in
+                                   (corpus, a, q, lo, hi, st, ct)],
+                                 k=k, w_cap=int(ct.max()), interpret=True)
+    _equal(got, want, grid)
+
+
+@pytest.mark.parametrize("k", KS)
+def test_windows_twin_forced_overflow_and_tau_bound(k):
+    """With the lists' capacity forced down to k, lanes whose windows hold
+    more than k candidates overflow and the exact re-pass gives the same
+    positions (lane 0's box is empty, the others pass every row but the
+    NaN ones, so the windows alone choose); on a corpus whose rows are all equal, ties go to the lowest
+    position. Where a lane's sample holds k passing pairs, its threshold
+    (their k-th distance) bounds the final k-th distance and the lane
+    lists at least k pairs, fewer than it passes."""
+    c, at, qq, lo, hi, st, ct = _win_case(23, 9)
+    lo[1:], hi[1:] = -1.0, float(N)    # lanes 1.. pass all but NaN rows
+    want = ref.scan_topk_windows_ref(c, at, qq, lo, hi, st, ct, k)
+    for cap in (None, k):
+        got = ref.scan_topk_windows_wide_twin(c, at, qq, lo, hi, st, ct, k,
+                                              cap=cap, stride=2, tile=32)
+        _equal(got, want)
+        assert got[3] == int((got[2] > (N if cap is None else cap)).sum())
+        if cap == k:                    # a lane with more than k overflows
+            assert (got[3] > 0) == bool((got[2] > k).any())
+            assert k >= 400 or got[3] > 0
+    flat = c[:1].expand_as(c).contiguous()
+    fw = ref.scan_topk_windows_ref(flat, at, qq, lo, hi, st, ct, k)
+    _equal(ref.scan_topk_windows_wide_twin(flat, at, qq, lo, hi, st, ct, k,
+                                           cap=k, stride=2, tile=32), fw)
+    ok = ref._box_ok(at, lo, hi) & ref._window_rows(st, ct, N)
+    dist = ((qq[:, None] - c[None]) ** 2).sum(-1)        # exact on the grid
+    dist = torch.where(ok, dist, torch.inf)
+    sampled = ok & ((torch.arange(N) // 32) % 2 == 0)
+    got = ref.scan_topk_windows_wide_twin(c, at, qq, lo, hi, st, ct, k,
+                                          stride=2, tile=32)
+    n_pass = ok.sum(1)
+    lanes = torch.nonzero(sampled.sum(1) >= k)[:, 0]
+    if k <= 100:
+        assert lanes.numel() > 0
+    for b in lanes.tolist():
+        tau = torch.sort(dist[b][sampled[b]]).values[k - 1]
+        assert got[1][b, k - 1] <= tau
+        assert k <= int(got[2][b]) <= int(n_pass[b])
+        assert int(got[2][b]) == int((dist[b] <= tau).sum())
+
+
+@pytest.mark.parametrize("form", ["box", "mask", "windows"])
 @pytest.mark.parametrize("k", [100, 400])
-def test_wide_plan_fits_the_scratch_at_the_served_shape(k, mask):
+def test_wide_plan_fits_the_scratch_at_the_served_shape(k, form):
     """B = 256, N = 1M: one chunk of every query, a list of at least 16 k
-    (the sample's inverse) keys a query, within WIDE_SCRATCH_BYTES."""
-    p = ops._wide_plan(256, 1_000_000, k, mask)
+    (the sample's inverse) keys a query, within WIDE_SCRATCH_BYTES (the
+    windowed form's coverage of the chunk in it: a bitmap row a query and
+    a byte per (query block, 64-row tile))."""
+    mask, win = form == "mask", form == "windows"
+    p = ops._wide_plan(256, 1_000_000, k, mask, win)
     assert p.chunk == 256
     assert p.cap >= 4 * ops.WIDE_SAMPLE_STRIDE * k and p.cap >= k
     assert p.scratch <= ops.WIDE_SCRATCH_BYTES
     lists = p.chunk * (8 * p.cap + 16 * k)
     rows = 4 * (1_000_000 + -(-1_000_000 // ops.MASK_SEGMENT) + 1)
+    cover = 256 * 4 * 31_250 + 4 * -(-15_625 // 4) + 4 * (1 + 3 + 1)
     assert p.scratch == lists + 12 * 256 + 4 + (
-        rows if mask else 4 * (1 + 3))
+        rows if mask else cover if win else 4 * (1 + 3))
 
 
 @pytest.mark.parametrize("B,N,k", [(1, 1, 1), (37, 1500, 1500),
