@@ -66,13 +66,17 @@ to 4 layers, 16 steps through the training launcher in bf16 with f32
 moments and gradient sums over 2 microbatches (loss finite and falling;
 step ms, tokens/s, peak memory), then at the smoke width a step on the
 card against the CPU's, a resume through a checkpoint and the int8
-all-reduce at one rank.
+all-reduce at one rank. Then the dry run (``dryrun_pass``): the training
+step's count over fake CUDA tensors equal to the card's own step's
+FLOPs and bytes, its predicted peak within 15% of the training pass's,
+its H100 roofline beside the step's time, and the dry-run CLI on the
+production mesh for qwen1.5-4b train_4k and khi-serve serve_b256.
 
     python3 chip_smoke.py                 # full run, one GPU
     python3 chip_smoke.py --n 200000      # a smaller corpus (widths kept)
     python3 chip_smoke.py --phases kernels
     python3 chip_smoke.py --phases lm     # the LM pass alone
-    python3 chip_smoke.py --phases train  # the training pass alone
+    python3 chip_smoke.py --phases train  # the training and dry-run passes
 
 The graph lanes are held to ``smoke_reference.py``, a plain numpy router,
 beam search and graph-row rule that shares no code with the port. Their
@@ -5590,7 +5594,7 @@ TRAIN_LR = 3e-4
 TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-6
 
 
-def train_pass(dev, card: str) -> None:
+def train_pass(dev, card: str) -> dict:
     """Training of the LM substrate through its launcher
     (``repro_torch.launch.train``): ``TRAIN_ARCH`` at full width in its
     configured dtype (bf16) with f32 moments and f32 gradient
@@ -5602,7 +5606,9 @@ def train_pass(dev, card: str) -> None:
     (TF32 off); a resume through a checkpoint (the launcher, deterministic
     algorithms on) reproducing the uninterrupted run's next losses and
     parameters bit for bit; ``compressed_psum`` over a one-rank NCCL group
-    equal to the int8 quantize-dequantize arithmetic in numpy."""
+    equal to the int8 quantize-dequantize arithmetic in numpy. Returns
+    the full-width run's peak bytes (``max_memory_allocated``) and median
+    step ms, which the ``[dryrun]`` pass holds its prediction to."""
     import shutil
     import socket
 
@@ -5626,7 +5632,8 @@ def train_pass(dev, card: str) -> None:
                          str(TRAIN_LR)])
     torch.cuda.reset_peak_memory_stats()
     run = T.train(args, log=lambda line: None)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak = peak_bytes / 2**30
     full = get_config(TRAIN_ARCH)
     cfg = T.cut_depth(full, TRAIN_LAYERS)
     losses = run.losses
@@ -5729,6 +5736,134 @@ def train_pass(dev, card: str) -> None:
           f"compressed_psum over a one-rank NCCL group equal to the int8 "
           f"arithmetic bit for bit; the pass took "
           f"{time.perf_counter() - t0:.1f}s; card {card}", flush=True)
+    return {"peak_bytes": peak_bytes, "step_ms": step_ms}
+
+
+# ---------------------------------------------------------------- dry run
+# of the LM substrate (ROADMAP item 17d): the count against the card
+
+DRYRUN_PEAK_TOL = 0.15        # the allocator's 512-byte blocks, cuBLAS
+DRYRUN_CELLS = (("qwen1.5-4b", "train_4k"), ("khi-serve", "serve_b256"))
+
+
+def dryrun_pass(dev, card: str, train: dict) -> None:
+    """The dry run (``repro_torch.launch.dryrun``) held to the card. (a)
+    ``count_cell`` of the ``[train]`` configuration on the one-card layout
+    ({"data": 1, "model": 1}: qwen1.5-4b at full width, ``TRAIN_LAYERS``
+    layers, ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens in ``TRAIN_MICRO``
+    microbatches) over fake CUDA tensors, then one real step of that
+    configuration on the card under ``op_cost.CountingMode``: its FLOPs
+    and bytes must equal the fake count, and the predicted peak must lie
+    within ``DRYRUN_PEAK_TOL`` of the ``[train]`` pass's
+    ``max_memory_allocated``; the roofline bound under the H100 constants
+    beside ``[train]``'s median step ms. (b) Meanwhile, in subprocesses,
+    the CLI on the production (16, 16) mesh for ``DRYRUN_CELLS`` (meta
+    tensors): status ok; per-device peak against the card's memory, the
+    dominant term, the bound and the count's seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import train as T
+    from repro_torch.launch.op_cost import CountingMode
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step
+
+    t0 = time.perf_counter()
+    out_root = os.path.join(HERE, "build", "dryrun_smoke")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(HERE, "src") + os.pathsep + \
+        env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--cell", cell, "--mesh", "single", "--out", out_root, "--force",
+         "--device", "meta"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for arch, cell in DRYRUN_CELLS]
+    try:
+        # (a) the one-card layout: the fake count, then the card's step
+        cfg = T.cut_depth(get_config(TRAIN_ARCH), TRAIN_LAYERS)
+        cells = {"train_4k": dict(kind="train", seq=TRAIN_SEQ,
+                                  batch=TRAIN_BATCH)}
+        rec = D.count_cell(TRAIN_ARCH, "train_4k", {"data": 1, "model": 1},
+                           n_micro=TRAIN_MICRO, config=cfg, cells=cells,
+                           device="cuda")
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            0), device=dev)
+        opt = init_opt_state(params)
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in lm_batch(
+            cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, step=0).items()}
+        step = make_train_step(cfg, AdamWConfig(), n_micro=TRAIN_MICRO)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        with CountingMode() as mode:
+            new = step(params, opt, batch)
+            torch.cuda.synchronize()
+            end = mode.live_bytes()
+        step_peak = torch.cuda.max_memory_allocated()
+        real = mode.cost
+        del new, params, opt, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        cnt, mem, rl = rec["counted"], rec["memory"], rec["roofline"]
+        pred = mem["peak_bytes_per_device"]
+        gap = pred / train["peak_bytes"] - 1
+        bound_ms = 1e3 * rl["bound_s"]
+        print(f"[dryrun] (a) {TRAIN_ARCH} {TRAIN_LAYERS} layers, "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MICRO} "
+              f"microbatches, one card: fake CUDA count {cnt['flops_global']:.6e}"
+              f" FLOPs, {cnt['bytes_global']:.6e} bytes ({cnt['n_ops']:.0f} "
+              f"ops; depth fitted from 1-3 layers: {cnt['depth_fit']}) in "
+              f"{rec['count_s']:.1f}s; "
+              f"the card's step {real.flops:.6e} FLOPs, "
+              f"{real.bytes_accessed:.6e} bytes ({real.n_ops} ops); tracked "
+              f"peak fake {cnt['local_peak_bytes']:.0f} / card "
+              f"{real.peak_bytes:.0f} bytes (end {end:.0f}); predicted peak "
+              f"{pred / 2**30:.3f} GiB (arguments {mem['argument_bytes']:.0f}"
+              f" + temp {mem['temp_bytes']:.0f} + outputs "
+              f"{mem['output_bytes']:.0f}) against [train]'s "
+              f"max_memory_allocated {train['peak_bytes'] / 2**30:.3f} GiB "
+              f"({100 * gap:+.2f}%; this step's own {step_peak / 2**30:.3f} "
+              f"GiB above {before / 2**30:.3f}); roofline (H100 SXM5 "
+              f"datasheet: 989.4 TFLOP/s bf16, 3.35 TB/s) compute "
+              f"{1e3 * rl['compute_s']:.2f} ms, memory "
+              f"{1e3 * rl['memory_s']:.2f} ms: bound {bound_ms:.2f} ms by "
+              f"{rl['dominant']} against [train]'s median step "
+              f"{train['step_ms']:.1f} ms, {100 * bound_ms / train['step_ms']:.1f}"
+              f"% of it; card {card}", flush=True)
+        check(real.flops == cnt["flops_global"]
+              and real.bytes_accessed == cnt["bytes_global"],
+              f"dryrun: the card's step counts {real.flops} FLOPs and "
+              f"{real.bytes_accessed} bytes, the fake count "
+              f"{cnt['flops_global']} and {cnt['bytes_global']}")
+        check(abs(gap) <= DRYRUN_PEAK_TOL,
+              f"dryrun: predicted peak {pred} bytes is {100 * gap:+.2f}% "
+              f"off the measured {train['peak_bytes']}")
+        # (b) the CLI on the production mesh
+        total = torch.cuda.get_device_properties(0).total_memory
+        for (arch, cell), p in zip(DRYRUN_CELLS, procs):
+            out, err = p.communicate(timeout=300)
+            check(p.returncode == 0, f"dryrun: the CLI failed on {arch} x "
+                  f"{cell}: {err[-2000:]}")
+            with open(os.path.join(out_root, "single",
+                                   f"{arch}__{cell}.json")) as f:
+                r = json.load(f)
+            check(r["status"] == "ok", f"dryrun: {arch} x {cell} status "
+                  f"{r['status']}: {r.get('error')}")
+            m, q = r["memory"], r["roofline"]
+            print(f"[dryrun] (b) {arch} x {cell} on the (16, 16) mesh "
+                  f"(meta tensors): peak {m['peak_bytes_per_device'] / 2**30:.3f}"
+                  f" GiB a card (temp an upper bound: {m['temp_upper_bound']})"
+                  f" of the card's {total / 2**30:.1f} GiB; bound "
+                  f"{1e3 * q['bound_s']:.3f} ms by {q['dominant']} (compute "
+                  f"{1e3 * q['compute_s']:.3f}, memory {1e3 * q['memory_s']:.3f},"
+                  f" collective {1e3 * q['collective_s']:.3f}); count_s "
+                  f"{r['count_s']:.1f}; card {card}", flush=True)
+    finally:
+        for p in procs:
+            p.kill()
+    print(f"[dryrun] the pass took {time.perf_counter() - t0:.1f}s; card "
+          f"{card}", flush=True)
 
 
 def sass_check(_build) -> None:
@@ -5821,8 +5956,12 @@ def main() -> None:
     if args.phases in ("all", "train"):
         gc.collect()
         torch.cuda.empty_cache()
-        train_pass(dev, card)
+        measured = train_pass(dev, card)
         mark("the train pass")
+        gc.collect()
+        torch.cuda.empty_cache()
+        dryrun_pass(dev, card, measured)
+        mark("the dryrun pass")
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

@@ -16,6 +16,15 @@ slices back). Every rank creates every group, in the same order, as
 On cards the backend is NCCL, one rank a card (``cuda:LOCAL_RANK``); on
 the CPU it is gloo, and only when the caller asks for ``device="cpu"``.
 ``init_query_process_group`` starts the process group that way.
+
+The production meshes of the dry run (``launch.dryrun``), ported from
+``repro.launch.mesh``: ``make_production_mesh`` lays the default group's
+256 or 512 ranks out as a ``DeviceMesh`` of shape (16, 16) with axes
+("data", "model") or (2, 16, 16) with ("pod", "data", "model"), row-major
+as the reference reshapes its devices. ``init_dryrun_process_group``
+starts torch's ``fake`` backend, whose ranks are one process and move no
+data: the counterpart of the reference's 512 fake XLA host devices.
+``mesh_axis_sizes`` and ``sharding_rules`` feed ``models.sharding``.
 """
 
 from __future__ import annotations
@@ -25,12 +34,15 @@ import datetime
 import os
 from typing import Any, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..core.util import resolve_device
 
-__all__ = ["QueryMesh", "init_query_process_group", "make_query_mesh"]
+__all__ = ["QueryMesh", "init_dryrun_process_group",
+           "init_query_process_group", "make_production_mesh",
+           "make_query_mesh", "mesh_axis_sizes", "sharding_rules"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,3 +149,69 @@ def make_query_mesh(n_model: int, n_data: int = 1, *,
                      data_index=rank // n_model,
                      model_index=rank % n_model, model_group=model_group,
                      data_group=data_group, device=dev, backend=backend)
+
+
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def init_dryrun_process_group(world_size: int) -> None:
+    """Start the default process group on torch's ``fake`` backend at
+    ``world_size`` ranks, all in this process (rank 0): a group that
+    builds meshes and moves no data. The backend lives in a private module
+    of torch; without it this raises."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(
+            "the dry run needs torch's fake process-group backend "
+            "(torch.testing._internal.distributed.fake_pg), which this "
+            f"torch {torch.__version__} does not have") from e
+    if dist.is_initialized():
+        raise RuntimeError(
+            f"a process group is already running (backend "
+            f"{dist.get_backend()!r}, {dist.get_world_size()} ranks): the "
+            "fake group of the dry run needs a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The (16, 16) ("data", "model") mesh, or with ``multi_pod`` the
+    (2, 16, 16) ("pod", "data", "model") mesh, over the default process
+    group, which must hold exactly that many ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = PRODUCTION_MESHES[bool(multi_pod)]
+    need = int(np.prod(shape))
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have != need:
+        raise RuntimeError(
+            f"mesh {shape} needs a process group of {need} ranks, have "
+            f"{have}: the dry run starts one with "
+            f"init_dryrun_process_group({need})")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def mesh_axis_sizes(mesh) -> dict:
+    """{axis name: extent} of a ``DeviceMesh``."""
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+def sharding_rules(mesh) -> dict:
+    """Logical-axis -> mesh-axis rules (models/sharding.py consumes)."""
+    names = tuple(mesh.mesh_dim_names)
+    batch_axes = tuple(a for a in ("pod", "data") if a in names)
+    return {
+        "batch": batch_axes,
+        "heads": "model",
+        "kv_heads": "model",
+        "ffn": "model",
+        "vocab": "model",
+        "experts": "model",
+        "expert_ffn": "model",
+        "seq_kv": "model",
+        "zero": "data",
+        "fsdp": "data",
+    }

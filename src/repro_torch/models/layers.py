@@ -331,9 +331,11 @@ def moe_ffn(x, p, moe, *, return_aux: bool = True):
     flat_g = gate_vals.reshape(-1)
     order = torch.argsort(flat_e, stable=True)           # group by expert
     se, st, sg = flat_e[order], flat_t[order], flat_g[order]
-    # rank within expert = position - start(expert)
-    counts = torch.bincount(se, minlength=E)
-    starts = torch.cumsum(counts, 0) - counts
+    # rank within expert = position - start(expert); each expert's start
+    # is where it first appears in the sorted order (a search, not a
+    # bincount: its shape does not depend on the data, so the step also
+    # runs over fake tensors)
+    starts = torch.searchsorted(se, torch.arange(E, device=dev))
     rank = torch.arange(T * K, device=dev) - starts[se]
     keep = rank < C                                      # token dropping
     slot = torch.where(keep, se * C + rank, E * C)
@@ -355,7 +357,9 @@ def moe_ffn(x, p, moe, *, return_aux: bool = True):
     if not return_aux:
         return out.reshape(B, S, D), 0.0
     # load-balance + router-z losses (Switch/ST-MoE style)
-    routed = F.one_hot(experts, E).sum(1) > 0
+    # the experts each token routes to (``one_hot(experts).sum(1) > 0``
+    # without one_hot's range check, a host sync)
+    routed = (experts[..., None] == torch.arange(E, device=dev)).any(1)
     frac_tokens = routed.float().mean(0)
     frac_probs = probs.mean(0)
     aux = (moe.aux_loss_weight * E * (frac_tokens * frac_probs).sum()

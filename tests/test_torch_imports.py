@@ -39,6 +39,9 @@ def test_import_every_module_without_jax_or_reference():
     for name in ("data.lm", "optim.adamw", "train.step", "train.compressed",
                  "launch.train"):
         assert f"repro_torch.{name}" in mods
+    # the production mesh and the dry run
+    for name in ("mesh", "specs", "op_cost", "roofline", "dryrun"):
+        assert f"repro_torch.launch.{name}" in mods
     from repro_torch.configs import _MODULES
     for name in _MODULES.values():
         assert f"repro_torch.configs.{name}" in mods
@@ -66,6 +69,8 @@ def test_import_every_module_without_jax_or_reference():
     "from repro_torch.launch.serve import main; main(['--mode', 'generate'])",
     "from repro_torch.launch.train import main; "
     "main(['--arch', 'qwen1.5-4b', '--smoke', '--steps', '1'])",
+    "from repro_torch.launch.dryrun import count_cell as f; "
+    "f('qwen1.5-4b', 'train_4k', {'data': 1, 'model': 1})",
 ])
 def test_entry_points_default_to_cuda_and_raise(call):
     r = _run("import torch\n"
